@@ -7,15 +7,21 @@ Run from the root of a checkout, with one NVIDIA Hopper card:
 
 Phases, each timed and printed:
   1. device   — card name and power limit; TF32 off for f32 matmuls.
-  2. build    — nvcc builds kernel K1 (csrc/flash_attn.cu) into a ctypes .so.
-  3. kernel   — K1 against its plain PyTorch version on the card.
-  4. tracker  — a tiny config on the card against the same run on the CPU,
-                then the main path: config.yaml (ViT-B/16, bf16, 1024
-                particles, 480x640 synthetic:moving-square) with the
-                committed B/16 checkpoint, 60 frames through Tracker.run;
-                checks K1's launch count, the lost flags and the RMSE.
+  2. build    — nvcc builds kernels K1 (csrc/flash_attn.cu) and K2
+                (csrc/window_patchify.cu) into ctypes .so files, both
+                compiles started together; prints the ptxas reports.
+  3. kernel   — K1 and K2 against their plain PyTorch versions on the card,
+                at the dense and crop paths' shapes and beyond.
+  4. tracker  — tiny dense and crop configs on the card against the same
+                runs on the CPU, then the two main paths, each 60 frames of
+                480x640 synthetic:moving-square through Tracker.run with
+                config.yaml's values (ViT-B/16, bf16, 1024 particles) and the
+                committed B/16 checkpoint: dense mode, and crop mode through
+                K2 (tracker.mode crop, crop_impl window-pallas). Each checks
+                its kernels' launch counts, the lost flags and the RMSE.
   5. times    — K1, its plain version and torch's scaled_dot_product_attention
-                (a yardstick the port never calls) at the tracker's shapes.
+                (a yardstick the port never calls) at the dense and crop
+                shapes; K2 and its plain version at the crop path's shape.
 
 Prints a JSON line of kernel numbers, then as its last line
 {"ok": true, "device": {...}}. Any failed check raises and exits non-zero.
@@ -25,6 +31,7 @@ It imports no JAX and no YAML parser; without a card it exits non-zero.
 from __future__ import annotations
 
 import copy
+import itertools
 import json
 import statistics
 import subprocess
@@ -39,6 +46,7 @@ from vitparticlefiltertracker_tpu_torch.config import Config
 from vitparticlefiltertracker_tpu_torch.filters import particle as pf
 from vitparticlefiltertracker_tpu_torch.io.video import open_source
 from vitparticlefiltertracker_tpu_torch.ops import _build, attention
+from vitparticlefiltertracker_tpu_torch.ops import patchify_window as pw
 from vitparticlefiltertracker_tpu_torch.runtime.tracker import Tracker, build_tracker_fns
 
 ROOT = Path(__file__).resolve().parent
@@ -87,10 +95,33 @@ FRAMES = 60
 JAX_RMSE_PX_MAX = 4.248
 RMSE_BOUND_PX = JAX_RMSE_PX_MAX + 2.0
 
+# The crop main path: the same config in crop mode with K2 (ViT-B/16 on
+# 32-px crops, 4 tokens each, position embeddings on, 256-px search window).
+CROP_OVERRIDES = {"mode": "crop", "crop_impl": "window-pallas"}
+# tools/port_rmse_reference.py --set tracker.mode=crop --set
+# tracker.crop_impl=window-pallas (the JAX package on the CPU, same clip,
+# checkpoint and 60 frames): RMSE 0.714-0.729 px over filter seeds 0-3, no
+# lost frame. Same 2 px of room as the dense path.
+JAX_CROP_RMSE_PX_MAX = 0.729
+CROP_RMSE_BOUND_PX = JAX_CROP_RMSE_PX_MAX + 2.0
+
 CHECK_SHAPES = [(1, 12, t, 64) for t in (128, 130, 196, 197, 389, 3600)] + [(49, 12, 196, 64)]
+# Crop mode: one crop (T = 4 tokens), and the main path's 1024 crops.
+CROP_CHECK_SHAPES = [(1, 12, 4, 64), (1024, 12, 4, 64)]
 TOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}  # as tests/test_attention.py
-TIME_SHAPES = [(1, 12, 196, 64), (49, 12, 196, 64)]
+TIME_SHAPES = [(1, 12, 196, 64), (49, 12, 196, 64), (1024, 12, 4, 64)]
 TIME_ITERS = 200
+
+# K2 checks: every combination, each once with a randn window and raw
+# weights and once with a 0..255 window and normalization-folded weights.
+K2_NS = (1, 5, 13, 1024)
+K2_CROPS = ((32, 16), (48, 16))  # (crop, patch)
+K2_SWINS = (64, 256)
+K2_DIMS = (128, 768)
+K2_TOL = {torch.float32: dict(atol=1e-4, rtol=1e-4),  # as tests/test_patchify_pallas.py
+          torch.bfloat16: dict(atol=0.15, rtol=0.05)}
+# The crop main path's K2 call: 1024 boxes, 256-px window, 32-px crops, D 768.
+K2_MAIN = dict(n=1024, swin=256, crop=32, patch=16, d=768)
 
 # H100 SXM published peaks (dense): bf16 tensor cores, f32 without them, HBM.
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
@@ -138,7 +169,7 @@ def time_ms(fn, iters: int = TIME_ITERS) -> float:
 def check_kernel() -> dict:
     """K1 against the plain version at every listed shape, f32 and bf16."""
     errs = {}
-    for shape in CHECK_SHAPES:
+    for shape in CHECK_SHAPES + CROP_CHECK_SHAPES:
         for dtype in (torch.float32, torch.bfloat16):
             q, k, v = qkv(shape, dtype, seed=shape[2])
             out = attention.flash_attention(q, k, v)
@@ -155,6 +186,54 @@ def check_kernel() -> dict:
     return errs
 
 
+def k2_inputs(n, swin, patch, d, dtype, raw, seed, device="cuda"):
+    """Window, boxes and weights for one K2 call. Box centres span the window
+    and 8 px past it; with n >= 4 the first four sit on its corners, so the
+    clamp-to-edge taps are read. raw: a 0..255 window with the pixel
+    normalization folded into the weights, as the tracker calls it."""
+    from vitparticlefiltertracker_tpu_torch.models.vit import VitSpec
+    from vitparticlefiltertracker_tpu_torch.runtime.tracker import _norm_folded_embed_weights
+
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    window = torch.rand((swin, swin, 3), generator=g) * 255 if raw else torch.randn((swin, swin, 3), generator=g)
+    centers = torch.rand((n, 2), generator=g) * (swin + 16) - 8
+    if n >= 4:
+        centers[:4] = torch.tensor([[0.0, 0.0], [swin - 1.0, 0.0], [0.0, swin - 1.0], [swin - 1.0, swin - 1.0]])
+    sizes = 4 + torch.rand((n, 2), generator=g) * (swin / 4)
+    kernel = torch.randn((patch * patch * 3, d), generator=g) * 0.02
+    bias = torch.randn((d,), generator=g) * 0.1
+    if raw:
+        kernel, bias = _norm_folded_embed_weights({"patch_embed": {"kernel": kernel, "bias": bias}},
+                                                  VitSpec(dim=d, patch_size=patch, dtype=torch.float32))
+    return [x.to(device) for x in (window, centers, sizes)] + [x.to(device, dtype) for x in (kernel, bias)]
+
+
+def check_window_patchify() -> dict:
+    """K2 against its plain version at every listed N, crop, Swin, D, dtype,
+    with randn and raw (folded-weight) inputs."""
+    errs = {}
+    cases = itertools.product((torch.float32, torch.bfloat16), K2_NS, K2_CROPS, K2_SWINS, K2_DIMS, (False, True))
+    for dtype, n, (crop, patch), swin, d, raw in cases:
+        window, centers, sizes, kernel, bias = k2_inputs(n, swin, patch, d, dtype, raw, seed=n + swin + d)
+        out = pw.gather_patchify_window(window, centers, sizes, crop, patch, kernel, bias)
+        torch.cuda.synchronize()
+        ref = pw.window_gather_patchify_plain(window, centers, sizes, crop, patch, kernel, bias)
+        key = (n, crop, swin, d, dtype, raw)
+        check(out.shape == ref.shape == (n, (crop // patch) ** 2, d) and out.dtype == dtype,
+              f"K2 output {tuple(out.shape)} {out.dtype} at {key}")
+        check(bool(torch.isfinite(out.float()).all()), f"K2 output finite at {key}")
+        err = float((out.float() - ref.float()).abs().max())
+        ok = torch.allclose(out.float(), ref.float(), **K2_TOL[dtype])
+        check(ok, f"K2 agrees with its plain version at {key} (max err {err})")
+        errs[key] = err
+    for dtype in (torch.float32, torch.bfloat16):
+        worst = max(e for k, e in errs.items() if k[4] == dtype)
+        print(f"  K2 {str(dtype):15s} {len(errs) // 2} cases (N {K2_NS}, (crop, patch) {K2_CROPS}, "
+              f"Swin {K2_SWINS}, D {K2_DIMS}, randn and raw windows): max_abs_err {worst:.3e} "
+              f"(tol {K2_TOL[dtype]}) ok", flush=True)
+    return errs
+
+
 TINY = {
     "model": {"variant": "custom", "depth": 2, "dim": 128, "heads": 2, "mlp_dim": 256,
               "image_size": 64, "dtype": "float32", "checkpoint": ""},
@@ -168,12 +247,14 @@ TINY = {
 # tests/test_torch_filter.py, and the main path's RMSE covers it on the card.
 TINY_NO_RESAMPLE = copy.deepcopy(TINY)
 TINY_NO_RESAMPLE["filter"]["ess_threshold"] = 0.0
+TINY_CROP_NO_RESAMPLE = copy.deepcopy(TINY_NO_RESAMPLE)
+TINY_CROP_NO_RESAMPLE["tracker"] = dict(CROP_OVERRIDES)
 
 
-def check_tracker_small() -> None:
-    """The tracker on the card (K1 inside) against the same tracker on the
-    CPU (plain attention), same weights and noise, f32, 7 steps."""
-    cfg = Config.from_dict(copy.deepcopy(TINY_NO_RESAMPLE))
+def check_tracker_small(cfg_dict: dict = TINY_NO_RESAMPLE, label: str = "tiny tracker") -> None:
+    """The tracker on the card (its kernels inside) against the same tracker
+    on the CPU (plain versions), same weights and noise, f32, 7 steps."""
+    cfg = Config.from_dict(copy.deepcopy(cfg_dict))
     src = open_source(cfg.io.source, cfg.io.num_frames, tuple(cfg.io.frame_size))
     fns = build_tracker_fns(cfg)
     cpu = Tracker(cfg, device="cpu")
@@ -197,40 +278,52 @@ def check_tracker_small() -> None:
     for i, (a, b) in enumerate(zip(out["cpu"], out["cuda"])):
         check(np.abs(a[0] - b[0]).max() < 0.5 and abs(a[1] - b[1]) < 1e-3 and a[2:] == b[2:],
               f"tiny tracker step {i}: cpu {a} vs cuda {b}")
-    print(f"  tiny tracker: cuda == cpu within 0.5 px over {len(out['cpu'])} steps", flush=True)
+    print(f"  {label}: cuda == cpu within 0.5 px over {len(out['cpu'])} steps", flush=True)
 
 
-def run_main_path() -> dict:
+def run_main_path(tracker_overrides: dict | None = None, rmse_bound: float = RMSE_BOUND_PX) -> dict:
+    """One main path, 60 frames through Tracker.run on the card. The launch
+    counts are set to 0 just before the run and read just after it."""
     cfg_dict = copy.deepcopy(SMOKE_CONFIG)
     cfg_dict["model"]["checkpoint"] = str(ROOT / CHECKPOINT)
     cfg_dict["io"]["num_frames"] = FRAMES
+    cfg_dict["tracker"].update(tracker_overrides or {})
     cfg = Config.from_dict(cfg_dict)
+    crop = cfg.tracker.mode == "crop"
     src = open_source(cfg.io.source, cfg.io.num_frames, tuple(cfg.io.frame_size), seed=cfg.filter.seed)
     tracker = Tracker(cfg, device="cuda")
     attention.flash_attention.launches = 0
+    pw.gather_patchify_window.launches = 0
     recs = list(tracker.run(src))
     launches = attention.flash_attention.launches
+    k2_launches = pw.gather_patchify_window.launches
     depth = cfg.model.depth
     probes = 0
-    if cfg.filter.lost_conf_threshold > 0 or cfg.filter.lost_conf_ratio > 0:
+    if not crop and (cfg.filter.lost_conf_threshold > 0 or cfg.filter.lost_conf_ratio > 0):
         probes = sum(r["lost"] for r in recs[:-1])  # a step probes when the state was lost
-    forwards = 1 + len(recs) + probes  # init + one per step + lost-only probes
-    print(f"  K1 launches on the main path: {launches} "
+    # init + one per step + lost-only probes (dense); crop mode adds the
+    # template EMA's forward at the estimate every step and has no probe.
+    template_forwards = len(recs) if crop and cfg.tracker.template_ema > 0 else 0
+    forwards = 1 + len(recs) + probes + template_forwards
+    print(f"  K1 launches on the {cfg.tracker.mode} path: {launches} "
           f"(expected {depth} x {forwards} forwards = {depth * forwards})", flush=True)
     check(launches == depth * forwards, f"K1 launches {launches} == {depth * forwards}")
+    k2_expected = forwards if crop else 0
+    print(f"  K2 launches on the {cfg.tracker.mode} path: {k2_launches} (expected {k2_expected})", flush=True)
+    check(k2_launches == k2_expected, f"K2 launches {k2_launches} == {k2_expected}")
     check(len(recs) == FRAMES - 1, f"{len(recs)} records for {FRAMES} frames")
     check(not any(r["lost"] for r in recs), "no record is lost")
     pos = np.array([r["position"] for r in recs])
     check(bool(np.all(np.isfinite(pos))), "positions are finite")
     err = np.linalg.norm(pos - src.truth[1:], axis=1)
     rmse = float(np.sqrt(np.mean(err**2)))
-    print(f"  RMSE {rmse:.3f} px (bound {RMSE_BOUND_PX:.2f} px), max err {err.max():.3f} px", flush=True)
-    check(rmse <= RMSE_BOUND_PX, f"RMSE {rmse} px within {RMSE_BOUND_PX} px")
+    print(f"  RMSE {rmse:.3f} px (bound {rmse_bound:.2f} px), max err {err.max():.3f} px", flush=True)
+    check(rmse <= rmse_bound, f"RMSE {rmse} px within {rmse_bound} px")
     step_ms = [r["step_ms"] for r in recs[5:]]
     med = statistics.median(step_ms)
     print(f"  step ms: median {med:.3f} (min {min(step_ms):.3f}, max {max(step_ms):.3f}) over "
           f"{len(step_ms)} frames after 5 warm-up; {1e3 / med:.1f} frames/s", flush=True)
-    return {"launches": launches, "rmse_px": rmse, "step_ms_median": med}
+    return {"launches": launches, "k2_launches": k2_launches, "rmse_px": rmse, "step_ms_median": med}
 
 
 def time_kernels() -> dict:
@@ -253,6 +346,36 @@ def time_kernels() -> dict:
     return rows
 
 
+def window_patchify_bound_ms(n, swin, crop, patch, d, dtype) -> tuple[float, str]:
+    """Least time for one K2 call: the window, boxes, weight and bias read
+    once and the tokens written once, against the embed product's
+    2·N·g²·(p²·3)·D FLOP at the weight dtype's peak (the sampling's few
+    FLOP per value are left out)."""
+    elem = torch.finfo(dtype).bits // 8
+    k, g2 = patch * patch * 3, (crop // patch) ** 2
+    nbytes = swin * swin * 3 * 4 + n * 4 * 4 + (k * d + d) * elem + n * g2 * d * elem
+    byte_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+    op_ms = 2 * n * g2 * k * d / PEAK_FLOPS[dtype] * 1e3
+    return max(byte_ms, op_ms), ("bytes" if byte_ms >= op_ms else "operations")
+
+
+def time_window_patchify() -> dict:
+    """K2 and its plain version at the crop path's shape, bf16, the tracker's
+    kind of inputs; interleaved plain, kernel, kernel, plain. No single
+    PyTorch call computes this function, so there is no library time."""
+    m = K2_MAIN
+    w, c, s_, k, b = k2_inputs(m["n"], m["swin"], m["patch"], m["d"], torch.bfloat16, raw=True, seed=11)
+    args = (w, c, s_, m["crop"], m["patch"], k, b)
+    t_plain = [time_ms(lambda: pw.window_gather_patchify_plain(*args))]
+    t_k2 = [time_ms(lambda: pw.gather_patchify_window(*args))]
+    t_k2.append(time_ms(lambda: pw.gather_patchify_window(*args)))
+    t_plain.append(time_ms(lambda: pw.window_gather_patchify_plain(*args)))
+    bound, by = window_patchify_bound_ms(m["n"], m["swin"], m["crop"], m["patch"], m["d"], torch.bfloat16)
+    print(f"  K2 N {m['n']} Swin {m['swin']} crop {m['crop']} D {m['d']} bf16: K2 {t_k2[0]:.4f}/{t_k2[1]:.4f} ms, "
+          f"plain {t_plain[0]:.4f}/{t_plain[1]:.4f} ms, bound {bound:.5f} ms ({by})", flush=True)
+    return {"ms": min(t_k2), "plain_ms": min(t_plain), "library_ms": None, "bound_ms": bound, "bound_by": by}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script needs the card",
@@ -272,42 +395,55 @@ def main() -> int:
     phase("device", t0)
 
     t0 = time.perf_counter()
-    _, rec = _build.build_library("flash_attn.cu")
-    print(f"  nvcc build: {rec['seconds']:.2f} s (built={rec['built']}) -> {rec['so']}")
-    for line in rec["ptxas"].splitlines():
-        print(f"  ptxas: {line.strip()}")
-    print(f"  dynamic shared memory per block: {_build.flash_attn_library().vpt_flash_attn_smem_bytes()} B")
+    for source, (_, rec) in _build.build_libraries(["flash_attn.cu", "window_patchify.cu"]).items():
+        print(f"  nvcc build of {source}: {rec['seconds']:.2f} s (built={rec['built']}) -> {rec['so']}")
+        for line in rec["ptxas"].splitlines():
+            print(f"  ptxas: {line.strip()}")
+    print(f"  K1 dynamic shared memory per block: {_build.flash_attn_library().vpt_flash_attn_smem_bytes()} B")
+    k2_smem = _build.window_patchify_library().vpt_window_patchify_smem_bytes(K2_MAIN["patch"], 3)
+    print(f"  K2 dynamic shared memory per block (patch {K2_MAIN['patch']}, 3 channels): {k2_smem} B")
     phase("build", t0)
 
     t0 = time.perf_counter()
     errs = check_kernel()
+    k2_errs = check_window_patchify()
     phase("kernel", t0)
 
     t0 = time.perf_counter()
     check_tracker_small()
+    check_tracker_small(TINY_CROP_NO_RESAMPLE, "tiny crop tracker (window-pallas)")
     main_path = run_main_path()
+    crop_path = run_main_path(CROP_OVERRIDES, CROP_RMSE_BOUND_PX)
     phase("tracker", t0)
 
     t0 = time.perf_counter()
     times = time_kernels()
+    k2_times = time_window_patchify()
     phase("times", t0)
 
-    main_shape = (1, 12, 196, 64)
-    k1 = dict(
-        name="flash_attention",
-        route="cuda",
-        source="vitparticlefiltertracker_tpu_torch/csrc/flash_attn.cu",
-        replaces="vitparticlefiltertracker_tpu/ops/attention.py:59",
-        launches=main_path["launches"],
-        max_abs_err=errs[(main_shape, torch.bfloat16)],
-        **times[main_shape],
-    )
+    # One entry per kernel and main path: K1 runs on both paths, at its
+    # shape there, with that path's launch count.
+    main_shape, crop_shape = (1, 12, 196, 64), (1024, 12, 4, 64)
+    k1_common = dict(name="flash_attention", route="cuda",
+                     source="vitparticlefiltertracker_tpu_torch/csrc/flash_attn.cu",
+                     replaces="vitparticlefiltertracker_tpu/ops/attention.py:59")
+    k1 = dict(**k1_common, path="dense", shape=list(main_shape), launches=main_path["launches"],
+              max_abs_err=errs[(main_shape, torch.bfloat16)], **times[main_shape])
+    k1_crop = dict(**k1_common, path="crop", shape=list(crop_shape), launches=crop_path["launches"],
+                   max_abs_err=errs[(crop_shape, torch.bfloat16)], **times[crop_shape])
+    m = K2_MAIN
+    k2 = dict(name="gather_patchify_window", route="cuda",
+              source="vitparticlefiltertracker_tpu_torch/csrc/window_patchify.cu",
+              replaces="vitparticlefiltertracker_tpu/ops/patchify_pallas.py:59",
+              path="crop", shape=[m["n"], m["swin"], m["crop"], m["d"]], launches=crop_path["k2_launches"],
+              max_abs_err=k2_errs[(m["n"], m["crop"], m["swin"], m["d"], torch.bfloat16, True)], **k2_times)
     batched = times[(49, 12, 196, 64)]
     print(json.dumps({"shape_49x12x196x64_bf16": batched, "step_ms_median": main_path["step_ms_median"],
-                      "rmse_px": main_path["rmse_px"]}))
+                      "rmse_px": main_path["rmse_px"], "crop_step_ms_median": crop_path["step_ms_median"],
+                      "crop_rmse_px": crop_path["rmse_px"]}))
     print(f"[phase] total: {time.perf_counter() - t_start:.2f} s", flush=True)
     print(f"card: {smi}")
-    print(json.dumps({"kernels": [k1]}))
+    print(json.dumps({"kernels": [k1, k1_crop, k2]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
     return 0

@@ -1,5 +1,5 @@
-"""On-card tests of the port (marker `cuda`): kernel K1 against its plain
-version, and the tracker's main path through it.
+"""On-card tests of the port (marker `cuda`): kernels K1 and K2 against
+their plain versions, and the tracker's dense and crop paths through them.
 
 Whether a card is present is decided inside the `cuda_device` fixture, never
 at import or collection, so every worker collects the same tests; without a
@@ -13,8 +13,10 @@ import numpy as np
 import pytest
 import torch
 
+from chip_smoke import K2_TOL, k2_inputs  # K2's inputs and tolerances (as tests/test_patchify_pallas.py)
 from vitparticlefiltertracker_tpu_torch.config import Config
 from vitparticlefiltertracker_tpu_torch.ops import attention
+from vitparticlefiltertracker_tpu_torch.ops import patchify_window as pw
 
 pytestmark = pytest.mark.cuda
 
@@ -30,7 +32,7 @@ def cuda_device():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("t", [1, 17, 64, 128, 130, 196, 197, 389])
+@pytest.mark.parametrize("t", [1, 4, 17, 64, 128, 130, 196, 197, 389])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_kernel_matches_plain_version(cuda_device, t, dtype):
     g = torch.Generator(device=cuda_device).manual_seed(t)
@@ -41,6 +43,43 @@ def test_kernel_matches_plain_version(cuda_device, t, dtype):
     assert attention.flash_attention.launches == before + 1
     ref = attention.reference_attention(q, k, v)
     torch.testing.assert_close(out.float(), ref.float(), rtol=TOL[dtype], atol=TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernel_at_crop_mode_shape(cuda_device, dtype):
+    """K1 as crop mode runs it: T = 4 tokens, a batch of 1024 crops."""
+    g = torch.Generator(device=cuda_device).manual_seed(4)
+    q, k, v = (torch.randn((1024, 12, 4, 64), generator=g, device=cuda_device).to(dtype) for _ in range(3))
+    out = attention.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    ref = attention.reference_attention(q, k, v)
+    torch.testing.assert_close(out.float(), ref.float(), rtol=TOL[dtype], atol=TOL[dtype])
+
+
+@pytest.mark.parametrize("n", [1, 5, 13, 1024])
+@pytest.mark.parametrize("crop", [32, 48])
+@pytest.mark.parametrize("swin,d", [(64, 128), (256, 768)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("raw", [False, True])
+def test_window_patchify_kernel_matches_plain_version(cuda_device, n, crop, swin, d, dtype, raw):
+    window, centers, sizes, kernel, bias = k2_inputs(n, swin, 16, d, dtype, raw, seed=n, device=cuda_device)
+    before = pw.gather_patchify_window.launches
+    out = pw.window_gather_patchify(window, centers, sizes, crop, 16, kernel, bias)
+    torch.cuda.synchronize()
+    assert pw.gather_patchify_window.launches == before + 1
+    ref = pw.window_gather_patchify_plain(window, centers, sizes, crop, 16, kernel, bias)
+    assert out.shape == ref.shape == (n, (crop // 16) ** 2, d) and out.dtype == dtype
+    torch.testing.assert_close(out.float(), ref.float(), **K2_TOL[dtype])
+
+
+def test_window_patchify_kernel_refuses_what_it_does_not_take(cuda_device):
+    window, centers, sizes, kernel, bias = k2_inputs(3, 64, 16, 128, torch.float32, False, seed=3, device=cuda_device)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        pw.gather_patchify_window(window, centers, sizes, 32, 16, kernel.half(), bias.half())
+    with pytest.raises(ValueError, match="multiple"):
+        pw.gather_patchify_window(window, centers, sizes, 40, 16, kernel, bias)
+    with pytest.raises(ValueError, match="contiguous"):
+        pw.gather_patchify_window(window, centers.t().contiguous().t(), sizes, 32, 16, kernel, bias)
 
 
 def test_kernel_extreme_logits_finite(cuda_device):
@@ -74,4 +113,27 @@ def test_tracker_main_path_launches_kernel(cuda_device):
     attention.flash_attention.launches = 0
     recs = list(tr.run(src))
     assert attention.flash_attention.launches == 2 * 6  # depth x (init + 5 steps)
+    assert np.all(np.isfinite([r["position"] for r in recs]))
+
+
+def test_crop_tracker_launches_both_kernels(cuda_device):
+    """Crop mode, window-pallas: K2 once per forward (init, every step, every
+    template update), K1 depth times per forward; no lost-probe."""
+    from vitparticlefiltertracker_tpu_torch.io.video import open_source
+    from vitparticlefiltertracker_tpu_torch.runtime.tracker import Tracker
+
+    cfg = Config.from_dict({
+        "model": {"variant": "custom", "depth": 2, "dim": 128, "heads": 2, "mlp_dim": 256,
+                  "image_size": 64, "dtype": "bfloat16", "checkpoint": ""},
+        "filter": {"num_particles": 256},
+        "tracker": {"mode": "crop", "crop_impl": "window-pallas"},
+    })
+    src = open_source("synthetic:moving-square", 6, (224, 224))
+    tr = Tracker(copy.deepcopy(cfg), device="cuda")
+    attention.flash_attention.launches = 0
+    pw.gather_patchify_window.launches = 0
+    recs = list(tr.run(src))
+    forwards = 1 + 2 * len(recs)  # init, then a particle forward and a template forward a step
+    assert pw.gather_patchify_window.launches == forwards
+    assert attention.flash_attention.launches == 2 * forwards
     assert np.all(np.isfinite([r["position"] for r in recs]))

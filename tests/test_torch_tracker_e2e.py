@@ -1,4 +1,4 @@
-"""Port parity: the dense tracker end to end
+"""Port parity: the tracker end to end, dense and crop mode
 (vitparticlefiltertracker_tpu_torch/runtime/tracker.py).
 
 synthetic:moving-square goes through both packages in f32 with a tiny ViT,
@@ -40,6 +40,12 @@ BASE = {
 }
 LOST = copy.deepcopy(BASE)
 LOST["filter"]["lost_conf_ratio"] = 0.97  # fires on some frames: probe, coast, frozen window
+
+
+def _crop(impl):
+    d = copy.deepcopy(BASE)
+    d["tracker"] = {"mode": "crop", "crop_impl": impl}
+    return d
 
 
 def _run_both(cfg_dict, tmp_path=None):
@@ -119,6 +125,16 @@ def test_dense_tracker_lost_gate_matches_jax(tmp_path):
         np.testing.assert_array_equal(d, c, err_msg=k)
 
 
+@pytest.mark.parametrize("impl", ["frame", "window", "window-pallas"])
+def test_crop_tracker_matches_jax(impl):
+    """Crop mode, each crop_impl (the JAX package takes its XLA path for
+    window-pallas on the CPU; the port its plain version): position within
+    0.5 px, flags exact, conf within 1e-3, as for dense mode."""
+    jouts, touts, _, _ = _run_both(_crop(impl))
+    _compare(jouts, touts)
+    assert not any(bool(o.lost) for o in touts)
+
+
 def test_tracker_class_runs_and_resumes_on_cpu(tmp_path):
     cfg = TConfig.from_dict(copy.deepcopy(BASE))
     src = t_open_source(cfg.io.source, 5, tuple(cfg.io.frame_size), seed=0)
@@ -141,8 +157,7 @@ def test_tracker_class_runs_and_resumes_on_cpu(tmp_path):
 
 
 def test_unported_options_raise():
-    for section, key, val in [("tracker", "mode", "crop"),
-                              ("tracker", "redetect_global_after", 3)]:
+    for section, key, val in [("tracker", "redetect_global_after", 3)]:
         d = copy.deepcopy(BASE)
         d[section][key] = val
         if key == "redetect_global_after":

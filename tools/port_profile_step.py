@@ -5,15 +5,20 @@ Runs the main path of chip_smoke.py (config.yaml, the B/16 checkpoint,
 480x640 synthetic:moving-square) for --warmup frames, then profiles
 --frames steps with torch.profiler and prints: the host-clock step time,
 the device-busy share (summed kernel time over the window's wall time), and
-the kernels with the most device time. Imports only the port; needs a card.
+the kernels with the most device time. Each --set section.key=value
+(repeatable; the value read as JSON, else as a string) overrides the
+config, so the crop main path is one option away. Imports only the port;
+needs a card.
 
 Usage: python3 tools/port_profile_step.py [--frames 20] [--warmup 10] [--top 15]
+           [--set tracker.mode=crop --set tracker.crop_impl=window-pallas]
 """
 
 from __future__ import annotations
 
 import argparse
 import copy
+import json
 import os
 import sys
 import time
@@ -35,6 +40,7 @@ def main() -> int:
     ap.add_argument("--frames", type=int, default=20)
     ap.add_argument("--warmup", type=int, default=10)
     ap.add_argument("--top", type=int, default=15)
+    ap.add_argument("--set", dest="overrides", action="append", default=[], metavar="SECTION.KEY=VALUE")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("needs a CUDA device", file=sys.stderr)
@@ -45,6 +51,13 @@ def main() -> int:
     d["model"]["checkpoint"] = str(chip_smoke.ROOT / chip_smoke.CHECKPOINT)
     n_total = 1 + args.warmup + args.frames
     d["io"]["num_frames"] = n_total
+    for item in args.overrides:
+        path, value = item.split("=", 1)
+        section, key = path.split(".", 1)
+        try:
+            d.setdefault(section, {})[key] = json.loads(value)
+        except json.JSONDecodeError:
+            d[section][key] = value
     cfg = Config.from_dict(d)
     src = open_source(cfg.io.source, n_total, tuple(cfg.io.frame_size), seed=cfg.filter.seed)
     tr = Tracker(cfg, device="cuda")
@@ -65,7 +78,7 @@ def main() -> int:
             if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
     busy_us = sum(e.self_device_time_total for e in rows)
     launches = sum(e.count for e in rows)
-    print(f"card: {torch.cuda.get_device_name(0)}")
+    print(f"card: {torch.cuda.get_device_name(0)}; overrides {args.overrides}")
     print(f"steps {args.frames}: wall {wall_us / args.frames / 1e3:.3f} ms/step (profiler on), "
           f"device busy {busy_us / args.frames / 1e3:.3f} ms/step = {100 * busy_us / wall_us:.1f}% "
           f"of wall, {launches / args.frames:.0f} kernels/step")

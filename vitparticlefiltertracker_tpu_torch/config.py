@@ -137,7 +137,12 @@ class FilterConfig:
 
 @dataclass
 class TrackerConfig:
-    """Tracker orchestration; the port runs mode "dense" only so far."""
+    """Tracker orchestration. Mode "dense" pools every particle from one
+    search-window forward; mode "crop" embeds one crop_size crop per particle
+    in one batched forward. crop_impl (crop mode): "frame" samples the crops
+    from the frame through a crop_region x crop_region region per particle;
+    "window" and "window-pallas" sample them from one window_size resampled
+    search window, "window-pallas" through kernel K2 on CUDA tensors."""
 
     mode: str = "dense"  # "dense" | "crop"
     search_scale: float = 4.0

@@ -147,12 +147,12 @@ def cast_for_inference(params: dict, spec: VitSpec) -> dict:
 
 def resolve_vit_params(cfg, vit_params=None, device="cpu") -> dict:
     """Load cfg.model.checkpoint (or random-init) unless weights are given,
-    drop a checkpoint's residual head, and pre-cast for inference."""
+    drop a checkpoint's residual head, and pre-cast for inference. In crop
+    mode a random init sizes pos_embed for one crop (g*g rows); a
+    checkpoint keeps its own, of which the tracker reads the first g*g."""
     spec = VitSpec.from_config(cfg.model)
-    if cfg.tracker.mode != "dense":
-        raise NotImplementedError(
-            "tracker.mode 'crop' is not ported yet; see ROADMAP.md, open items"
-        )
+    if cfg.tracker.mode == "crop":
+        spec = spec._replace(image_size=cfg.tracker.crop_size)
     if vit_params is None:
         vit_params = load_or_init(cfg.model.checkpoint, spec, cfg.filter.seed, device)
     else:

@@ -80,6 +80,15 @@ def build_library(source: str) -> tuple[ctypes.CDLL, dict]:
     return lib, record
 
 
+def build_libraries(sources: list[str]) -> dict[str, tuple[ctypes.CDLL, dict]]:
+    """build_library for each source, the nvcc processes all started together
+    (one thread each; the compiles run in parallel)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(max_workers=len(sources)) as pool:
+        return dict(zip(sources, pool.map(build_library, sources)))
+
+
 def flash_attn_library() -> ctypes.CDLL:
     """The attention kernel's library, with argtypes set (pointers and the
     stream as c_void_p, so 64-bit addresses are not cut to 32 bits)."""
@@ -91,4 +100,18 @@ def flash_attn_library() -> ctypes.CDLL:
         fn.restype = ctypes.c_int
         lib.vpt_flash_attn_smem_bytes.argtypes = []
         lib.vpt_flash_attn_smem_bytes.restype = ctypes.c_int
+    return lib
+
+
+def window_patchify_library() -> ctypes.CDLL:
+    """The fused window gather+patchify+embed kernel's library (K2), with
+    argtypes set as for flash_attn_library."""
+    lib, _ = build_library("window_patchify.cu")
+    fn = lib.vpt_window_patchify_fwd
+    if fn.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, i, p]
+        fn.restype = ctypes.c_int
+        lib.vpt_window_patchify_smem_bytes.argtypes = [i, i]
+        lib.vpt_window_patchify_smem_bytes.restype = ctypes.c_int
     return lib

@@ -1,9 +1,10 @@
-"""Vision ops for the dense tracker: normalization, hat-weight window
-extraction and ROI pooling — the dense subset of the JAX package's
-``ops/image.py``.
+"""Vision ops for the tracker: normalization, bilinear sampling, window
+extraction and ROI pooling — the port of the JAX package's ``ops/image.py``
+(without its streaming views).
 
 Arbitrary float window positions and sizes are handled by resampling onto a
-fixed grid. Bilinear interpolation is written as a dense "hat weight" matrix,
+fixed grid. ``bilinear_sample`` gathers 4 taps per point; the ``*_mxu``
+functions write the same interpolation as a dense "hat weight" matrix,
 W[i, r] = max(0, 1 - |t_i - r|), so a resample is two matrix products and
 ROI pooling is a weighted sum over the token grid.
 """
@@ -24,6 +25,36 @@ def normalize_frame(frame: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
     mean = torch.tensor(IMAGENET_MEAN, dtype=dtype, device=frame.device)
     std = torch.tensor(IMAGENET_STD, dtype=dtype, device=frame.device)
     return (x - mean) / std
+
+
+def bilinear_sample(img: torch.Tensor, ys: torch.Tensor, xs: torch.Tensor) -> torch.Tensor:
+    """Sample img [H, W, C] at float coords (ys, xs) [...], clamp-to-edge.
+
+    Coordinates are pixel-centred: (0, 0) is the centre of the top-left
+    pixel. Returns [..., C]: 4 taps at floor(t) and min(floor(t) + 1, size - 1)
+    per axis, then the lerp, in the JAX package's order of operations.
+    """
+    h, w = img.shape[0], img.shape[1]
+    ys = torch.clamp(ys, 0.0, h - 1.0)
+    xs = torch.clamp(xs, 0.0, w - 1.0)
+    y0f = torch.floor(ys)
+    x0f = torch.floor(xs)
+    wy = (ys - y0f)[..., None]
+    wx = (xs - x0f)[..., None]
+    y0 = y0f.to(torch.int64)
+    x0 = x0f.to(torch.int64)
+    y1 = torch.clamp(y0 + 1, max=h - 1)
+    x1 = torch.clamp(x0 + 1, max=w - 1)
+    flat = img.reshape(h * w, -1)
+
+    def take(yi, xi):
+        return flat[yi * w + xi]
+
+    v00, v01 = take(y0, x0), take(y0, x1)
+    v10, v11 = take(y1, x0), take(y1, x1)
+    top = v00 * (1 - wx) + v01 * wx
+    bot = v10 * (1 - wx) + v11 * wx
+    return top * (1 - wy) + bot * wy
 
 
 def hat_weights(coords: torch.Tensor, size: int, dtype=torch.float32) -> torch.Tensor:
@@ -94,6 +125,15 @@ def window_grid(
     ys = center[1] + side * t
     xs = center[0] + side * t
     return ys[:, None].expand(out_size, out_size), xs[None, :].expand(out_size, out_size)
+
+
+def extract_window(
+    img: torch.Tensor, center: torch.Tensor, side: torch.Tensor, out_size: int
+) -> torch.Tensor:
+    """Resample a square window (any float center and side) to [out, out, C]
+    by gathering; extract_window_mxu computes the same with two products."""
+    ys, xs = window_grid(center, side, out_size)
+    return bilinear_sample(img, ys, xs)
 
 
 def frame_to_window_coords(

@@ -1,16 +1,20 @@
-"""Tracker orchestration: init(frame, bbox) / step(frame) — the dense-mode
-port of the JAX package's ``runtime/tracker.py``.
+"""Tracker orchestration: init(frame, bbox) / step(frame) — the port of the
+JAX package's ``runtime/tracker.py``.
 
-One step: propagate -> window extraction -> one ViT forward -> fused
-per-cell cosine scoring -> masked z-norm -> pf_update -> template EMA with
-anchor mix -> lost and coast bookkeeping. The JAX version is one jitted
-program with ``lax.cond`` for the lost-only probe; here PyTorch runs eagerly
-and the probe is a host branch on the lost flag.
+A dense-mode step: propagate -> window extraction -> one ViT forward ->
+fused per-cell cosine scoring -> masked z-norm -> pf_update -> template EMA
+with anchor mix -> lost and coast bookkeeping. A crop-mode step samples one
+crop per particle instead (``tracker.crop_impl``: from the frame, or from one
+resampled search window through the plain version or kernel K2), embeds all
+N crops in one ViT forward with position embeddings, mean-pools them and
+scores each against the template. The JAX version is one jitted program
+with ``lax.cond`` for the lost-only probe; here PyTorch runs eagerly and the
+probe (dense mode only) is a host branch on the lost flag.
 
-Ported: dense mode with the lost gate and probe, template EMA and anchor,
-coasting, the Tracker class and the name-keyed state npz shared with the JAX
-package. Not ported yet (raise NotImplementedError, see ROADMAP.md): crop
-mode, the residual head and its automatic blend, global re-detection.
+Ported: dense and crop mode with the lost gate and probe, template EMA and
+anchor, coasting, the Tracker class and the name-keyed state npz shared with
+the JAX package. Not ported yet (raise NotImplementedError, see
+ROADMAP.md): the residual head and its automatic blend, global re-detection.
 """
 
 from __future__ import annotations
@@ -33,12 +37,25 @@ from vitparticlefiltertracker_tpu_torch.filters.particle import (
     propagate,
 )
 from vitparticlefiltertracker_tpu_torch.models.embedder import DenseEmbedSpec, make_dense_embedder
-from vitparticlefiltertracker_tpu_torch.models.vit import VitSpec
-from vitparticlefiltertracker_tpu_torch.ops.image import IMAGENET_MEAN, IMAGENET_STD, full_view
+from vitparticlefiltertracker_tpu_torch.models.vit import VitSpec, encode_tokens, pool_tokens
+from vitparticlefiltertracker_tpu_torch.ops.image import (
+    IMAGENET_MEAN,
+    IMAGENET_STD,
+    FrameView,
+    frame_to_window_coords,
+    full_view,
+    view_extract_window_mxu,
+)
 from vitparticlefiltertracker_tpu_torch.ops.likelihood import (
     cosine_log_likelihood,
     l2_normalize_split,
+    znormed_log_likelihood,
     znormed_logits_from_cos,
+)
+from vitparticlefiltertracker_tpu_torch.ops.patchify import gather_patchify
+from vitparticlefiltertracker_tpu_torch.ops.patchify_window import (
+    window_gather_patchify,
+    window_gather_patchify_plain,
 )
 from vitparticlefiltertracker_tpu_torch.utils.platform import resolve_device
 
@@ -131,7 +148,7 @@ class _Fns(NamedTuple):
 
 
 def build_tracker_fns(cfg: Config) -> _Fns:
-    """Build (init_fn, step_fn) for a dense-mode config.
+    """Build (init_fn, step_fn) for a dense- or crop-mode config.
 
     init(params, frame, bbox, seed, cloud=None) -> TrackerState
     step(params, state, frame, noise=None) -> (TrackerState, TrackOutput)
@@ -142,8 +159,7 @@ def build_tracker_fns(cfg: Config) -> _Fns:
     """
     t = cfg.tracker
     m = cfg.model
-    if t.mode != "dense":
-        raise NotImplementedError("tracker.mode 'crop' is not ported yet; see ROADMAP.md, open items")
+    mode = t.mode
     if m.head_blend_auto:
         raise NotImplementedError("model.head_blend_auto is not ported yet; see ROADMAP.md, open items")
     if t.redetect_global_after > 0:
@@ -151,8 +167,14 @@ def build_tracker_fns(cfg: Config) -> _Fns:
             "tracker.redetect_global_after > 0 (global re-detection) is not "
             "ported yet; see ROADMAP.md, open items"
         )
-    es = DenseEmbedSpec.from_config(cfg)
-    split = es.split
+    if mode == "crop":
+        # Each crop is its own image of crop_size px, position embeddings on
+        # (the first g*g rows of pos_embed).
+        spec = VitSpec.from_config(m)._replace(image_size=t.crop_size)
+        split = None
+    else:
+        es = DenseEmbedSpec.from_config(cfg)
+        split = es.split
     pfp = _pf_params(cfg)
     n = cfg.filter.num_particles
     temp = cfg.filter.likelihood_temp
@@ -168,6 +190,35 @@ def build_tracker_fns(cfg: Config) -> _Fns:
     def f32(x, dev):
         return torch.tensor(x, dtype=torch.float32, device=dev)
 
+    def crop_embeddings(prm, view: FrameView, center, side, boxes_xy, boxes_wh):
+        """Gather + patchify + embed every box's crop, then one batched ViT
+        forward -> ([N, D] pooled embeddings, [N] all-True validity)."""
+        kern, bias = _norm_folded_embed_weights(prm, spec)
+        if t.crop_impl == "frame":
+            # Sample in the view's pixel coordinates.
+            inv = 1.0 / float(view.stride)
+            tokens = gather_patchify(
+                view.pixels, (boxes_xy - view.origin) * inv, boxes_wh * inv,
+                t.crop_size, m.patch_size, kern, bias, region=t.crop_region,
+            )
+        else:
+            # Two stages: resample one search window, then every particle's
+            # crop from it (K2 on the card for window-pallas).
+            swin = t.window_size
+            window = view_extract_window_mxu(view, center, side, swin)
+            ctr_win = frame_to_window_coords(boxes_xy, center, side, swin)
+            wh_win = boxes_wh * (swin / side)
+            embed = window_gather_patchify if t.crop_impl == "window-pallas" else window_gather_patchify_plain
+            tokens = embed(window, ctr_win, wh_win, t.crop_size, m.patch_size, kern, bias)
+        feats = encode_tokens(prm, tokens, spec)
+        ok = torch.ones(boxes_xy.shape[0], dtype=torch.bool, device=boxes_xy.device)
+        return pool_tokens(feats, spec), ok
+
+    def make_embedder(prm, view: FrameView, center, side):
+        if mode == "dense":
+            return make_dense_embedder(prm, view, center, side, es)
+        return lambda bxy, bwh: crop_embeddings(prm, view, center, side, bxy, bwh)
+
     def init_fn(prm, frame, bbox: torch.Tensor, seed: int, cloud=None) -> TrackerState:
         """bbox: [4] (x, y, w, h) frame px. Template and cloud init."""
         dev = bbox.device
@@ -175,7 +226,7 @@ def build_tracker_fns(cfg: Config) -> _Fns:
         center = bbox[:2] + bbox[2:] / 2.0
         box_wh = bbox[2:]
         side = _window_side(box_wh, 1.0, t.search_scale)
-        emb, _ = make_dense_embedder(prm, view, center, side, es)(center[None], box_wh[None])
+        emb, _ = make_embedder(prm, view, center, side)(center[None], box_wh[None])
         template = l2_normalize_split(emb[0].float(), split)
         pf = init_state(seed, center, n, pfp, cloud=cloud)
         return TrackerState(
@@ -213,7 +264,7 @@ def build_tracker_fns(cfg: Config) -> _Fns:
         side = side * torch.where(state.lost, f32(t.redetect_window_boost, dev), f32(1.0, dev))
         boxes_xy = particles[:, 0:2]
         boxes_wh = state.box_wh[None, :] * torch.exp(particles[:, 4:5])
-        pool = make_dense_embedder(prm, view, state.center, side, es)
+        pool = make_embedder(prm, view, state.center, side)
         # Matching template: adaptive EMA blended with the immutable anchor.
         if anchor_mix > 0.0 and ema > 0.0:
             tmpl = l2_normalize_split(
@@ -221,13 +272,20 @@ def build_tracker_fns(cfg: Config) -> _Fns:
             )
         else:
             tmpl = state.template
-        cos, in_win = pool.score(tmpl, boxes_xy, boxes_wh)
-        if use_znorm:
-            # Masked stats: out-of-window particles' clamped-edge cosines
-            # must not skew mu/sd.
-            loglik = znormed_logits_from_cos(cos, zscale, mask=in_win)
+        if mode == "dense":
+            cos, in_win = pool.score(tmpl, boxes_xy, boxes_wh)
+            if use_znorm:
+                # Masked stats: out-of-window particles' clamped-edge cosines
+                # must not skew mu/sd.
+                loglik = znormed_logits_from_cos(cos, zscale, mask=in_win)
+            else:
+                loglik = temp * cos
         else:
-            loglik = temp * cos
+            emb, in_win = pool(boxes_xy, boxes_wh)
+            if use_znorm:
+                loglik, cos = znormed_log_likelihood(emb, tmpl, zscale, mask=in_win, split=split)
+            else:
+                loglik, cos = cosine_log_likelihood(emb, tmpl, temp, split=split)
         loglik = torch.where(in_win, loglik, loglik - 1e4)
 
         out = pf_update(particles, state.pf.log_weights, loglik, noise.resample_u, pfp)
@@ -239,10 +297,11 @@ def build_tracker_fns(cfg: Config) -> _Fns:
         est_scale = torch.exp(est[4])
         # Confidence = best valid cosine; all-out-of-window gives -1.
         conf = torch.max(torch.where(in_win, cos, f32(-1.0, dev)))
-        if (lost_thresh > 0.0 or lost_ratio > 0.0) and bool(state.lost):
+        if mode == "dense" and (lost_thresh > 0.0 or lost_ratio > 0.0) and bool(state.lost):
             # While lost the window is boosted, which depresses every cosine;
             # probe the estimate through an unboosted window instead (one
-            # extra ViT forward, on lost frames only).
+            # extra ViT forward, on lost frames only). Crop mode embeds at
+            # the box's own scale already and has no probe.
             side0 = _window_side(state.box_wh, state.prev_scale, t.search_scale)
             pool_p = make_dense_embedder(prm, view, est_xy, side0, es)
             emb_p, ok_p = pool_p(est_xy[None], (state.box_wh * est_scale)[None])
