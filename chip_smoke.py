@@ -11,17 +11,21 @@ Phases, each timed and printed:
                 (csrc/window_patchify.cu) into ctypes .so files, both
                 compiles started together; prints the ptxas reports.
   3. kernel   — K1 and K2 against their plain PyTorch versions on the card,
-                at the dense and crop paths' shapes and beyond.
+                at the dense and crop paths' shapes and beyond; K1 both on
+                views of a fused qkv activation (as the ViT passes them) and
+                on contiguous tensors.
   4. tracker  — tiny dense and crop configs on the card against the same
                 runs on the CPU, then the two main paths, each 60 frames of
                 480x640 synthetic:moving-square through Tracker.run with
                 config.yaml's values (ViT-B/16, bf16, 1024 particles) and the
                 committed B/16 checkpoint: dense mode, and crop mode through
                 K2 (tracker.mode crop, crop_impl window-pallas). Each checks
-                its kernels' launch counts, the lost flags and the RMSE.
+                its kernels' launch counts (by shape), the lost flags and the
+                RMSE.
   5. times    — K1, its plain version and torch's scaled_dot_product_attention
-                (a yardstick the port never calls) at the dense and crop
-                shapes; K2 and its plain version at the crop path's shape.
+                (a yardstick the port never calls) on fused-qkv views at the
+                dense, crop (B 1024 and B 1) and re-detection shapes; K2 and
+                its plain version at the crop path's N 1024 and N 1.
 
 Prints a JSON line of kernel numbers, then as its last line
 {"ok": true, "device": {...}}. Any failed check raises and exits non-zero.
@@ -31,12 +35,14 @@ It imports no JAX and no YAML parser; without a card it exits non-zero.
 from __future__ import annotations
 
 import copy
+import importlib.util
 import itertools
 import json
 import statistics
 import subprocess
 import sys
 import time
+from collections import Counter
 from pathlib import Path
 
 import numpy as np
@@ -47,9 +53,16 @@ from vitparticlefiltertracker_tpu_torch.filters import particle as pf
 from vitparticlefiltertracker_tpu_torch.io.video import open_source
 from vitparticlefiltertracker_tpu_torch.ops import _build, attention
 from vitparticlefiltertracker_tpu_torch.ops import patchify_window as pw
+from vitparticlefiltertracker_tpu_torch.ops.patchify import crop_sample_coords
 from vitparticlefiltertracker_tpu_torch.runtime.tracker import Tracker, build_tracker_fns
 
 ROOT = Path(__file__).resolve().parent
+# The timing helpers are shared with tools/port_k1_times.py, loaded by path
+# (tools/ is no package, and another installed "tools" would shadow it).
+_spec = importlib.util.spec_from_file_location("port_k1_times", ROOT / "tools" / "port_k1_times.py")
+_k1_times = importlib.util.module_from_spec(_spec)
+_spec.loader.exec_module(_k1_times)
+time_eager, time_graph = _k1_times.time_eager, _k1_times.time_graph
 CHECKPOINT = "checkpoints/vit_b16_tracking.npz"
 
 # config.yaml's values with one override, model.checkpoint (a CPU test holds
@@ -106,11 +119,17 @@ JAX_CROP_RMSE_PX_MAX = 0.729
 CROP_RMSE_BOUND_PX = JAX_CROP_RMSE_PX_MAX + 2.0
 
 CHECK_SHAPES = [(1, 12, t, 64) for t in (128, 130, 196, 197, 389, 3600)] + [(49, 12, 196, 64)]
-# Crop mode: one crop (T = 4 tokens), and the main path's 1024 crops.
+# Crop mode: one crop (T = 4 tokens; the template forward), and the main
+# path's 1024 crops.
 CROP_CHECK_SHAPES = [(1, 12, 4, 64), (1024, 12, 4, 64)]
+# Both of K1's paths and their edges (small T <= 16, tiled above) at the
+# head counts of the presets, and B*H = 72,000 (over a grid.y's 65,535).
+SWEEP_CHECK_SHAPES = [(2, h, t, 64) for h in (3, 12, 16) for t in (1, 4, 9, 16, 17, 64, 128, 130, 196, 197, 389)]
+WIDE_CHECK_SHAPES = [(6000, 12, 4, 64)]
+LAYOUTS = ("fused", "contiguous")
 TOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}  # as tests/test_attention.py
-TIME_SHAPES = [(1, 12, 196, 64), (49, 12, 196, 64), (1024, 12, 4, 64)]
-TIME_ITERS = 200
+DENSE_SHAPE, CROP_SHAPE, CROP_ONE_SHAPE, REDETECT_SHAPE = (1, 12, 196, 64), (1024, 12, 4, 64), (1, 12, 4, 64), (49, 12, 196, 64)
+TIME_SHAPES = [DENSE_SHAPE, CROP_SHAPE, CROP_ONE_SHAPE, REDETECT_SHAPE]
 
 # K2 checks: every combination, each once with a randn window and raw
 # weights and once with a 0..255 window and normalization-folded weights.
@@ -120,8 +139,10 @@ K2_SWINS = (64, 256)
 K2_DIMS = (128, 768)
 K2_TOL = {torch.float32: dict(atol=1e-4, rtol=1e-4),  # as tests/test_patchify_pallas.py
           torch.bfloat16: dict(atol=0.15, rtol=0.05)}
-# The crop main path's K2 call: 1024 boxes, 256-px window, 32-px crops, D 768.
+# The crop main path's K2 calls: 1024 boxes (the particles) and 1 box (the
+# template at the estimate), 256-px window, 32-px crops, D 768.
 K2_MAIN = dict(n=1024, swin=256, crop=32, patch=16, d=768)
+K2_ONE = dict(K2_MAIN, n=1)
 
 # H100 SXM published peaks (dense): bf16 tensor cores, f32 without them, HBM.
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
@@ -148,41 +169,38 @@ def attention_bound_ms(shape, dtype) -> tuple[float, str]:
     return max(byte_ms, op_ms), ("bytes" if byte_ms >= op_ms else "operations")
 
 
-def qkv(shape, dtype, seed):
+def qkv(shape, dtype, seed, layout="contiguous"):
+    """q, k, v [B, H, T, 64] on the card: views of one fused [B, T, H*3*64]
+    activation, as models/vit.py passes them ("fused"), or three contiguous
+    tensors."""
+    b, h, t, d = shape
     g = torch.Generator(device="cuda").manual_seed(seed)
+    if layout == "fused":
+        return attention.split_fused_qkv(torch.randn((b, t, h * 3 * d), generator=g, device="cuda").to(dtype), h)
     return [torch.randn(shape, generator=g, device="cuda").to(dtype) for _ in range(3)]
 
 
-def time_ms(fn, iters: int = TIME_ITERS) -> float:
-    for _ in range(10):
-        fn()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
-
-
 def check_kernel() -> dict:
-    """K1 against the plain version at every listed shape, f32 and bf16."""
+    """K1 against the plain version at every listed shape, f32 and bf16, on
+    fused-qkv views and on contiguous tensors. One line a shape."""
     errs = {}
-    for shape in CHECK_SHAPES + CROP_CHECK_SHAPES:
-        for dtype in (torch.float32, torch.bfloat16):
-            q, k, v = qkv(shape, dtype, seed=shape[2])
+    for shape in CHECK_SHAPES + CROP_CHECK_SHAPES + SWEEP_CHECK_SHAPES + WIDE_CHECK_SHAPES:
+        line = []
+        for dtype, layout in itertools.product((torch.float32, torch.bfloat16), LAYOUTS):
+            q, k, v = qkv(shape, dtype, seed=shape[0] + shape[2], layout=layout)
             out = attention.flash_attention(q, k, v)
             torch.cuda.synchronize()
             ref = attention.reference_attention(q, k, v)
             check(out.shape == ref.shape and out.dtype == dtype, f"K1 output {out.shape} {out.dtype}")
-            check(bool(torch.isfinite(out.float()).all()), f"K1 output finite at {shape} {dtype}")
+            check(bool(torch.isfinite(out.float()).all()), f"K1 output finite at {shape} {dtype} {layout}")
             err = float((out.float() - ref.float()).abs().max())
             ok = torch.allclose(out.float(), ref.float(), rtol=TOL[dtype], atol=TOL[dtype])
-            print(f"  K1 {str(dtype):15s} {str(shape):20s} max_abs_err {err:.3e} "
-                  f"(tol {TOL[dtype]:g}) {'ok' if ok else 'FAIL'}", flush=True)
-            check(ok, f"K1 agrees with its plain version at {shape} {dtype} (max err {err})")
-            errs[(shape, dtype)] = err
+            line.append(f"{'f32' if dtype == torch.float32 else 'bf16'}/{layout} {err:.3e}{'' if ok else ' FAIL'}")
+            check(ok, f"K1 agrees with its plain version at {shape} {dtype} {layout} (max err {err})")
+            errs[(shape, dtype, layout)] = err
+        print(f"  K1 {str(shape):19s} max_abs_err " + ", ".join(line), flush=True)
+    print(f"  K1: {len(errs)} checks ok (tolerance f32 {TOL[torch.float32]:g}, bf16 {TOL[torch.bfloat16]:g})",
+          flush=True)
     return errs
 
 
@@ -293,10 +311,14 @@ def run_main_path(tracker_overrides: dict | None = None, rmse_bound: float = RMS
     src = open_source(cfg.io.source, cfg.io.num_frames, tuple(cfg.io.frame_size), seed=cfg.filter.seed)
     tracker = Tracker(cfg, device="cuda")
     attention.flash_attention.launches = 0
+    attention.flash_attention.shapes = Counter()
     pw.gather_patchify_window.launches = 0
+    pw.gather_patchify_window.sizes = Counter()
     recs = list(tracker.run(src))
     launches = attention.flash_attention.launches
+    k1_shapes = dict(attention.flash_attention.shapes)
     k2_launches = pw.gather_patchify_window.launches
+    k2_sizes = dict(pw.gather_patchify_window.sizes)
     depth = cfg.model.depth
     probes = 0
     if not crop and (cfg.filter.lost_conf_threshold > 0 or cfg.filter.lost_conf_ratio > 0):
@@ -311,6 +333,18 @@ def run_main_path(tracker_overrides: dict | None = None, rmse_bound: float = RMS
     k2_expected = forwards if crop else 0
     print(f"  K2 launches on the {cfg.tracker.mode} path: {k2_launches} (expected {k2_expected})", flush=True)
     check(k2_launches == k2_expected, f"K2 launches {k2_launches} == {k2_expected}")
+    # By shape: crop mode's particle forward is at B = N particles, its init
+    # and template forwards at B = 1; dense mode's every forward at B = 1.
+    n, heads, t = cfg.filter.num_particles, cfg.model.heads, tracker.spec.seq_len
+    if crop:
+        k1_expected = {(n, heads, t): depth * len(recs), (1, heads, t): depth * (1 + template_forwards)}
+        k2_sizes_expected = {n: len(recs), 1: 1 + template_forwards}
+    else:
+        k1_expected, k2_sizes_expected = {(1, heads, t): depth * forwards}, {}
+    print(f"  K1 launches by (B, H, T): {k1_shapes} (expected {k1_expected}); "
+          f"K2 by N: {k2_sizes} (expected {k2_sizes_expected})", flush=True)
+    check(k1_shapes == k1_expected, f"K1 launches by shape {k1_shapes} == {k1_expected}")
+    check(k2_sizes == k2_sizes_expected, f"K2 launches by N {k2_sizes} == {k2_sizes_expected}")
     check(len(recs) == FRAMES - 1, f"{len(recs)} records for {FRAMES} frames")
     check(not any(r["lost"] for r in recs), "no record is lost")
     pos = np.array([r["position"] for r in recs])
@@ -323,54 +357,81 @@ def run_main_path(tracker_overrides: dict | None = None, rmse_bound: float = RMS
     med = statistics.median(step_ms)
     print(f"  step ms: median {med:.3f} (min {min(step_ms):.3f}, max {max(step_ms):.3f}) over "
           f"{len(step_ms)} frames after 5 warm-up; {1e3 / med:.1f} frames/s", flush=True)
-    return {"launches": launches, "k2_launches": k2_launches, "rmse_px": rmse, "step_ms_median": med}
+    return {"launches": launches, "k1_shapes": k1_shapes, "k2_launches": k2_launches, "k2_sizes": k2_sizes,
+            "rmse_px": rmse, "step_ms_median": med}
 
 
 def time_kernels() -> dict:
+    """K1, its plain version and sdpa on the fused-qkv views the main path
+    passes, bf16. Each is timed on the card (CUDA graph replay, the numbers
+    kept) and as an eager loop of launches (which the host's launch rate can
+    bound at small shapes); interleaved plain, kernel, library, kernel,
+    plain in each."""
     sdpa = torch.nn.functional.scaled_dot_product_attention
     rows = {}
     for shape in TIME_SHAPES:
-        q, k, v = qkv(shape, torch.bfloat16, seed=7)
-        # Interleaved: plain, kernel, library, kernel, plain.
-        t_plain = [time_ms(lambda: attention.reference_attention(q, k, v))]
-        t_k1 = [time_ms(lambda: attention.flash_attention(q, k, v))]
-        t_lib = time_ms(lambda: sdpa(q, k, v))
-        t_k1.append(time_ms(lambda: attention.flash_attention(q, k, v)))
-        t_plain.append(time_ms(lambda: attention.reference_attention(q, k, v)))
+        q, k, v = qkv(shape, torch.bfloat16, seed=7, layout="fused")
+        fns = {"plain": lambda: attention.reference_attention(q, k, v),
+               "k1": lambda: attention.flash_attention(q, k, v), "sdpa": lambda: sdpa(q, k, v)}
+        order = ("plain", "k1", "sdpa", "k1", "plain")
+        dev = {name: [] for name in fns}
+        eager = {name: [] for name in fns}
+        for name in order:
+            dev[name].append(time_graph(fns[name]))
+        for name in order:
+            eager[name].append(time_eager(fns[name])[0])
         bound, by = attention_bound_ms(shape, torch.bfloat16)
-        rows[shape] = {"ms": min(t_k1), "plain_ms": min(t_plain), "library_ms": t_lib,
-                       "bound_ms": bound, "bound_by": by}
-        print(f"  {str(shape):18s} bf16: K1 {t_k1[0]:.4f}/{t_k1[1]:.4f} ms, plain "
-              f"{t_plain[0]:.4f}/{t_plain[1]:.4f} ms, sdpa {t_lib:.4f} ms, bound {bound:.5f} ms ({by})",
-              flush=True)
+        rows[shape] = {"ms": min(dev["k1"]), "plain_ms": min(dev["plain"]), "library_ms": dev["sdpa"][0],
+                       "bound_ms": bound, "bound_by": by, "eager_ms": min(eager["k1"]),
+                       "eager_plain_ms": min(eager["plain"]), "eager_library_ms": eager["sdpa"][0]}
+        fmt = lambda xs: "/".join(f"{x:.4f}" for x in xs)  # noqa: E731
+        print(f"  {str(shape):18s} bf16 fused views, device (graph): K1 {fmt(dev['k1'])} ms, plain "
+              f"{fmt(dev['plain'])} ms, sdpa {fmt(dev['sdpa'])} ms; eager loop: K1 {fmt(eager['k1'])}, plain "
+              f"{fmt(eager['plain'])}, sdpa {fmt(eager['sdpa'])} ms; bound {bound:.5f} ms ({by})", flush=True)
     return rows
 
 
-def window_patchify_bound_ms(n, swin, crop, patch, d, dtype) -> tuple[float, str]:
-    """Least time for one K2 call: the window, boxes, weight and bias read
-    once and the tokens written once, against the embed product's
-    2·N·g²·(p²·3)·D FLOP at the weight dtype's peak (the sampling's few
+def window_taps_read(window, centers, sizes, crop) -> int:
+    """Window pixels the function reads for these boxes: the union over
+    boxes of the rows and columns of their bilinear taps (floor and floor + 1
+    of each clamped sample coordinate, as ops/image.py bilinear_sample)."""
+    swin = window.shape[0]
+    ys, xs = crop_sample_coords(centers, sizes, crop)
+    ys, xs = ys[:, :, 0].clamp(0, swin - 1).floor().long(), xs[:, 0, :].clamp(0, swin - 1).floor().long()
+    rows = torch.cat([ys, (ys + 1).clamp(max=swin - 1)], 1)
+    cols = torch.cat([xs, (xs + 1).clamp(max=swin - 1)], 1)
+    read = torch.zeros((swin, swin), dtype=torch.bool, device=window.device)
+    read[rows[:, :, None], cols[:, None, :]] = True
+    return int(read.sum())
+
+
+def window_patchify_bound_ms(window, centers, sizes, crop, patch, kernel) -> tuple[float, str]:
+    """Least time for one K2 call on these inputs: the window pixels its
+    boxes' taps read (window_taps_read), the boxes, weight and bias read once
+    and the tokens written once, against the embed product's
+    2·N·g²·(p²·C)·D FLOP at the weight dtype's peak (the sampling's few
     FLOP per value are left out)."""
-    elem = torch.finfo(dtype).bits // 8
-    k, g2 = patch * patch * 3, (crop // patch) ** 2
-    nbytes = swin * swin * 3 * 4 + n * 4 * 4 + (k * d + d) * elem + n * g2 * d * elem
+    n, c, (k, d) = centers.shape[0], window.shape[2], kernel.shape
+    elem, g2 = kernel.element_size(), (crop // patch) ** 2
+    nbytes = (window_taps_read(window, centers, sizes, crop) * c * window.element_size()
+              + 2 * n * 2 * 4 + (k * d + d) * elem + n * g2 * d * elem)
     byte_ms = nbytes / PEAK_BYTES_PER_S * 1e3
-    op_ms = 2 * n * g2 * k * d / PEAK_FLOPS[dtype] * 1e3
+    op_ms = 2 * n * g2 * k * d / PEAK_FLOPS[kernel.dtype] * 1e3
     return max(byte_ms, op_ms), ("bytes" if byte_ms >= op_ms else "operations")
 
 
-def time_window_patchify() -> dict:
-    """K2 and its plain version at the crop path's shape, bf16, the tracker's
-    kind of inputs; interleaved plain, kernel, kernel, plain. No single
-    PyTorch call computes this function, so there is no library time."""
-    m = K2_MAIN
+def time_window_patchify(m: dict = K2_MAIN) -> dict:
+    """K2 and its plain version at one of the crop path's shapes, bf16, the
+    tracker's kind of inputs; an eager loop of launches, interleaved plain,
+    kernel, kernel, plain. No single PyTorch call computes this function,
+    so there is no library time."""
     w, c, s_, k, b = k2_inputs(m["n"], m["swin"], m["patch"], m["d"], torch.bfloat16, raw=True, seed=11)
     args = (w, c, s_, m["crop"], m["patch"], k, b)
-    t_plain = [time_ms(lambda: pw.window_gather_patchify_plain(*args))]
-    t_k2 = [time_ms(lambda: pw.gather_patchify_window(*args))]
-    t_k2.append(time_ms(lambda: pw.gather_patchify_window(*args)))
-    t_plain.append(time_ms(lambda: pw.window_gather_patchify_plain(*args)))
-    bound, by = window_patchify_bound_ms(m["n"], m["swin"], m["crop"], m["patch"], m["d"], torch.bfloat16)
+    t_plain = [time_eager(lambda: pw.window_gather_patchify_plain(*args))[0]]
+    t_k2 = [time_eager(lambda: pw.gather_patchify_window(*args))[0]]
+    t_k2.append(time_eager(lambda: pw.gather_patchify_window(*args))[0])
+    t_plain.append(time_eager(lambda: pw.window_gather_patchify_plain(*args))[0])
+    bound, by = window_patchify_bound_ms(w, c, s_, m["crop"], m["patch"], k)
     print(f"  K2 N {m['n']} Swin {m['swin']} crop {m['crop']} D {m['d']} bf16: K2 {t_k2[0]:.4f}/{t_k2[1]:.4f} ms, "
           f"plain {t_plain[0]:.4f}/{t_plain[1]:.4f} ms, bound {bound:.5f} ms ({by})", flush=True)
     return {"ms": min(t_k2), "plain_ms": min(t_plain), "library_ms": None, "bound_ms": bound, "bound_by": by}
@@ -399,7 +460,13 @@ def main() -> int:
         print(f"  nvcc build of {source}: {rec['seconds']:.2f} s (built={rec['built']}) -> {rec['so']}")
         for line in rec["ptxas"].splitlines():
             print(f"  ptxas: {line.strip()}")
-    print(f"  K1 dynamic shared memory per block: {_build.flash_attn_library().vpt_flash_attn_smem_bytes()} B")
+    lib = _build.flash_attn_library()
+    for shape in TIME_SHAPES:
+        x = torch.empty(shape, dtype=torch.bfloat16, device="cuda")
+        plan = attention.launch_plan(x, x, x, x, torch.cuda.get_device_properties(0).multi_processor_count)
+        smem = lib.vpt_flash_attn_smem_bytes(attention._PATH_CODES[plan.path], 1, plan.t, plan.warps)
+        print(f"  K1 at {shape} bf16: {plan.path} path, {plan.warps} warps a block, grid {plan.grid}, "
+              f"{smem} B of dynamic shared memory a block")
     k2_smem = _build.window_patchify_library().vpt_window_patchify_smem_bytes(K2_MAIN["patch"], 3)
     print(f"  K2 dynamic shared memory per block (patch {K2_MAIN['patch']}, 3 channels): {k2_smem} B")
     phase("build", t0)
@@ -418,32 +485,36 @@ def main() -> int:
 
     t0 = time.perf_counter()
     times = time_kernels()
-    k2_times = time_window_patchify()
+    k2_times = time_window_patchify(K2_MAIN)
+    k2_one_times = time_window_patchify(K2_ONE)
     phase("times", t0)
 
-    # One entry per kernel and main path: K1 runs on both paths, at its
-    # shape there, with that path's launch count.
-    main_shape, crop_shape = (1, 12, 196, 64), (1024, 12, 4, 64)
+    # One entry per kernel, main path and shape: K1 at the dense path's
+    # shape and at the crop path's two (the particles at B = 1024, the init
+    # and template forwards at B = 1); K2 at N = 1024 and N = 1. Each with
+    # the launches at that shape in that path's run, its bf16 error on the
+    # fused views and its times.
     k1_common = dict(name="flash_attention", route="cuda",
                      source="vitparticlefiltertracker_tpu_torch/csrc/flash_attn.cu",
                      replaces="vitparticlefiltertracker_tpu/ops/attention.py:59")
-    k1 = dict(**k1_common, path="dense", shape=list(main_shape), launches=main_path["launches"],
-              max_abs_err=errs[(main_shape, torch.bfloat16)], **times[main_shape])
-    k1_crop = dict(**k1_common, path="crop", shape=list(crop_shape), launches=crop_path["launches"],
-                   max_abs_err=errs[(crop_shape, torch.bfloat16)], **times[crop_shape])
-    m = K2_MAIN
-    k2 = dict(name="gather_patchify_window", route="cuda",
-              source="vitparticlefiltertracker_tpu_torch/csrc/window_patchify.cu",
-              replaces="vitparticlefiltertracker_tpu/ops/patchify_pallas.py:59",
-              path="crop", shape=[m["n"], m["swin"], m["crop"], m["d"]], launches=crop_path["k2_launches"],
-              max_abs_err=k2_errs[(m["n"], m["crop"], m["swin"], m["d"], torch.bfloat16, True)], **k2_times)
-    batched = times[(49, 12, 196, 64)]
-    print(json.dumps({"shape_49x12x196x64_bf16": batched, "step_ms_median": main_path["step_ms_median"],
-                      "rmse_px": main_path["rmse_px"], "crop_step_ms_median": crop_path["step_ms_median"],
-                      "crop_rmse_px": crop_path["rmse_px"]}))
+    k1_rows = [dict(**k1_common, path=path, shape=list(shape), launches=run["k1_shapes"].get(shape[:3], 0),
+                    max_abs_err=errs[(shape, torch.bfloat16, "fused")], **times[shape])
+               for path, shape, run in (("dense", DENSE_SHAPE, main_path), ("crop", CROP_SHAPE, crop_path),
+                                        ("crop", CROP_ONE_SHAPE, crop_path))]
+    k2_rows = [dict(name="gather_patchify_window", route="cuda",
+                    source="vitparticlefiltertracker_tpu_torch/csrc/window_patchify.cu",
+                    replaces="vitparticlefiltertracker_tpu/ops/patchify_pallas.py:59",
+                    path="crop", shape=[m["n"], m["swin"], m["crop"], m["d"]],
+                    launches=crop_path["k2_sizes"].get(m["n"], 0),
+                    max_abs_err=k2_errs[(m["n"], m["crop"], m["swin"], m["d"], torch.bfloat16, True)], **kt)
+               for m, kt in ((K2_MAIN, k2_times), (K2_ONE, k2_one_times))]
+    check(all(r["launches"] > 0 for r in k1_rows + k2_rows), "every kernel row was launched on its main path")
+    print(json.dumps({"shape_49x12x196x64_bf16": times[REDETECT_SHAPE],
+                      "step_ms_median": main_path["step_ms_median"], "rmse_px": main_path["rmse_px"],
+                      "crop_step_ms_median": crop_path["step_ms_median"], "crop_rmse_px": crop_path["rmse_px"]}))
     print(f"[phase] total: {time.perf_counter() - t_start:.2f} s", flush=True)
     print(f"card: {smi}")
-    print(json.dumps({"kernels": [k1, k1_crop, k2]}))
+    print(json.dumps({"kernels": k1_rows + k2_rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
     return 0

@@ -77,3 +77,84 @@ def test_kernel_wrapper_refuses_cpu_tensors():
     q = torch.zeros(1, 1, 8, 64)
     with pytest.raises(ValueError, match="CUDA"):
         tattn.flash_attention(q, q, q)
+
+
+# --- The launch plan on the views the ViT passes (no card needed) ----------
+
+def _fused(b, t, h, dtype=torch.bfloat16, seed=0):
+    """The ViT's fused QKV activation [B, T, H*3*64], head-major columns."""
+    g = torch.Generator().manual_seed(seed)
+    return torch.randn((b, t, h * 3 * 64), generator=g).to(dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("t", [4, 9, 16, 17, 196])
+@pytest.mark.parametrize("h", [3, 12, 16])
+@pytest.mark.parametrize("b", [1, 3])
+def test_launch_plan_reads_fused_views_in_place(b, h, t, dtype):
+    qkv = _fused(b, t, h, dtype)
+    q, k, v = tattn.split_fused_qkv(qkv, h)
+    assert q.shape == k.shape == v.shape == (b, h, t, 64)
+    out = tattn.empty_attention_output(q)
+    plan = tattn.launch_plan(q, k, v, out)
+    # No copy: the kernel gets the fused activation's own memory and strides.
+    elem = qkv.element_size()
+    assert plan.ptrs == (qkv.data_ptr(), qkv.data_ptr() + 64 * elem, qkv.data_ptr() + 128 * elem,
+                         out.data_ptr())
+    fused = (t * h * 192, 192, h * 192)
+    assert plan.strides[:9] == tuple(0 if n == 1 else s for n, s in zip((b, h, t) * 3, fused * 3))
+    assert plan.strides[9:] == tuple(0 if n == 1 else s for n, s in zip((b, h, t), (t * h * 64, 64, h * 64)))
+    assert (plan.b, plan.h, plan.t) == (b, h, t)
+    assert plan.path == ("small" if t <= tattn.SMALL_T_MAX else "tiled")
+    # The output's [B, T, D] reshape, as models/vit.py takes it, is a view.
+    flat = out.transpose(1, 2).reshape(b, t, h * 64)
+    assert flat.data_ptr() == out.data_ptr() and flat.is_contiguous()
+
+
+@pytest.mark.parametrize("shape,dtype,path,warps,grid", [
+    ((1, 12, 196, 64), torch.bfloat16, "tiled", 1, 156),  # dense: 13 x 12 warps of 16 rows
+    ((49, 12, 196, 64), torch.bfloat16, "tiled", 4, 2352),
+    ((1, 12, 196, 64), torch.float32, "tiled", 4, 48),  # the scalar f32 kernel: 64 rows a block
+    ((1024, 12, 4, 64), torch.bfloat16, "small", 8, 1536),  # crop: one warp per (b, h)
+    ((1, 12, 4, 64), torch.bfloat16, "small", 1, 12),
+    ((6000, 12, 4, 64), torch.bfloat16, "small", 8, 9000),  # B*H = 72,000 > 65,535
+    ((2, 3, 16, 64), torch.float32, "small", 1, 6),
+])
+def test_launch_plan_path_and_grid(shape, dtype, path, warps, grid):
+    q = torch.empty(shape, dtype=dtype)
+    plan = tattn.launch_plan(q, q, q, torch.empty_like(q))
+    assert (plan.path, plan.warps, plan.grid) == (path, warps, grid)
+
+
+def test_launch_plan_refusals():
+    q = torch.zeros(1, 2, 8, 64)
+    ok = torch.zeros(1, 2, 8, 64)
+    with pytest.raises(ValueError, match="stride 1"):
+        tattn.launch_plan(torch.zeros(1, 2, 64, 8).transpose(-1, -2), ok, ok, ok)
+    with pytest.raises(ValueError, match="16 bytes"):
+        tattn.launch_plan(torch.zeros(1 * 2 * 8 * 64 + 1)[1:].view(1, 2, 8, 64), ok, ok, ok)
+    with pytest.raises(ValueError, match="head dim"):
+        x = torch.zeros(1, 2, 8, 32)
+        tattn.launch_plan(x, x, x, x)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        tattn.launch_plan(torch.zeros(1, 2, 8, 68)[..., :64], ok, ok, ok)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        tattn.launch_plan(q.half(), ok.half(), ok.half(), ok.half())
+    with pytest.raises(ValueError, match="shape"):
+        tattn.launch_plan(q, ok, ok, torch.zeros(1, 2, 9, 64))
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5), (torch.bfloat16, 3e-2)])
+@pytest.mark.parametrize("t", [4, 9, 16])
+def test_reference_on_fused_views_matches_jax(t, dtype, tol):
+    """The small-T (crop-mode) shapes, read as the ViT passes them: views of
+    the fused activation, against the JAX reference on the same numbers."""
+    b, h = 3, 12
+    rng = np.random.default_rng(t)
+    np_dtype = np.float32 if dtype == torch.float32 else ml_dtypes.bfloat16
+    fused = rng.standard_normal((b, t, h * 3 * 64)).astype(np.float32).astype(np_dtype)
+    q, k, v = tattn.split_fused_qkv(_to_torch(fused), h)
+    got = tattn.reference_attention(q, k, v).float().numpy()
+    jq, jk, jv = (jnp.asarray(x) for x in fused.reshape(b, t, h, 3, 64).transpose(3, 0, 2, 1, 4))
+    want = np.asarray(jattn.reference_attention(jq, jk, jv, precision=HIGHEST), np.float32)
+    np.testing.assert_allclose(got, want, rtol=tol, atol=tol)

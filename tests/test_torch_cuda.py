@@ -32,24 +32,53 @@ def cuda_device():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("t", [1, 4, 17, 64, 128, 130, 196, 197, 389])
+def _qkv_views(shape, dtype, layout, seed, device):
+    """q, k, v of `shape` [B, H, T, 64]: views of one fused [B, T, H*3*64]
+    activation, as models/vit.py passes them, or three contiguous tensors."""
+    b, h, t, d = shape
+    g = torch.Generator(device=device).manual_seed(seed)
+    if layout == "fused":
+        fused = torch.randn((b, t, h * 3 * d), generator=g, device=device).to(dtype)
+        return attention.split_fused_qkv(fused, h)
+    return tuple(torch.randn(shape, generator=g, device=device).to(dtype) for _ in range(3))
+
+
+@pytest.mark.parametrize("layout", ["fused", "contiguous"])
+@pytest.mark.parametrize("h", [3, 12, 16])
+@pytest.mark.parametrize("t", [1, 4, 9, 16, 17, 64, 128, 130, 196, 197, 389])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_kernel_matches_plain_version(cuda_device, t, dtype):
-    g = torch.Generator(device=cuda_device).manual_seed(t)
-    q, k, v = (torch.randn((2, 3, t, 64), generator=g, device=cuda_device).to(dtype) for _ in range(3))
+def test_kernel_matches_plain_version(cuda_device, t, dtype, h, layout):
+    """Both paths (small T <= 16, tiled above) on fused-layout views and on
+    contiguous tensors; the output lands in [B, T, H, 64] memory."""
+    q, k, v = _qkv_views((2, h, t, 64), dtype, layout, seed=t + h, device=cuda_device)
     before = attention.flash_attention.launches
     out = attention.multi_head_attention(q, k, v)
     torch.cuda.synchronize()
     assert attention.flash_attention.launches == before + 1
+    assert out.shape == (2, h, t, 64) and out.transpose(1, 2).is_contiguous()
     ref = attention.reference_attention(q, k, v)
     torch.testing.assert_close(out.float(), ref.float(), rtol=TOL[dtype], atol=TOL[dtype])
 
 
+@pytest.mark.parametrize("layout", ["fused", "contiguous"])
+@pytest.mark.parametrize("shape", [(1024, 12, 4, 64), (1, 12, 4, 64), (6000, 12, 4, 64)],
+                         ids=["particles-1024", "template-1", "bh-72000"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_kernel_at_crop_mode_shape(cuda_device, dtype):
-    """K1 as crop mode runs it: T = 4 tokens, a batch of 1024 crops."""
-    g = torch.Generator(device=cuda_device).manual_seed(4)
-    q, k, v = (torch.randn((1024, 12, 4, 64), generator=g, device=cuda_device).to(dtype) for _ in range(3))
+def test_kernel_at_crop_mode_shape(cuda_device, dtype, shape, layout):
+    """K1 as crop mode runs it: T = 4 tokens, a batch of 1024 crops and the
+    template's single crop; and B*H = 72,000 (over a grid.y's 65,535)."""
+    q, k, v = _qkv_views(shape, dtype, layout, seed=shape[0], device=cuda_device)
+    out = attention.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    ref = attention.reference_attention(q, k, v)
+    torch.testing.assert_close(out.float(), ref.float(), rtol=TOL[dtype], atol=TOL[dtype])
+
+
+@pytest.mark.parametrize("layout", ["fused", "contiguous"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernel_at_redetection_shape(cuda_device, dtype, layout):
+    """[49, 12, 196, 64]: global re-detection's batch of tile windows."""
+    q, k, v = _qkv_views((49, 12, 196, 64), dtype, layout, seed=49, device=cuda_device)
     out = attention.flash_attention(q, k, v)
     torch.cuda.synchronize()
     ref = attention.reference_attention(q, k, v)

@@ -184,3 +184,58 @@ def test_norm_folded_embed_weights_fold_pixel_normalization():
     got = patchify(raw, 4) @ kern + bias
     want = patchify(normalize_window(raw), 4) @ prm["patch_embed"]["kernel"] + prm["patch_embed"]["bias"]
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+def test_tracker_spec_in_crop_mode_matches_jax():
+    """Crop mode embeds crop_size crops, so Tracker.spec.image_size is the
+    crop size (vit-t16 at image_size 128 in crop mode: 32), as in the JAX
+    package's Tracker. Every field the two specs share is equal."""
+    d = {"model": {"variant": "vit-t16", "image_size": 128, "dtype": "float32",
+                   "use_flash_attention": False, "checkpoint": ""},
+         "filter": {"num_particles": 64}, "tracker": {"mode": "crop"}}
+    want = jtr.Tracker(JConfig.from_dict(copy.deepcopy(d))).spec
+    got = ttr.Tracker(TConfig.from_dict(copy.deepcopy(d)), device="cpu").spec
+    assert got.image_size == want.image_size == 32
+    shared = set(got._fields) & set(want._fields) - {"dtype"}
+    assert {f: getattr(got, f) for f in shared} == {f: getattr(want, f) for f in shared}
+
+
+@pytest.mark.parametrize("anchor", [True, False], ids=["with-anchor", "pre-anchor"])
+def test_round1_positional_state_loads_like_jax(tmp_path, anchor):
+    """Round-1 state files (positional leaf_<i>, no format marker; the
+    oldest without the anchor leaf), written from a JAX state as
+    tests/test_checkpoint.py writes them, load in the port as in the JAX
+    package: every leaf equal, dtypes and shapes included."""
+    cfg = JConfig.from_dict(copy.deepcopy(BASE))
+    src = j_open_source(cfg.io.source, 2, tuple(cfg.io.frame_size), seed=0)
+    tr = jtr.Tracker(cfg)
+    tr.init(src.frames[0], src.init_bbox)
+    state = tr.state._replace(key=jax.random.key_data(tr.state.key))
+    leaves = jax.tree_util.tree_leaves(state)[:11]  # round-1 states had no lost_count
+    if not anchor:
+        leaves = leaves[:3] + leaves[4:]
+    path = str(tmp_path / "round1.npz")
+    np.savez(path, **{f"leaf_{i}": np.asarray(x) for i, x in enumerate(leaves)})
+
+    jstate = jtr.load_tracker_state(path)
+    theirs = jtr._named_state_leaves(jstate._replace(key=jax.random.key_data(jstate.key)))
+    mine = ttr._named_state_leaves(ttr.load_tracker_state(path))
+    assert sorted(mine) == sorted(theirs)
+    for k in mine:
+        a, b = np.asarray(theirs[k]), mine[k].numpy()
+        if k == "key":  # the port holds the key's raw words as int64
+            a = a.astype(np.int64)
+        assert a.dtype == b.dtype and a.shape == b.shape, k
+        np.testing.assert_array_equal(b, a, err_msg=k)
+    if not anchor:
+        np.testing.assert_array_equal(mine["anchor"].numpy(), mine["template"].numpy())
+
+
+@pytest.mark.parametrize("key", ["mesh_particles", "mesh_model"])
+def test_mesh_settings_raise(key):
+    """A device mesh (multi-GPU) is not ported: the Tracker refuses it with
+    a pointer to ROADMAP.md rather than tracking on one device."""
+    d = copy.deepcopy(BASE)
+    d["runtime"] = {key: 2}
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        ttr.Tracker(TConfig.from_dict(d), device="cpu")

@@ -24,8 +24,8 @@ from vitparticlefiltertracker_tpu_torch.models import vit as tvit
 CKPT = "checkpoints/vit_b16_tracking.npz"
 
 
-def _specs(dtype_name, pos):
-    kw = dict(depth=2, dim=128, heads=2, mlp_dim=256, patch_size=16, image_size=64,
+def _specs(dtype_name, pos, image_size=64):
+    kw = dict(depth=2, dim=128, heads=2, mlp_dim=256, patch_size=16, image_size=image_size,
               use_pos_embed=pos)
     jd = jnp.float32 if dtype_name == "float32" else jnp.bfloat16
     td = torch.float32 if dtype_name == "float32" else torch.bfloat16
@@ -46,14 +46,27 @@ TOL = {"float32": 2e-5, "bfloat16": 6e-2}
 @pytest.mark.parametrize("dtype_name", ["float32", "bfloat16"])
 @pytest.mark.parametrize("pos", [False, True])
 def test_vit_forward_tokens_matches_jax(dtype_name, pos):
-    jspec, tspec = _specs(dtype_name, pos)
+    _check_forward_tokens(dtype_name, pos, 64)
+
+
+@pytest.mark.parametrize("dtype_name", ["float32", "bfloat16"])
+@pytest.mark.parametrize("image_size", [32, 80])
+def test_vit_forward_tokens_at_crop_token_counts_matches_jax(dtype_name, image_size):
+    """T = 4 (a 32-px crop, as in crop mode) and T = 25 (above K1's small
+    path): the blocks' attention reads q, k, v as views of the fused qkv
+    activation and reshapes its output as a view, and still agrees with JAX."""
+    _check_forward_tokens(dtype_name, True, image_size)
+
+
+def _check_forward_tokens(dtype_name, pos, image_size):
+    jspec, tspec = _specs(dtype_name, pos, image_size)
     jp = jparams.cast_for_inference(jvit.init_vit_params(jax.random.key(0), jspec), jspec)
-    images = np.random.default_rng(1).standard_normal((2, 64, 64, 3)).astype(np.float32)
+    images = np.random.default_rng(1).standard_normal((2, image_size, image_size, 3)).astype(np.float32)
     with jax.default_matmul_precision("highest"):
         want = np.asarray(jvit.vit_forward_tokens(jp, jnp.asarray(images), jspec), np.float32)
     tp = bridge.params_from_numpy(_np_tree(jp), tspec)
     got = tvit.vit_forward_tokens(tp, torch.from_numpy(images), tspec).float().numpy()
-    assert got.shape == want.shape == (2, 16, 128)
+    assert got.shape == want.shape == (2, (image_size // 16) ** 2, 128)
     tol = TOL[dtype_name]
     np.testing.assert_allclose(got, want, rtol=tol, atol=tol)
 

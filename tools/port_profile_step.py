@@ -82,6 +82,13 @@ def main() -> int:
     print(f"steps {args.frames}: wall {wall_us / args.frames / 1e3:.3f} ms/step (profiler on), "
           f"device busy {busy_us / args.frames / 1e3:.3f} ms/step = {100 * busy_us / wall_us:.1f}% "
           f"of wall, {launches / args.frames:.0f} kernels/step")
+    # The port's own kernels by source: K1's paths (attn_small_kernel,
+    # attn_tiled_*_kernel) and K2 (window_patchify_kernel).
+    for label, marks in (("K1", ("attn_small_kernel", "attn_tiled_")), ("K2", ("window_patchify_kernel",))):
+        mine = [e for e in rows if any(m in e.key for m in marks)]
+        us = sum(e.self_device_time_total for e in mine)
+        print(f"  {label}: {us / args.frames:9.1f} us/step  {sum(e.count for e in mine) / args.frames:6.1f}/step  "
+              f"{100 * us / busy_us:5.1f}%  ({', '.join(sorted({e.key[:60] for e in mine})) or 'not launched'})")
     rows.sort(key=lambda e: -e.self_device_time_total)
     for e in rows[: args.top]:
         print(f"  {e.self_device_time_total / args.frames:9.1f} us/step  {e.count / args.frames:6.1f}/step  "

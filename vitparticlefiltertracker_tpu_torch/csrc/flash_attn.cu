@@ -1,60 +1,454 @@
 // Non-causal attention forward, softmax(Q K^T / sqrt(d)) V, for Hopper (sm_90a).
 //
 // Replaces: _flash_kernel in vitparticlefiltertracker_tpu/ops/attention.py
-// (launched by flash_attention there). Same recurrence: online softmax with
-// the running max, running sum and output accumulator in f32; products take
-// the input type and accumulate in f32; the 1/sqrt(d) scale multiplies the
-// f32 logits; keys at index >= T are masked to -inf; queries past T are never
-// written. For bf16 inputs the probabilities are rounded to bf16 before the
-// P.V product, as the TPU kernel casts them to V's type.
+// (launched by flash_attention there). Same function and rounding: products
+// take the input type and accumulate in f32; the 1/sqrt(d) scale multiplies
+// the f32 logits; the max, the sum and the accumulator are f32; for bf16 the
+// probabilities are rounded to bf16 before the P.V product, as the TPU kernel
+// casts them to V's type; keys at index >= T are masked; query rows past T
+// are never written.
 //
-// What bounds it on this card: at the tracker's shape [1, 12, 196, 64] bf16 the
-// call moves 1.2 MB and does 1.2e8 FLOP, so the floor is memory (0.36 us at
-// 3.35 TB/s) and, in practice, launch latency. This first version is built to
-// be simple and right, not fast: scalar f32 FMAs from shared memory, no tensor
-// cores, no TMA. What the design does about the bound: the T x T logits never
-// leave the block (one pass over Q, K and V in device memory), and the 48 or
-// so blocks of the tracker's shape each run one 64-query tile to the end.
+// Operands are strided views: q, k, v and o each come as a base pointer plus
+// element strides for (b, h, t); the head dim (64) has stride 1 and every row
+// starts on 16 bytes. So the kernel reads q, k and v straight out of the ViT's
+// fused qkv activation [B, T, H, 3, 64] (one token's q row is 128 contiguous
+// bytes, the token stride 3*H*64) and writes o straight into [B, T, H, 64]
+// memory: no copy before or after it. Work items (a (b, h) pair, or a query
+// tile of one) sit on grid.x and are looped over, so B*H has no 65,535 cap.
 //
-// Layout: q, k, v, o are contiguous [BH, T, 64]. Grid (ceil(T/64), BH); 128
-// threads = 4 warps; warp w owns query rows 16w .. 16w+15 of the block's tile.
-// Per 64-key tile, K (transposed, padded) and V are staged in shared memory;
-// lane l scores keys l and l+32 of the tile for one query row at a time and
-// accumulates output dims l and l+32.
+// What bounds it on this card, and what the design does about it. At both of
+// the tracker's shapes the floor is bytes: [1024, 12, 4, 64] bf16 (crop mode)
+// moves 25 MB for 5e7 FLOP, 7.5 us at 3.35 TB/s; [1, 12, 196, 64] bf16
+// (dense mode) moves 1.2 MB for 1.2e8 FLOP, 0.36 us, where in practice launch
+// latency and the few heads in flight decide. Three paths, chosen by the
+// wrapper's launch plan (ops/attention.py, launch_plan):
+//
+//  * small (T <= kSmallTMax, both dtypes): one warp per (b, h) pair, several
+//    pairs a block. The warp loads its T rows of q, k and v with 16-byte
+//    loads into f32 shared memory, computes the T x T logits and a full
+//    softmax (no tiling, no online rescale), and writes T output rows with
+//    16-byte stores. At T = 4 that is 2*4*4*64 FMA a head: scalar f32 is
+//    plenty, and the time is the bytes in and out.
+//  * tiled bf16 (T > kSmallTMax): tensor cores. Each warp owns 16 query rows;
+//    S = Q K^T and O += P V run as mma.sync m16n8k16 (bf16 in, f32
+//    accumulate), with operands from shared memory by ldmatrix (.trans for
+//    V). The online softmax runs on the accumulator fragments (row max and
+//    sum over the 4 lanes of a quad by shuffles), and P is packed to bf16 in
+//    registers and reused as the A operand of P V. 64-key K and V tiles come
+//    in by cp.async, double-buffered; rows are padded to 72 elements so
+//    ldmatrix's 8 rows fall in distinct banks. The plan picks 1, 2 or 4 warps
+//    a block so that [1, 12, 196, 64] puts 156 blocks on the 132 SMs.
+//  * tiled f32 (T > kSmallTMax): the first version's scalar algorithm (f32
+//    FMAs from shared memory, 64 query rows a block), given the strided
+//    interface. f32 runs only in tests and tiny trackers; TF32 would break
+//    the 2e-5 tolerance.
+// wgmma and TMA are left out: their 64-row warpgroup tile and descriptors do
+// not pay at four 64-row tiles a head (T = 196) or 4 live rows (T = 4).
 //
 // Interface: plain C, loaded with ctypes. Returns cudaGetLastError() after
-// the launch (0 = success).
+// the launch (0 = success), -1 for arguments the kernel does not take.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math_constants.h>
+#include <stdint.h>
 
 namespace {
 
-constexpr int kD = 64;        // head dim (every ViT preset of the repo)
-constexpr int kBlockQ = 64;   // queries per block
-constexpr int kBlockK = 64;   // keys per shared-memory tile
-constexpr int kThreads = 128; // 4 warps
-constexpr int kRowsPerWarp = kBlockQ / (kThreads / 32);  // 16
-constexpr int kKtStride = kBlockK + 1;  // pad: conflict-free transposed writes
-constexpr size_t kSmemBytes =
-    sizeof(float) * (kBlockQ * kD + kD * kKtStride + kBlockK * kD);
+constexpr int kD = 64;           // head dim (every ViT preset of the repo)
+constexpr int kSmallTMax = 16;   // small path up to this T (crop sizes 32/48/64)
+constexpr int kSmallMaxWarps = 8;
+constexpr int kTileK = 64;       // keys per shared-memory tile (tiled paths)
+constexpr int kRowStride = kD + 8;  // bf16 row pitch in shared memory: 144 B
+constexpr int kMmaMaxWarps = 4;
+// f32 tiled path: 4 warps x 16 query rows, K staged transposed and padded.
+constexpr int kF32Threads = 128;
+constexpr int kF32BlockQ = 64;
+constexpr int kF32RowsPerWarp = 16;
+constexpr int kKtStride = kTileK + 1;
+constexpr size_t kF32SmemBytes = sizeof(float) * (kF32BlockQ * kD + kD * kKtStride + kTileK * kD);
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+typedef __nv_bfloat16 bf16;
 
-template <typename T> __device__ __forceinline__ T from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
+struct Problem {
+  const void* q;
+  const void* k;
+  const void* v;
+  void* o;
+  long long sq[3], sk[3], sv[3], so[3];  // element strides of (b, h, t)
+  int b, h, t;
+  float scale;
+};
+
+// Element offset of (b, h) pair `pair` (= b * heads + h), given the b and h strides.
+__device__ __forceinline__ long long pair_offset(long long sb, long long sh, long long pair, int heads) {
+  return (pair / heads) * sb + (pair % heads) * sh;
 }
 
 // Probability as the P.V product sees it: rounded to the input type.
 template <typename T> __device__ __forceinline__ float as_input_type(float p);
 template <> __device__ __forceinline__ float as_input_type<float>(float p) { return p; }
-template <> __device__ __forceinline__ float as_input_type<__nv_bfloat16>(float p) {
+template <> __device__ __forceinline__ float as_input_type<bf16>(float p) {
   return __bfloat162float(__float2bfloat16(p));
 }
+
+// One 16-byte load -> f32 values (4 for f32, 8 for bf16).
+__device__ __forceinline__ void load16(const float* src, float* dst) {
+  const float4 x = *reinterpret_cast<const float4*>(src);
+  dst[0] = x.x; dst[1] = x.y; dst[2] = x.z; dst[3] = x.w;
+}
+__device__ __forceinline__ void load16(const bf16* src, float* dst) {
+  const uint4 x = *reinterpret_cast<const uint4*>(src);
+  const __nv_bfloat162* h2 = reinterpret_cast<const __nv_bfloat162*>(&x);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 f = __bfloat1622float2(h2[i]);
+    dst[2 * i] = f.x;
+    dst[2 * i + 1] = f.y;
+  }
+}
+
+// Eight f32 values -> the output type, 16-byte stores.
+__device__ __forceinline__ void store8(float* dst, const float* x) {
+  reinterpret_cast<float4*>(dst)[0] = make_float4(x[0], x[1], x[2], x[3]);
+  reinterpret_cast<float4*>(dst)[1] = make_float4(x[4], x[5], x[6], x[7]);
+}
+__device__ __forceinline__ void store8(bf16* dst, const float* x) {
+  uint4 u;
+  __nv_bfloat162* h2 = reinterpret_cast<__nv_bfloat162*>(&u);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) h2[i] = __floats2bfloat162_rn(x[2 * i], x[2 * i + 1]);
+  *reinterpret_cast<uint4*>(dst) = u;
+}
+
+// ---------------------------------------------------------------------------
+// Small path: one warp per (b, h) pair.
+// ---------------------------------------------------------------------------
+
+// f32 words of shared memory one warp uses at this T: v [T][64], q and k
+// [T][65] (padded: lanes on different rows read different banks), p [T][T+1]
+// (the last column holds 1/sum). Rounded to 4 words so every warp's v region
+// is 16-byte aligned.
+__host__ __device__ __forceinline__ int small_words_per_warp(int t) {
+  return (t * kD + 2 * t * (kD + 1) + t * (t + 1) + 3) & ~3;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kSmallMaxWarps * 32)
+attn_small_kernel(const Problem prob) {
+  extern __shared__ __align__(16) unsigned char vpt_smem[];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int warps = blockDim.x >> 5;
+  const int t = prob.t;
+  float* vs = reinterpret_cast<float*>(vpt_smem) + warp * small_words_per_warp(t);
+  float* qs = vs + t * kD;
+  float* ks = qs + t * (kD + 1);
+  float* ps = ks + t * (kD + 1);
+  constexpr int kVec = 16 / sizeof(T);  // elements per 16-byte load
+  constexpr int kChunks = kD / kVec;    // 16-byte chunks per row
+
+  const long long pairs = static_cast<long long>(prob.b) * prob.h;
+  for (long long pair = static_cast<long long>(blockIdx.x) * warps + warp; pair < pairs;
+       pair += static_cast<long long>(gridDim.x) * warps) {
+    const T* q = static_cast<const T*>(prob.q) + pair_offset(prob.sq[0], prob.sq[1], pair, prob.h);
+    const T* k = static_cast<const T*>(prob.k) + pair_offset(prob.sk[0], prob.sk[1], pair, prob.h);
+    const T* v = static_cast<const T*>(prob.v) + pair_offset(prob.sv[0], prob.sv[1], pair, prob.h);
+    T* o = static_cast<T*>(prob.o) + pair_offset(prob.so[0], prob.so[1], pair, prob.h);
+
+    for (int c = lane; c < t * kChunks; c += 32) {
+      const int r = c / kChunks, col = (c % kChunks) * kVec;
+      float x[kVec];
+      load16(q + r * prob.sq[2] + col, x);
+#pragma unroll
+      for (int e = 0; e < kVec; ++e) qs[r * (kD + 1) + col + e] = x[e];
+      load16(k + r * prob.sk[2] + col, x);
+#pragma unroll
+      for (int e = 0; e < kVec; ++e) ks[r * (kD + 1) + col + e] = x[e];
+      load16(v + r * prob.sv[2] + col, x);
+#pragma unroll
+      for (int e = 0; e < kVec; ++e) vs[r * kD + col + e] = x[e];
+    }
+    __syncwarp();
+
+    for (int idx = lane; idx < t * t; idx += 32) {
+      const int i = idx / t, j = idx % t;
+      const float* qr = qs + i * (kD + 1);
+      const float* kr = ks + j * (kD + 1);
+      float s = 0.f;
+#pragma unroll 16
+      for (int c = 0; c < kD; ++c) s = fmaf(qr[c], kr[c], s);
+      ps[i * (t + 1) + j] = s * prob.scale;
+    }
+    __syncwarp();
+
+    if (lane < t) {  // t <= kSmallTMax < 32: one lane per row
+      float* row = ps + lane * (t + 1);
+      float m = -CUDART_INF_F;
+      for (int j = 0; j < t; ++j) m = fmaxf(m, row[j]);
+      float l = 0.f;
+      for (int j = 0; j < t; ++j) {
+        const float p = expf(row[j] - m);
+        l += p;
+        row[j] = as_input_type<T>(p);
+      }
+      row[t] = 1.f / l;
+    }
+    __syncwarp();
+
+    // Lane -> 8 output columns of every fourth row.
+    const int c0 = (lane & 7) * 8;
+    for (int i = lane >> 3; i < t; i += 4) {
+      float acc[8];
+#pragma unroll
+      for (int e = 0; e < 8; ++e) acc[e] = 0.f;
+      const float* prow = ps + i * (t + 1);
+      for (int j = 0; j < t; ++j) {
+        const float pj = prow[j];
+        const float4 a = *reinterpret_cast<const float4*>(vs + j * kD + c0);
+        const float4 b = *reinterpret_cast<const float4*>(vs + j * kD + c0 + 4);
+        acc[0] = fmaf(pj, a.x, acc[0]); acc[1] = fmaf(pj, a.y, acc[1]);
+        acc[2] = fmaf(pj, a.z, acc[2]); acc[3] = fmaf(pj, a.w, acc[3]);
+        acc[4] = fmaf(pj, b.x, acc[4]); acc[5] = fmaf(pj, b.y, acc[5]);
+        acc[6] = fmaf(pj, b.z, acc[6]); acc[7] = fmaf(pj, b.w, acc[7]);
+      }
+      const float inv = prow[t];
+#pragma unroll
+      for (int e = 0; e < 8; ++e) acc[e] *= inv;
+      store8(o + i * prob.so[2] + c0, acc);
+    }
+    __syncwarp();  // the next pair overwrites this warp's shared memory
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Tiled bf16 path: mma.sync on tensor cores.
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared, asynchronously; zero-filled when !valid (the
+// source is then not read, but must still be a valid address).
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+  const int n = valid ? 16 : 0;
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)), "l"(src), "r"(n));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+template <int N> __device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+
+// c[16x8] += a[16x16] b[16x8]; bf16 in, f32 accumulate.
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+__host__ __device__ __forceinline__ int mma_smem_bytes(int warps) {
+  return static_cast<int>(sizeof(bf16)) * (4 * kTileK + 16 * warps) * kRowStride;
+}
+
+// Fragment layouts (PTX ISA, mma.m16n8k16 with .bf16): lane = 4 g + tq.
+// A (16x16, row): a0 = A[g][2tq..], a1 = A[g+8][2tq..], a2 = A[g][2tq+8..],
+// a3 = A[g+8][2tq+8..]. B (16x8, col): b0 = B[2tq..][g], b1 = B[2tq+8..][g].
+// C (16x8): c0, c1 = C[g][2tq..], c2, c3 = C[g+8][2tq..].
+__global__ void __launch_bounds__(kMmaMaxWarps * 32)
+attn_tiled_bf16_kernel(const Problem prob) {
+  extern __shared__ __align__(16) unsigned char vpt_smem[];
+  bf16* ks = reinterpret_cast<bf16*>(vpt_smem);  // [2][kTileK][kRowStride]
+  bf16* vs = ks + 2 * kTileK * kRowStride;       // [2][kTileK][kRowStride]
+  bf16* qs = vs + 2 * kTileK * kRowStride;       // [warps * 16][kRowStride]
+  const int tid = threadIdx.x;
+  const int nthreads = blockDim.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int g = lane >> 2, tq = lane & 3;
+  const int mat = lane >> 3, mr = lane & 7;  // ldmatrix: which 8x8 matrix, which of its rows
+  const int t = prob.t;
+  const int rows_per_block = (nthreads >> 5) * 16;
+  const int q_tiles = (t + rows_per_block - 1) / rows_per_block;
+  const int k_tiles = (t + kTileK - 1) / kTileK;
+  const long long items = static_cast<long long>(prob.b) * prob.h * q_tiles;
+  bf16* my_q = qs + warp * 16 * kRowStride;
+  const long long sqt = prob.sq[2], skt = prob.sk[2], svt = prob.sv[2], sot = prob.so[2];
+
+  for (long long item = blockIdx.x; item < items; item += gridDim.x) {
+    const long long pair = item / q_tiles;
+    const int q0 = static_cast<int>(item % q_tiles) * rows_per_block;
+    const bf16* qg = static_cast<const bf16*>(prob.q) + pair_offset(prob.sq[0], prob.sq[1], pair, prob.h);
+    const bf16* kg = static_cast<const bf16*>(prob.k) + pair_offset(prob.sk[0], prob.sk[1], pair, prob.h);
+    const bf16* vg = static_cast<const bf16*>(prob.v) + pair_offset(prob.sv[0], prob.sv[1], pair, prob.h);
+    bf16* og = static_cast<bf16*>(prob.o) + pair_offset(prob.so[0], prob.so[1], pair, prob.h);
+
+    auto load_kv = [&](int tile) {
+      const int k0 = tile * kTileK;
+      bf16* kd = ks + (tile & 1) * kTileK * kRowStride;
+      bf16* vd = vs + (tile & 1) * kTileK * kRowStride;
+      for (int c = tid; c < kTileK * (kD / 8); c += nthreads) {
+        const int r = c >> 3, col = (c & 7) * 8;
+        const bool ok = k0 + r < t;
+        const long long key = ok ? k0 + r : 0;
+        cp_async16(kd + r * kRowStride + col, kg + key * skt + col, ok);
+        cp_async16(vd + r * kRowStride + col, vg + key * svt + col, ok);
+      }
+    };
+
+    for (int c = tid; c < rows_per_block * (kD / 8); c += nthreads) {
+      const int r = c >> 3, col = (c & 7) * 8;
+      const bool ok = q0 + r < t;
+      cp_async16(qs + r * kRowStride + col, qg + (ok ? static_cast<long long>(q0 + r) * sqt : 0) + col, ok);
+    }
+    load_kv(0);
+    cp_async_commit();
+
+    float m[2] = {-CUDART_INF_F, -CUDART_INF_F};  // running max of rows g, g+8
+    float l[2] = {0.f, 0.f};                      // this lane's part of the running sum
+    float acc[8][4];
+#pragma unroll
+    for (int nb = 0; nb < 8; ++nb) acc[nb][0] = acc[nb][1] = acc[nb][2] = acc[nb][3] = 0.f;
+    uint32_t qf[4][4];
+
+    for (int kt = 0; kt < k_tiles; ++kt) {
+      if (kt + 1 < k_tiles) {
+        load_kv(kt + 1);
+        cp_async_commit();
+        cp_async_wait<1>();
+      } else {
+        cp_async_wait<0>();
+      }
+      __syncthreads();
+      if (kt == 0) {
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          ldmatrix_x4(qf[kk], my_q + (mr + (mat & 1) * 8) * kRowStride + kk * 16 + (mat >> 1) * 8);
+      }
+      const bf16* kb = ks + (kt & 1) * kTileK * kRowStride;
+      const bf16* vb = vs + (kt & 1) * kTileK * kRowStride;
+
+      float s[8][4];
+#pragma unroll
+      for (int nb = 0; nb < 8; ++nb) s[nb][0] = s[nb][1] = s[nb][2] = s[nb][3] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+        for (int nb = 0; nb < 8; nb += 2) {
+          uint32_t b[4];
+          ldmatrix_x4(b, kb + (nb * 8 + mr + (mat >> 1) * 8) * kRowStride + kk * 16 + (mat & 1) * 8);
+          mma_bf16(s[nb], qf[kk], b[0], b[1]);
+          mma_bf16(s[nb + 1], qf[kk], b[2], b[3]);
+        }
+      }
+
+      // Scale, mask keys >= T, and the online softmax on the fragments.
+      const int k0 = kt * kTileK;
+      float mx[2] = {m[0], m[1]};
+#pragma unroll
+      for (int nb = 0; nb < 8; ++nb) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int key = k0 + nb * 8 + 2 * tq + (e & 1);
+          const float x = key < t ? s[nb][e] * prob.scale : -CUDART_INF_F;
+          s[nb][e] = x;
+          mx[e >> 1] = fmaxf(mx[e >> 1], x);
+        }
+      }
+      float alpha[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+        // Key k0 is always valid, so the new max is finite; exp(-inf) = 0
+        // on the first tile.
+        alpha[r] = __expf(m[r] - mx[r]);
+        m[r] = mx[r];
+      }
+      uint32_t pf[4][4];  // P in bf16 as the A operand: 4 slices of 16 keys
+      float rs[2] = {0.f, 0.f};
+#pragma unroll
+      for (int nb = 0; nb < 8; ++nb) {
+        const float p0 = __expf(s[nb][0] - m[0]);
+        const float p1 = __expf(s[nb][1] - m[0]);
+        const float p2 = __expf(s[nb][2] - m[1]);
+        const float p3 = __expf(s[nb][3] - m[1]);
+        rs[0] += p0 + p1;
+        rs[1] += p2 + p3;
+        pf[nb >> 1][(nb & 1) * 2] = pack_bf16(p0, p1);
+        pf[nb >> 1][(nb & 1) * 2 + 1] = pack_bf16(p2, p3);
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) l[r] = alpha[r] * l[r] + rs[r];
+#pragma unroll
+      for (int nb = 0; nb < 8; ++nb) {
+        acc[nb][0] *= alpha[0];
+        acc[nb][1] *= alpha[0];
+        acc[nb][2] *= alpha[1];
+        acc[nb][3] *= alpha[1];
+      }
+#pragma unroll
+      for (int ksl = 0; ksl < 4; ++ksl) {
+#pragma unroll
+        for (int nb = 0; nb < 8; nb += 2) {
+          uint32_t b[4];
+          ldmatrix_x4_trans(b, vb + (ksl * 16 + mr + (mat & 1) * 8) * kRowStride + nb * 8 + (mat >> 1) * 8);
+          mma_bf16(acc[nb], pf[ksl], b[0], b[1]);
+          mma_bf16(acc[nb + 1], pf[ksl], b[2], b[3]);
+        }
+      }
+      __syncthreads();  // every warp is done with this buffer before it is refilled
+    }
+
+    // 1/sum over the quad, then the tile goes out through this warp's own Q
+    // rows in shared memory, so the stores are 16 bytes a lane.
+    float inv[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+      inv[r] = 1.f / l[r];
+    }
+#pragma unroll
+    for (int nb = 0; nb < 8; ++nb) {
+      *reinterpret_cast<__nv_bfloat162*>(my_q + g * kRowStride + nb * 8 + 2 * tq) =
+          __floats2bfloat162_rn(acc[nb][0] * inv[0], acc[nb][1] * inv[0]);
+      *reinterpret_cast<__nv_bfloat162*>(my_q + (g + 8) * kRowStride + nb * 8 + 2 * tq) =
+          __floats2bfloat162_rn(acc[nb][2] * inv[1], acc[nb][3] * inv[1]);
+    }
+    __syncwarp();
+    for (int c = lane; c < 16 * (kD / 8); c += 32) {
+      const int r = c >> 3, col = (c & 7) * 8;
+      const int row = q0 + warp * 16 + r;
+      if (row < t)
+        *reinterpret_cast<uint4*>(og + static_cast<long long>(row) * sot + col) =
+            *reinterpret_cast<const uint4*>(my_q + r * kRowStride + col);
+    }
+    __syncthreads();  // the next item restages Q and K/V
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Tiled f32 path: scalar f32 FMAs from shared memory.
+// ---------------------------------------------------------------------------
 
 __device__ __forceinline__ float warp_max(float x) {
 #pragma unroll
@@ -68,133 +462,197 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o, int t, float scale) {
-  extern __shared__ float smem[];
-  float* qs = smem;                       // [kBlockQ][kD]
-  float* kt = qs + kBlockQ * kD;          // [kD][kKtStride]  (K transposed)
-  float* vs = kt + kD * kKtStride;        // [kBlockK][kD]
+// 4 warps, 64 query rows a work item; warp w owns rows 16w .. 16w+15. Per
+// 64-key tile, K (transposed, padded) and V are staged in shared memory;
+// lane l scores keys l and l+32 of the tile for one query row at a time and
+// accumulates output dims l and l+32.
+__global__ void __launch_bounds__(kF32Threads)
+attn_tiled_f32_kernel(const Problem prob) {
+  extern __shared__ __align__(16) unsigned char vpt_smem[];
+  float* qs = reinterpret_cast<float*>(vpt_smem);  // [kF32BlockQ][kD]
+  float* kt = qs + kF32BlockQ * kD;                 // [kD][kKtStride]  (K transposed)
+  float* vs = kt + kD * kKtStride;                  // [kTileK][kD]
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  const int q0 = blockIdx.x * kBlockQ;
-  const size_t base = static_cast<size_t>(blockIdx.y) * t * kD;
+  const int t = prob.t;
+  const int q_tiles = (t + kF32BlockQ - 1) / kF32BlockQ;
+  const long long items = static_cast<long long>(prob.b) * prob.h * q_tiles;
 
-  for (int i = tid; i < kBlockQ * kD; i += kThreads) {
-    const int r = i / kD, c = i % kD;
-    qs[i] = (q0 + r < t) ? to_f32(q[base + static_cast<size_t>(q0 + r) * kD + c]) : 0.f;
-  }
+  for (long long item = blockIdx.x; item < items; item += gridDim.x) {
+    const long long pair = item / q_tiles;
+    const int q0 = static_cast<int>(item % q_tiles) * kF32BlockQ;
+    const float* q = static_cast<const float*>(prob.q) + pair_offset(prob.sq[0], prob.sq[1], pair, prob.h);
+    const float* k = static_cast<const float*>(prob.k) + pair_offset(prob.sk[0], prob.sk[1], pair, prob.h);
+    const float* v = static_cast<const float*>(prob.v) + pair_offset(prob.sv[0], prob.sv[1], pair, prob.h);
+    float* o = static_cast<float*>(prob.o) + pair_offset(prob.so[0], prob.so[1], pair, prob.h);
 
-  float m[kRowsPerWarp], l[kRowsPerWarp], acc0[kRowsPerWarp], acc1[kRowsPerWarp];
-#pragma unroll
-  for (int rr = 0; rr < kRowsPerWarp; ++rr) {
-    m[rr] = -CUDART_INF_F;
-    l[rr] = 0.f;
-    acc0[rr] = 0.f;
-    acc1[rr] = 0.f;
-  }
-
-  for (int k0 = 0; k0 < t; k0 += kBlockK) {
-    __syncthreads();  // the previous tile's readers are done (and qs is loaded)
-    for (int i = tid; i < kBlockK * kD; i += kThreads) {
-      const int j = i / kD, c = i % kD;
-      const bool ok = k0 + j < t;
-      const size_t g = base + static_cast<size_t>(k0 + j) * kD + c;
-      kt[c * kKtStride + j] = ok ? to_f32(k[g]) : 0.f;
-      vs[j * kD + c] = ok ? to_f32(v[g]) : 0.f;
+    for (int i = tid; i < kF32BlockQ * kD; i += kF32Threads) {
+      const int r = i / kD, c = i % kD;
+      qs[i] = (q0 + r < t) ? q[static_cast<long long>(q0 + r) * prob.sq[2] + c] : 0.f;
     }
-    __syncthreads();
 
-    const bool valid0 = k0 + lane < t;
-    const bool valid1 = k0 + lane + 32 < t;
+    float m[kF32RowsPerWarp], l[kF32RowsPerWarp], acc0[kF32RowsPerWarp], acc1[kF32RowsPerWarp];
 #pragma unroll
-    for (int rr = 0; rr < kRowsPerWarp; ++rr) {
-      const float* qrow = qs + (warp * kRowsPerWarp + rr) * kD;
-      float s0 = 0.f, s1 = 0.f;
+    for (int rr = 0; rr < kF32RowsPerWarp; ++rr) {
+      m[rr] = -CUDART_INF_F;
+      l[rr] = 0.f;
+      acc0[rr] = 0.f;
+      acc1[rr] = 0.f;
+    }
+
+    for (int k0 = 0; k0 < t; k0 += kTileK) {
+      __syncthreads();  // the previous tile's readers are done (and qs is loaded)
+      for (int i = tid; i < kTileK * kD; i += kF32Threads) {
+        const int j = i / kD, c = i % kD;
+        const bool ok = k0 + j < t;
+        kt[c * kKtStride + j] = ok ? k[static_cast<long long>(k0 + j) * prob.sk[2] + c] : 0.f;
+        vs[j * kD + c] = ok ? v[static_cast<long long>(k0 + j) * prob.sv[2] + c] : 0.f;
+      }
+      __syncthreads();
+
+      const bool valid0 = k0 + lane < t;
+      const bool valid1 = k0 + lane + 32 < t;
+#pragma unroll
+      for (int rr = 0; rr < kF32RowsPerWarp; ++rr) {
+        const float* qrow = qs + (warp * kF32RowsPerWarp + rr) * kD;
+        float s0 = 0.f, s1 = 0.f;
 #pragma unroll 16
-      for (int c = 0; c < kD; ++c) {
-        const float qv = qrow[c];
-        s0 = fmaf(qv, kt[c * kKtStride + lane], s0);
-        s1 = fmaf(qv, kt[c * kKtStride + lane + 32], s1);
-      }
-      s0 = valid0 ? s0 * scale : -CUDART_INF_F;
-      s1 = valid1 ? s1 * scale : -CUDART_INF_F;
-      // Key k0 is always valid, so the tile max is finite.
-      const float m_new = fmaxf(m[rr], warp_max(fmaxf(s0, s1)));
-      const float p0 = expf(s0 - m_new);
-      const float p1 = expf(s1 - m_new);
-      const float alpha = expf(m[rr] - m_new);  // exp(-inf) = 0 on the first tile
-      l[rr] = alpha * l[rr] + warp_sum(p0 + p1);
-      m[rr] = m_new;
-      const float pv0 = as_input_type<T>(p0);
-      const float pv1 = as_input_type<T>(p1);
-      float a0 = acc0[rr] * alpha, a1 = acc1[rr] * alpha;
+        for (int c = 0; c < kD; ++c) {
+          const float qv = qrow[c];
+          s0 = fmaf(qv, kt[c * kKtStride + lane], s0);
+          s1 = fmaf(qv, kt[c * kKtStride + lane + 32], s1);
+        }
+        s0 = valid0 ? s0 * prob.scale : -CUDART_INF_F;
+        s1 = valid1 ? s1 * prob.scale : -CUDART_INF_F;
+        // Key k0 is always valid, so the tile max is finite.
+        const float m_new = fmaxf(m[rr], warp_max(fmaxf(s0, s1)));
+        const float p0 = expf(s0 - m_new);
+        const float p1 = expf(s1 - m_new);
+        const float alpha = expf(m[rr] - m_new);  // exp(-inf) = 0 on the first tile
+        l[rr] = alpha * l[rr] + warp_sum(p0 + p1);
+        m[rr] = m_new;
+        float a0 = acc0[rr] * alpha, a1 = acc1[rr] * alpha;
 #pragma unroll 8
-      for (int j = 0; j < 32; ++j) {
-        const float pj = __shfl_sync(0xffffffffu, pv0, j);
-        a0 = fmaf(pj, vs[j * kD + lane], a0);
-        a1 = fmaf(pj, vs[j * kD + lane + 32], a1);
-      }
+        for (int j = 0; j < 32; ++j) {
+          const float pj = __shfl_sync(0xffffffffu, p0, j);
+          a0 = fmaf(pj, vs[j * kD + lane], a0);
+          a1 = fmaf(pj, vs[j * kD + lane + 32], a1);
+        }
 #pragma unroll 8
-      for (int j = 0; j < 32; ++j) {
-        const float pj = __shfl_sync(0xffffffffu, pv1, j);
-        a0 = fmaf(pj, vs[(j + 32) * kD + lane], a0);
-        a1 = fmaf(pj, vs[(j + 32) * kD + lane + 32], a1);
+        for (int j = 0; j < 32; ++j) {
+          const float pj = __shfl_sync(0xffffffffu, p1, j);
+          a0 = fmaf(pj, vs[(j + 32) * kD + lane], a0);
+          a1 = fmaf(pj, vs[(j + 32) * kD + lane + 32], a1);
+        }
+        acc0[rr] = a0;
+        acc1[rr] = a1;
       }
-      acc0[rr] = a0;
-      acc1[rr] = a1;
     }
-  }
 
 #pragma unroll
-  for (int rr = 0; rr < kRowsPerWarp; ++rr) {
-    const int r = q0 + warp * kRowsPerWarp + rr;
-    if (r < t) {
-      const size_t g = base + static_cast<size_t>(r) * kD;
-      const float inv = 1.f / l[rr];
-      o[g + lane] = from_f32<T>(acc0[rr] * inv);
-      o[g + lane + 32] = from_f32<T>(acc1[rr] * inv);
+    for (int rr = 0; rr < kF32RowsPerWarp; ++rr) {
+      const int r = q0 + warp * kF32RowsPerWarp + rr;
+      if (r < t) {
+        float* orow = o + static_cast<long long>(r) * prob.so[2];
+        const float inv = 1.f / l[rr];
+        orow[lane] = acc0[rr] * inv;
+        orow[lane + 32] = acc1[rr] * inv;
+      }
     }
+    __syncthreads();  // the next item restages qs
   }
 }
 
-template <typename T>
-int launch(const void* q, const void* k, const void* v, void* o, int bh, int t,
-           float scale, cudaStream_t stream) {
-  static bool configured = false;
-  if (!configured) {
-    cudaError_t e = cudaFuncSetAttribute(
-        flash_fwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(kSmemBytes));
-    if (e != cudaSuccess) return static_cast<int>(e);
-    configured = true;
+// ---------------------------------------------------------------------------
+// Host side.
+// ---------------------------------------------------------------------------
+
+enum Path { kSmall = 0, kTiled = 1 };
+enum Dtype { kF32 = 0, kBF16 = 1 };
+
+// Dynamic shared memory of one block, or -1 for a path/dtype/warps the
+// kernels do not take.
+int smem_bytes(int path, int dtype, int t, int warps) {
+  if (path == kSmall) {
+    if (t < 1 || t > kSmallTMax || warps < 1 || warps > kSmallMaxWarps) return -1;
+    return static_cast<int>(sizeof(float)) * warps * small_words_per_warp(t);
   }
-  dim3 grid((t + kBlockQ - 1) / kBlockQ, bh);
-  flash_fwd_kernel<T><<<grid, kThreads, kSmemBytes, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), t, scale);
-  return static_cast<int>(cudaGetLastError());
+  if (path == kTiled && dtype == kBF16) {
+    if (warps != 1 && warps != 2 && warps != 4) return -1;
+    return mma_smem_bytes(warps);
+  }
+  if (path == kTiled && dtype == kF32) return warps == kF32Threads / 32 ? static_cast<int>(kF32SmemBytes) : -1;
+  return -1;
+}
+
+template <typename F>
+cudaError_t allow_smem(F* kernel, bool* done, int bytes) {
+  if (*done) return cudaSuccess;
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (e == cudaSuccess) *done = true;
+  return e;
 }
 
 }  // namespace
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16. Returns a cudaError_t value (0 = success);
-// -1 for arguments the kernel does not take.
+// strides: 12 element strides, (b, h, t) of q, k, v, o in that order.
+// dtype: 0 = float32, 1 = bfloat16. path: 0 = small (T <= 16), 1 = tiled.
+// warps: warps a block; grid: blocks (the kernels loop over their work
+// items, so any grid >= 1 is correct). Returns a cudaError_t value
+// (0 = success), -1 for arguments the kernels do not take.
 int vpt_flash_attn_fwd(const void* q, const void* k, const void* v, void* o,
-                       int bh, int t, int d, int dtype, float scale, void* stream) {
-  if (d != kD || bh <= 0 || t <= 0 || bh > 65535) return -1;
+                       const long long* strides, int b, int h, int t, int d, int dtype,
+                       float scale, int path, int warps, int grid, void* stream) {
+  if (d != kD || b <= 0 || h <= 0 || t <= 0 || grid <= 0 || (dtype != kF32 && dtype != kBF16)) return -1;
+  const int smem = smem_bytes(path, dtype, t, warps);
+  if (smem < 0) return -1;
+  Problem prob;
+  prob.q = q;
+  prob.k = k;
+  prob.v = v;
+  prob.o = o;
+  for (int i = 0; i < 3; ++i) {
+    prob.sq[i] = strides[i];
+    prob.sk[i] = strides[3 + i];
+    prob.sv[i] = strides[6 + i];
+    prob.so[i] = strides[9 + i];
+  }
+  prob.b = b;
+  prob.h = h;
+  prob.t = t;
+  prob.scale = scale;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch<float>(q, k, v, o, bh, t, scale, s);
-  if (dtype == 1) return launch<__nv_bfloat16>(q, k, v, o, bh, t, scale, s);
-  return -1;
+  const dim3 block(32 * warps);
+  cudaError_t e = cudaSuccess;
+  if (path == kSmall && dtype == kF32) {
+    static bool done = false;
+    e = allow_smem(attn_small_kernel<float>, &done, smem_bytes(kSmall, kF32, kSmallTMax, kSmallMaxWarps));
+    if (e == cudaSuccess) attn_small_kernel<float><<<grid, block, smem, s>>>(prob);
+  } else if (path == kSmall) {
+    static bool done = false;
+    e = allow_smem(attn_small_kernel<bf16>, &done, smem_bytes(kSmall, kBF16, kSmallTMax, kSmallMaxWarps));
+    if (e == cudaSuccess) attn_small_kernel<bf16><<<grid, block, smem, s>>>(prob);
+  } else if (dtype == kBF16) {
+    static bool done = false;
+    e = allow_smem(attn_tiled_bf16_kernel, &done, mma_smem_bytes(kMmaMaxWarps));
+    if (e == cudaSuccess) attn_tiled_bf16_kernel<<<grid, block, smem, s>>>(prob);
+  } else {
+    static bool done = false;
+    e = allow_smem(attn_tiled_f32_kernel, &done, static_cast<int>(kF32SmemBytes));
+    if (e == cudaSuccess) attn_tiled_f32_kernel<<<grid, block, smem, s>>>(prob);
+  }
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return static_cast<int>(cudaGetLastError());
 }
 
-// Shared memory one block asks for, so a caller can print it.
-int vpt_flash_attn_smem_bytes() { return static_cast<int>(kSmemBytes); }
+// Dynamic shared memory one block of that launch asks for (-1 if the
+// kernels do not take it), so a caller can print it.
+int vpt_flash_attn_smem_bytes(int path, int dtype, int t, int warps) {
+  return smem_bytes(path, dtype, t, warps);
+}
 
 }  // extern "C"

@@ -15,7 +15,7 @@ from typing import NamedTuple
 
 import torch
 
-from vitparticlefiltertracker_tpu_torch.ops.attention import multi_head_attention
+from vitparticlefiltertracker_tpu_torch.ops.attention import multi_head_attention, split_fused_qkv
 
 
 class VitSpec(NamedTuple):
@@ -94,15 +94,15 @@ def patchify(images: torch.Tensor, patch_size: int) -> torch.Tensor:
 def _block(x: torch.Tensor, p: dict, spec: VitSpec) -> torch.Tensor:
     b, t, d = x.shape
     h = spec.heads
-    hd = d // h
     dtype = spec.dtype
 
     y = _layer_norm(x, p["ln1"], dtype, spec.ln_eps)
     qkv = y @ p["attn"]["wqkv"].to(dtype) + p["attn"]["bqkv"].to(dtype)
-    # Fused qkv columns are head-major (h, 3, hd), as in the JAX package.
-    qkv = qkv.reshape(b, t, h, 3, hd).permute(3, 0, 2, 1, 4)  # [3, B, H, T, hd]
-    o = multi_head_attention(qkv[0], qkv[1], qkv[2])  # [B, H, T, hd]
-    o = o.permute(0, 2, 1, 3).reshape(b, t, d)
+    # Fused qkv columns are head-major (h, 3, hd), as in the JAX package; q,
+    # k and v are [B, H, T, hd] views of it. On the card K1 reads them in
+    # place and writes [B, T, H, hd] memory, so the reshape below is a view.
+    o = multi_head_attention(*split_fused_qkv(qkv, h))  # [B, H, T, hd]
+    o = o.transpose(1, 2).reshape(b, t, d)
     x = x + (o @ p["attn"]["wo"].to(dtype) + p["attn"]["bo"].to(dtype))
 
     y = _layer_norm(x, p["ln2"], dtype, spec.ln_eps)

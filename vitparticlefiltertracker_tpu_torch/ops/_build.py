@@ -96,9 +96,11 @@ def flash_attn_library() -> ctypes.CDLL:
     fn = lib.vpt_flash_attn_fwd
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, p, i, i, i, i, ctypes.c_float, p]
+        # q, k, v, o, strides (12 int64), b, h, t, d, dtype, scale, path, warps, grid, stream
+        fn.argtypes = [p, p, p, p, ctypes.POINTER(ctypes.c_longlong), i, i, i, i, i,
+                       ctypes.c_float, i, i, i, p]
         fn.restype = ctypes.c_int
-        lib.vpt_flash_attn_smem_bytes.argtypes = []
+        lib.vpt_flash_attn_smem_bytes.argtypes = [i, i, i, i]
         lib.vpt_flash_attn_smem_bytes.restype = ctypes.c_int
     return lib
 

@@ -17,6 +17,8 @@ a CUDA tensor the kernel launches or the call raises.
 
 from __future__ import annotations
 
+from collections import Counter
+
 import torch
 
 from vitparticlefiltertracker_tpu_torch.models.vit import patchify
@@ -56,8 +58,9 @@ def gather_patchify_window(
     centers, sizes: contiguous [N, 2] f32; kernel [p*p*C, D] and bias [D]:
     contiguous, both float32 or both bfloat16 -> [N, g*g, D] in their dtype.
 
-    Adds one to ``gather_patchify_window.launches`` per launch, so a run can
-    show that its patch embedding went through the kernel.
+    Adds one to ``gather_patchify_window.launches`` (and to
+    ``gather_patchify_window.sizes[N]``) per launch, so a run can show that
+    its patch embedding went through the kernel, and for how many boxes.
     """
     tensors = (window, centers, sizes, kernel, bias)
     if not all(x.is_cuda for x in tensors):
@@ -107,10 +110,12 @@ def gather_patchify_window(
             f"crop {crop_size}, patch {p}, D {d}"
         )
     gather_patchify_window.launches += 1
+    gather_patchify_window.sizes[n] += 1
     return out
 
 
 gather_patchify_window.launches = 0
+gather_patchify_window.sizes = Counter()
 
 
 def window_gather_patchify(

@@ -421,14 +421,41 @@ def save_tracker_state(path: str, state: TrackerState) -> None:
     np.savez(path, **flat)
 
 
+# Round-1 files carry no format marker: leaf_<i> in this field order (the JAX
+# package's _state_from_positional); the oldest lack the anchor (index 3).
+_POSITIONAL_STATE_NAMES = (
+    "pf/particles", "pf/log_weights", "template", "anchor", "box_wh",
+    "center", "prev_scale", "key", "frame_idx", "conf", "lost",
+)
+
+
+def _named_from_positional(flat: dict, path: str) -> dict:
+    try:
+        leaves = [flat[f"leaf_{i}"] for i in range(len(flat))]
+    except KeyError:
+        raise ValueError(f"{path}: not a TrackerState checkpoint") from None
+    names = _POSITIONAL_STATE_NAMES
+    if len(leaves) == len(names) - 1:
+        leaves.insert(3, leaves[2])  # pre-anchor file: anchor := template
+    if len(leaves) != len(names):
+        raise ValueError(f"{path}: {len(leaves)} leaves, expected {len(names)} — not a "
+                         "TrackerState checkpoint (or from an incompatible version)")
+    return dict(zip(names, leaves))
+
+
 def load_tracker_state(path: str, device="cpu") -> TrackerState:
+    """Read a state saved by either package: the name-keyed v1 format, or a
+    round-1 positional file."""
     with np.load(path) as z:
         flat = {k: z[k] for k in z.files}
-    version = int(flat.pop(_STATE_FORMAT_KEY, 0))
-    if version != STATE_FORMAT_VERSION:
-        raise ValueError(
-            f"{path}: state format v{version}; the port reads the name-keyed v1 format"
-        )
+    if _STATE_FORMAT_KEY in flat:
+        version = int(flat.pop(_STATE_FORMAT_KEY))
+        if version > STATE_FORMAT_VERSION:
+            raise ValueError(
+                f"{path}: state format v{version}, this build reads up to v{STATE_FORMAT_VERSION}"
+            )
+    else:
+        flat = _named_from_positional(flat, path)
 
     def get(name, default=None):
         if name in flat:
@@ -472,11 +499,20 @@ class Tracker:
         from vitparticlefiltertracker_tpu_torch.models.params import resolve_vit_params
 
         cfg.resolve()
-        if cfg.runtime.banks > 1:
+        r = cfg.runtime
+        if r.banks > 1:
             raise NotImplementedError("runtime.banks > 1 (banked trackers) is not ported yet; see ROADMAP.md")
+        if r.mesh_particles * r.mesh_model > 1:
+            raise NotImplementedError(
+                f"runtime.mesh_particles {r.mesh_particles} x mesh_model {r.mesh_model} (multi-GPU) "
+                "is not ported yet; see ROADMAP.md, open items §1 item 10"
+            )
         self.cfg = cfg
         self.device = resolve_device(device)
-        self.spec = VitSpec.from_config(cfg.model)
+        spec = VitSpec.from_config(cfg.model)
+        if cfg.tracker.mode == "crop":
+            spec = spec._replace(image_size=cfg.tracker.crop_size)
+        self.spec = spec
         self._fns = build_tracker_fns(cfg)
         self.vit_params = resolve_vit_params(cfg, vit_params, self.device)
         self.state: TrackerState | None = None
