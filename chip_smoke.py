@@ -9,7 +9,11 @@ Phases, each timed and printed:
   1. device   — card name and power limit; TF32 off for f32 matmuls.
   2. build    — nvcc builds kernels K1 (csrc/flash_attn.cu) and K2
                 (csrc/window_patchify.cu) into ctypes .so files, both
-                compiles started together; prints the ptxas reports.
+                compiles started together (a cached library comes with its
+                saved ptxas report); prints the ptxas reports, checks that
+                no K2 kernel spills and, with cuobjdump -sass, that K2's
+                tensor-core kernels hold HMMA instructions, and prints both
+                kernels' launch plans at the main paths' shapes.
   3. kernel   — K1 and K2 against their plain PyTorch versions on the card,
                 at the dense and crop paths' shapes and beyond; K1 both on
                 views of a fused qkv activation (as the ViT passes them) and
@@ -24,8 +28,11 @@ Phases, each timed and printed:
                 RMSE.
   5. times    — K1, its plain version and torch's scaled_dot_product_attention
                 (a yardstick the port never calls) on fused-qkv views at the
-                dense, crop (B 1024 and B 1) and re-detection shapes; K2 and
-                its plain version at the crop path's N 1024 and N 1.
+                dense, crop (B 1024 and B 1) and re-detection shapes; K2, its
+                plain version and cuBLAS's product alone on sampled tokens
+                (a yardstick the port never calls) at the crop path's N 1024
+                and N 1 (tools/port_k2_times.py). Device times are of one
+                call inside a CUDA graph.
 
 Prints a JSON line of kernel numbers, then as its last line
 {"ok": true, "device": {...}}. Any failed check raises and exits non-zero.
@@ -38,6 +45,7 @@ import copy
 import importlib.util
 import itertools
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -57,11 +65,21 @@ from vitparticlefiltertracker_tpu_torch.ops.patchify import crop_sample_coords
 from vitparticlefiltertracker_tpu_torch.runtime.tracker import Tracker, build_tracker_fns
 
 ROOT = Path(__file__).resolve().parent
-# The timing helpers are shared with tools/port_k1_times.py, loaded by path
-# (tools/ is no package, and another installed "tools" would shadow it).
-_spec = importlib.util.spec_from_file_location("port_k1_times", ROOT / "tools" / "port_k1_times.py")
-_k1_times = importlib.util.module_from_spec(_spec)
-_spec.loader.exec_module(_k1_times)
+
+
+def _load_tool(name: str):
+    """tools/<name>.py, loaded by path (tools/ is no package, and another
+    installed "tools" would shadow it)."""
+    spec = importlib.util.spec_from_file_location(name, ROOT / "tools" / f"{name}.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+# The timing helpers are shared with tools/port_k1_times.py and
+# tools/port_k2_times.py.
+_k1_times = _load_tool("port_k1_times")
+_k2_times = _load_tool("port_k2_times")
 time_eager, time_graph = _k1_times.time_eager, _k1_times.time_graph
 CHECKPOINT = "checkpoints/vit_b16_tracking.npz"
 
@@ -133,16 +151,22 @@ TIME_SHAPES = [DENSE_SHAPE, CROP_SHAPE, CROP_ONE_SHAPE, REDETECT_SHAPE]
 
 # K2 checks: every combination, each once with a randn window and raw
 # weights and once with a 0..255 window and normalization-folded weights.
-K2_NS = (1, 5, 13, 1024)
+# N reaches every edge of the launch plan's tiles: one box (4 or 9 rows in
+# one 16-row tile), 3, a 64-row tile exactly (16 at crop 32), one row past
+# it, 33, the crop path's 1024 and eval5's 16384 particles (both on the wide
+# tile); D 100 goes to the scalar kernel (D % 8 != 0); 768 fills two of the
+# wide tile's 384 columns, 192 and 1024 leave the last one ragged.
+K2_NS = (1, 3, 16, 17, 33, 1024, 16384)
 K2_CROPS = ((32, 16), (48, 16))  # (crop, patch)
 K2_SWINS = (64, 256)
-K2_DIMS = (128, 768)
+K2_DIMS = (100, 192, 768, 1024)
 K2_TOL = {torch.float32: dict(atol=1e-4, rtol=1e-4),  # as tests/test_patchify_pallas.py
           torch.bfloat16: dict(atol=0.15, rtol=0.05)}
 # The crop main path's K2 calls: 1024 boxes (the particles) and 1 box (the
 # template at the estimate), 256-px window, 32-px crops, D 768.
-K2_MAIN = dict(n=1024, swin=256, crop=32, patch=16, d=768)
-K2_ONE = dict(K2_MAIN, n=1)
+# The crop path's two K2 calls, and the inputs of every K2 check and timing:
+# one definition, in tools/port_k2_times.py.
+K2_MAIN, K2_ONE, k2_inputs = _k2_times.K2_MAIN, _k2_times.K2_ONE, _k2_times.k2_inputs
 
 # H100 SXM published peaks (dense): bf16 tensor cores, f32 without them, HBM.
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
@@ -204,35 +228,16 @@ def check_kernel() -> dict:
     return errs
 
 
-def k2_inputs(n, swin, patch, d, dtype, raw, seed, device="cuda"):
-    """Window, boxes and weights for one K2 call. Box centres span the window
-    and 8 px past it; with n >= 4 the first four sit on its corners, so the
-    clamp-to-edge taps are read. raw: a 0..255 window with the pixel
-    normalization folded into the weights, as the tracker calls it."""
-    from vitparticlefiltertracker_tpu_torch.models.vit import VitSpec
-    from vitparticlefiltertracker_tpu_torch.runtime.tracker import _norm_folded_embed_weights
-
-    g = torch.Generator(device="cpu").manual_seed(seed)
-    window = torch.rand((swin, swin, 3), generator=g) * 255 if raw else torch.randn((swin, swin, 3), generator=g)
-    centers = torch.rand((n, 2), generator=g) * (swin + 16) - 8
-    if n >= 4:
-        centers[:4] = torch.tensor([[0.0, 0.0], [swin - 1.0, 0.0], [0.0, swin - 1.0], [swin - 1.0, swin - 1.0]])
-    sizes = 4 + torch.rand((n, 2), generator=g) * (swin / 4)
-    kernel = torch.randn((patch * patch * 3, d), generator=g) * 0.02
-    bias = torch.randn((d,), generator=g) * 0.1
-    if raw:
-        kernel, bias = _norm_folded_embed_weights({"patch_embed": {"kernel": kernel, "bias": bias}},
-                                                  VitSpec(dim=d, patch_size=patch, dtype=torch.float32))
-    return [x.to(device) for x in (window, centers, sizes)] + [x.to(device, dtype) for x in (kernel, bias)]
-
-
 def check_window_patchify() -> dict:
     """K2 against its plain version at every listed N, crop, Swin, D, dtype,
-    with randn and raw (folded-weight) inputs."""
+    with randn and raw (folded-weight) inputs; counts the cases each of the
+    launch plan's paths took."""
     errs = {}
+    paths = Counter()
     cases = itertools.product((torch.float32, torch.bfloat16), K2_NS, K2_CROPS, K2_SWINS, K2_DIMS, (False, True))
     for dtype, n, (crop, patch), swin, d, raw in cases:
         window, centers, sizes, kernel, bias = k2_inputs(n, swin, patch, d, dtype, raw, seed=n + swin + d)
+        paths[pw.launch_plan(window, centers, sizes, crop, patch, kernel, bias).path] += 1
         out = pw.gather_patchify_window(window, centers, sizes, crop, patch, kernel, bias)
         torch.cuda.synchronize()
         ref = pw.window_gather_patchify_plain(window, centers, sizes, crop, patch, kernel, bias)
@@ -249,7 +254,62 @@ def check_window_patchify() -> dict:
         print(f"  K2 {str(dtype):15s} {len(errs) // 2} cases (N {K2_NS}, (crop, patch) {K2_CROPS}, "
               f"Swin {K2_SWINS}, D {K2_DIMS}, randn and raw windows): max_abs_err {worst:.3e} "
               f"(tol {K2_TOL[dtype]}) ok", flush=True)
+    print(f"  K2 cases by launch-plan path: {dict(paths)}", flush=True)
+    check(set(paths) == {"wide", "narrow", "scalar"}, f"the K2 cases reach every path ({dict(paths)})")
     return errs
+
+
+def ptxas_functions(report: str) -> dict[str, dict]:
+    """nvcc -Xptxas -v's report -> {mangled function: {"registers",
+    "spill_stores", "spill_loads"}}."""
+    funcs, name = {}, None
+    for line in report.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'|Function properties for (\S+)", line)
+        if m:
+            name = m.group(1) or m.group(2)
+            funcs.setdefault(name, {})
+        elif name and (m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)):
+            funcs[name].update(spill_stores=int(m.group(1)), spill_loads=int(m.group(2)))
+        elif name and (m := re.search(r"Used (\d+) registers", line)):
+            funcs[name]["registers"] = int(m.group(1))
+    return funcs
+
+
+def check_k2_build(record: dict) -> None:
+    """No K2 kernel spills (ptxas: this build's report, or the one saved
+    beside a cached library); the tensor-core kernels hold HMMA instructions
+    (cuobjdump -sass; fails without it); the launch plans at the crop path's
+    shapes, and the shared memory the plan computes equals the library's."""
+    funcs = {k: v for k, v in ptxas_functions(record["ptxas"]).items() if "window_patchify" in k}
+    for name, f in funcs.items():
+        print(f"  K2 ptxas {name[:70]}: {f}")
+    check(len(funcs) == 4 and all("spill_stores" in f for f in funcs.values()),
+          f"ptxas reports the four K2 kernels ({list(funcs)}; built in this process: {record['built']})")
+    check(all(f["spill_stores"] == 0 and f["spill_loads"] == 0 for f in funcs.values()),
+          "no K2 kernel spills registers")
+    cuobjdump = Path(_build.find_nvcc()).parent / "cuobjdump"
+    check(cuobjdump.exists(), f"{cuobjdump} exists, to read K2's SASS")
+    sass = subprocess.run([str(cuobjdump), "-sass", record["so"]], capture_output=True, text=True).stdout
+    hmma, name = Counter(), None
+    for line in sass.splitlines():
+        if m := re.search(r"Function : (\S+)", line):
+            name = m.group(1)
+            hmma[name] += 0
+        elif name and "HMMA" in line:
+            hmma[name] += 1
+    mma_kernels = [k for k in hmma if "window_patchify_mma_kernel" in k]
+    print(f"  K2 HMMA instructions by kernel (cuobjdump -sass): {dict(hmma)}")
+    check(len(mma_kernels) == 2 and all(hmma[k] > 0 for k in mma_kernels),
+          "both K2 tensor-core kernels issue HMMA")
+    lib = _build.window_patchify_library()
+    for path, code in pw._PATH_CODES.items():
+        for crop, patch in K2_CROPS:
+            check(lib.vpt_window_patchify_smem_bytes(code, patch, 3, crop) == pw.smem_bytes(path, patch, 3, crop),
+                  f"K2 shared memory of path {path} at crop {crop}: library == launch_plan")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for m in (K2_MAIN, K2_ONE):
+        w, c, s_, k, b = _k2_times.timing_inputs(m)
+        print(f"  K2 at N {m['n']}: {pw.launch_plan(w, c, s_, m['crop'], m['patch'], k, b, sms)}")
 
 
 TINY = {
@@ -421,20 +481,22 @@ def window_patchify_bound_ms(window, centers, sizes, crop, patch, kernel) -> tup
 
 
 def time_window_patchify(m: dict = K2_MAIN) -> dict:
-    """K2 and its plain version at one of the crop path's shapes, bf16, the
-    tracker's kind of inputs; an eager loop of launches, interleaved plain,
-    kernel, kernel, plain. No single PyTorch call computes this function,
-    so there is no library time."""
-    w, c, s_, k, b = k2_inputs(m["n"], m["swin"], m["patch"], m["d"], torch.bfloat16, raw=True, seed=11)
-    args = (w, c, s_, m["crop"], m["patch"], k, b)
-    t_plain = [time_eager(lambda: pw.window_gather_patchify_plain(*args))[0]]
-    t_k2 = [time_eager(lambda: pw.gather_patchify_window(*args))[0]]
-    t_k2.append(time_eager(lambda: pw.gather_patchify_window(*args))[0])
-    t_plain.append(time_eager(lambda: pw.window_gather_patchify_plain(*args))[0])
+    """K2 at one of the crop path's shapes, bf16, through
+    tools/port_k2_times.py: device time of one call inside a CUDA graph (the
+    `ms`), its plain version the same way, cuBLAS's product alone on sampled
+    tokens (`product_ms`, a yardstick the port never calls), the eager loop
+    and the host's issue time of one call. No single PyTorch call computes
+    this function, so there is no library time."""
+    t = _k2_times.time_k2(pw, m)
+    w, c, s_, k, _ = _k2_times.timing_inputs(m)
     bound, by = window_patchify_bound_ms(w, c, s_, m["crop"], m["patch"], k)
-    print(f"  K2 N {m['n']} Swin {m['swin']} crop {m['crop']} D {m['d']} bf16: K2 {t_k2[0]:.4f}/{t_k2[1]:.4f} ms, "
-          f"plain {t_plain[0]:.4f}/{t_plain[1]:.4f} ms, bound {bound:.5f} ms ({by})", flush=True)
-    return {"ms": min(t_k2), "plain_ms": min(t_plain), "library_ms": None, "bound_ms": bound, "bound_by": by}
+    print(f"  K2 N {m['n']} Swin {m['swin']} crop {m['crop']} D {m['d']} bf16, device (graph): K2 "
+          f"{'/'.join(f'{x:.4f}' for x in t['kernel_device_runs_ms'])} ms, plain {t['plain_device_ms']:.4f} ms, "
+          f"product alone {t['product_device_ms']:.4f} ms; eager loop {t['kernel_eager_ms']:.4f} ms, host "
+          f"{t['kernel_host_us']:.1f} us a call; bound {bound:.5f} ms ({by})", flush=True)
+    return {"ms": t["kernel_device_ms"], "plain_ms": t["plain_device_ms"], "library_ms": None, "bound_ms": bound,
+            "bound_by": by, "eager_ms": t["kernel_eager_ms"], "host_us": t["kernel_host_us"],
+            "product_ms": t["product_device_ms"]}
 
 
 def main() -> int:
@@ -456,7 +518,8 @@ def main() -> int:
     phase("device", t0)
 
     t0 = time.perf_counter()
-    for source, (_, rec) in _build.build_libraries(["flash_attn.cu", "window_patchify.cu"]).items():
+    built = _build.build_libraries(["flash_attn.cu", "window_patchify.cu"])
+    for source, (_, rec) in built.items():
         print(f"  nvcc build of {source}: {rec['seconds']:.2f} s (built={rec['built']}) -> {rec['so']}")
         for line in rec["ptxas"].splitlines():
             print(f"  ptxas: {line.strip()}")
@@ -467,8 +530,7 @@ def main() -> int:
         smem = lib.vpt_flash_attn_smem_bytes(attention._PATH_CODES[plan.path], 1, plan.t, plan.warps)
         print(f"  K1 at {shape} bf16: {plan.path} path, {plan.warps} warps a block, grid {plan.grid}, "
               f"{smem} B of dynamic shared memory a block")
-    k2_smem = _build.window_patchify_library().vpt_window_patchify_smem_bytes(K2_MAIN["patch"], 3)
-    print(f"  K2 dynamic shared memory per block (patch {K2_MAIN['patch']}, 3 channels): {k2_smem} B")
+    check_k2_build(built["window_patchify.cu"][1])
     phase("build", t0)
 
     t0 = time.perf_counter()

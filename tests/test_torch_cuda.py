@@ -13,7 +13,8 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import K2_TOL, k2_inputs  # K2's inputs and tolerances (as tests/test_patchify_pallas.py)
+# K2's cases, inputs and tolerances (as tests/test_patchify_pallas.py)
+from chip_smoke import K2_DIMS, K2_NS, K2_SWINS, K2_TOL, k2_inputs
 from vitparticlefiltertracker_tpu_torch.config import Config
 from vitparticlefiltertracker_tpu_torch.ops import attention
 from vitparticlefiltertracker_tpu_torch.ops import patchify_window as pw
@@ -85,12 +86,16 @@ def test_kernel_at_redetection_shape(cuda_device, dtype, layout):
     torch.testing.assert_close(out.float(), ref.float(), rtol=TOL[dtype], atol=TOL[dtype])
 
 
-@pytest.mark.parametrize("n", [1, 5, 13, 1024])
+@pytest.mark.parametrize("n", K2_NS)
 @pytest.mark.parametrize("crop", [32, 48])
-@pytest.mark.parametrize("swin,d", [(64, 128), (256, 768)])
+@pytest.mark.parametrize("swin", K2_SWINS)
+@pytest.mark.parametrize("d", K2_DIMS)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("raw", [False, True])
 def test_window_patchify_kernel_matches_plain_version(cuda_device, n, crop, swin, d, dtype, raw):
+    """Every edge of the launch plan's tiles (chip_smoke.K2_NS, K2_DIMS):
+    both tensor-core tiles and the scalar kernel, ragged row and column
+    tiles, one box and eval5's 16384."""
     window, centers, sizes, kernel, bias = k2_inputs(n, swin, 16, d, dtype, raw, seed=n, device=cuda_device)
     before = pw.gather_patchify_window.launches
     out = pw.window_gather_patchify(window, centers, sizes, crop, 16, kernel, bias)

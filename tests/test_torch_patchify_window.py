@@ -8,6 +8,8 @@ of tests/test_patchify_pallas.py, with its tolerances: 1e-4 in f32, atol
 0.15 and rtol 0.05 with bf16 weights (the Pallas kernel rounds once after
 the bias, the plain version after the product and again after the bias).
 Kernel K2 itself needs the card: tests/test_torch_cuda.py and chip_smoke.py.
+Its launch plan (the kernel, tile and grid a call gets) is pure Python and
+is tested here.
 """
 
 import jax
@@ -106,3 +108,86 @@ def test_kernel_wrapper_refuses_cpu_tensors():
     window, centers, sizes, kernel, bias = (torch.from_numpy(x) for x in _setup(n=2))
     with pytest.raises(ValueError, match="CUDA tensors"):
         pw.gather_patchify_window(window, centers, sizes, CROP, PATCH, kernel, bias)
+
+
+# --- K2's launch plan (no card needed) ---------------------------------------
+
+def _operands(n, crop, d, dtype=torch.bfloat16, swin=256, patch=PATCH):
+    window = torch.zeros((swin, swin, C))
+    kernel = torch.zeros((patch * patch * C, d), dtype=dtype)
+    return window, torch.zeros((n, 2)), torch.zeros((n, 2)), crop, patch, kernel, torch.zeros((d,), dtype=dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("d", [192, 384, 768, 1024, 100])  # every preset's width (config.py), and D % 8 != 0
+@pytest.mark.parametrize("crop", [32, 48])  # 4 and 9 tokens a box: tiles straddle boxes
+@pytest.mark.parametrize("n", [1, 2, 5, 16, 17, 1024, 16384])  # 16384: eval5's particle count
+def test_launch_plan_covers_every_row_and_column(n, crop, d, dtype):
+    plan = pw.launch_plan(*_operands(n, crop, d, dtype))
+    rows = n * (crop // PATCH) ** 2
+    tile = pw.TILES[plan.path]
+    assert plan.rows == rows and (plan.n, plan.swin, plan.c, plan.d) == (n, 256, C, d)
+    # bf16 with D % 8 == 0 on tensor cores: the wide tile where its blocks
+    # cover three quarters of the SMs, else the narrow one; everything else
+    # on the scalar kernel.
+    if dtype == torch.bfloat16 and d % 8 == 0:
+        wide_blocks = -(-rows // 64) * -(-d // 384)
+        assert plan.path == ("wide" if 4 * wide_blocks >= 3 * pw.H100_SMS else "narrow")
+    else:
+        assert plan.path == "scalar"
+    assert plan.row_tiles == -(-rows // tile["bm"]) and plan.col_tiles == -(-d // tile["bn"])
+    # Every (row tile, column tile) has a block of its own.
+    assert plan.grid == (plan.row_tiles, plan.col_tiles)
+    assert plan.smem == pw.smem_bytes(plan.path, PATCH, C, crop) <= pw.MAX_SMEM_BYTES
+
+
+@pytest.mark.parametrize("n,crop,d,dtype,path,grid", [
+    (1, 32, 768, torch.bfloat16, "narrow", (1, 24)),  # template and init: D over 24 blocks
+    (1024, 32, 768, torch.bfloat16, "wide", (64, 2)),  # the particles: 128 blocks of 64 x 384
+    (16384, 48, 768, torch.bfloat16, "wide", (2304, 2)),  # eval5's particles
+    (17, 32, 768, torch.bfloat16, "narrow", (5, 24)),
+    (33, 48, 1024, torch.bfloat16, "narrow", (19, 32)),
+    (1024, 32, 192, torch.bfloat16, "narrow", (256, 6)),
+    (1024, 32, 100, torch.bfloat16, "scalar", (256, 1)),
+    (1024, 32, 768, torch.float32, "scalar", (256, 1)),
+])
+def test_launch_plan_path_and_grid(n, crop, d, dtype, path, grid):
+    plan = pw.launch_plan(*_operands(n, crop, d, dtype))
+    assert (plan.path, plan.grid) == (path, grid)
+
+
+def test_launch_plan_shared_memory():
+    # Weight ring + bf16 token rows padded to K + 8 + the crop's offsets.
+    assert pw.smem_bytes("wide", 16, 3, 32) == 2 * (4 * 32 * 392 + 64 * 776) + 4 * 32 == 199808
+    assert pw.smem_bytes("narrow", 16, 3, 32) == 2 * (8 * 64 * 40 + 16 * 776) + 4 * 32 == 65920
+    assert pw.smem_bytes("scalar", 16, 3, 48) == 4 * (16 * 768 + 48)
+    # Each path's block fits at the larger crop.
+    for path in pw.TILES:
+        assert pw.smem_bytes(path, 16, 3, 48) <= pw.MAX_SMEM_BYTES
+
+
+def test_launch_plan_refusals():
+    ok = _operands(4, 32, 768)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        pw.launch_plan(*_operands(4, 32, 768, torch.float16))
+    with pytest.raises(ValueError, match="multiple of patch_size"):
+        pw.launch_plan(*ok[:3], 40, *ok[4:])
+    with pytest.raises(ValueError, match="contiguous"):
+        pw.launch_plan(ok[0], torch.zeros((2, 4)).t(), *ok[2:])
+    with pytest.raises(ValueError, match="N >= 1"):
+        pw.launch_plan(*_operands(0, 32, 768))
+    with pytest.raises(ValueError, match=r"\[Swin, Swin, C\]"):
+        pw.launch_plan(torch.zeros((64, 32, 3)), *ok[1:])
+    with pytest.raises(ValueError, match=r"kernel must be \[768, D\]"):
+        pw.launch_plan(*ok[:5], torch.zeros((767, 768), dtype=torch.bfloat16), ok[6])
+    with pytest.raises(ValueError, match="float32"):
+        pw.launch_plan(ok[0].double(), *ok[1:])
+    # The tensor-core kernel reads the weight in 16-byte chunks.
+    shifted = torch.zeros(768 * 768 + 1, dtype=torch.bfloat16)[1:].view(768, 768)
+    with pytest.raises(ValueError, match="16 bytes"):
+        pw.launch_plan(*ok[:5], shifted, ok[6])
+    # 64-px patches: 12,288 values a token, more than a block's shared memory holds.
+    with pytest.raises(ValueError, match="shared memory"):
+        pw.launch_plan(*_operands(1, 64, 768, patch=64))
+    with pytest.raises(ValueError, match="shared memory"):
+        pw.launch_plan(*_operands(1, 64, 768, torch.float32, patch=64))

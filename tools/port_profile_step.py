@@ -83,8 +83,9 @@ def main() -> int:
           f"device busy {busy_us / args.frames / 1e3:.3f} ms/step = {100 * busy_us / wall_us:.1f}% "
           f"of wall, {launches / args.frames:.0f} kernels/step")
     # The port's own kernels by source: K1's paths (attn_small_kernel,
-    # attn_tiled_*_kernel) and K2 (window_patchify_kernel).
-    for label, marks in (("K1", ("attn_small_kernel", "attn_tiled_")), ("K2", ("window_patchify_kernel",))):
+    # attn_tiled_*_kernel) and K2's (window_patchify_mma_kernel<tile>,
+    # window_patchify_scalar_kernel<dtype>).
+    for label, marks in (("K1", ("attn_small_kernel", "attn_tiled_")), ("K2", ("window_patchify_",))):
         mine = [e for e in rows if any(m in e.key for m in marks)]
         us = sum(e.self_device_time_total for e in mine)
         print(f"  {label}: {us / args.frames:9.1f} us/step  {sum(e.count for e in mine) / args.frames:6.1f}/step  "

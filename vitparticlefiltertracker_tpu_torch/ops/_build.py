@@ -4,8 +4,11 @@ library, loaded with ``ctypes``.
 No PyTorch headers and no ``torch.utils.cpp_extension``: the sources have an
 ``extern "C"`` interface, so one ``nvcc`` call per source takes seconds. The
 library goes to ``_build/`` inside the package (listed in ``.gitignore``),
-named by a hash of its source, so a process builds it at most once and an
-unchanged source is not rebuilt. Nothing here runs at import time.
+named by a hash of its source and of the local headers it includes, so a
+process builds it at most once and an unchanged source is not rebuilt.
+nvcc's ptxas report is kept beside it, so that a cached library's
+registers and spills can still be checked. Nothing here runs at import
+time.
 """
 
 from __future__ import annotations
@@ -13,6 +16,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -38,8 +42,27 @@ def find_nvcc() -> str:
     raise RuntimeError("nvcc not found (PATH, $CUDA_HOME, /usr/local/cuda/bin)")
 
 
+_LOCAL_INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
+
+
+def _local_headers(src: Path, seen: set[Path] | None = None) -> list[Path]:
+    """The headers ``src`` includes with quotes from its own directory, and
+    theirs in turn, each once, sorted."""
+    seen = set() if seen is None else seen
+    for name in _LOCAL_INCLUDE.findall(src.read_text()):
+        header = src.parent / name
+        if header.exists() and header not in seen:
+            seen.add(header)
+            _local_headers(header, seen)
+    return sorted(seen)
+
+
 def _source_hash(src: Path) -> str:
+    """Names the library: the source, its local headers and the target."""
     h = hashlib.sha256(src.read_bytes())
+    for header in _local_headers(src):
+        h.update(header.name.encode())
+        h.update(header.read_bytes())
     h.update(" ".join(ARCH_FLAGS).encode())
     return h.hexdigest()[:16]
 
@@ -49,19 +72,23 @@ def build_library(source: str) -> tuple[ctypes.CDLL, dict]:
 
     Returns (library, record) where record holds the .so path, whether this
     call compiled it, the seconds the compile took and nvcc's ``-Xptxas -v``
-    report (registers, shared memory, spills).
+    report (registers, shared memory, spills), read back from beside a
+    cached library. A library without its report is built again.
     """
     if source in _LOADED:
         return _LOADED[source]
     src = CSRC_DIR / source
     stem = Path(source).stem
     so = BUILD_DIR / f"libvpt_{stem}_{_source_hash(src)}.so"
+    report = so.with_suffix(".ptxas.txt")
     record = {"source": str(src.relative_to(PKG_DIR.parent)), "so": str(so),
               "built": False, "seconds": 0.0, "ptxas": ""}
-    if not so.exists():
+    if so.exists() and report.exists():
+        record["ptxas"] = report.read_text()
+    else:
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        for old in BUILD_DIR.glob(f"libvpt_{stem}_*.so"):
-            old.unlink()  # keep only the current source's library
+        for old in (*BUILD_DIR.glob(f"libvpt_{stem}_*.so"), *BUILD_DIR.glob(f"libvpt_{stem}_*.ptxas.txt")):
+            old.unlink()  # keep only the current source's library and report
         tmp = so.with_suffix(f".{os.getpid()}.tmp")
         cmd = [find_nvcc(), *ARCH_FLAGS, "-std=c++17", "-O3", "-shared",
                "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", str(tmp), str(src)]
@@ -73,6 +100,9 @@ def build_library(source: str) -> tuple[ctypes.CDLL, dict]:
             raise RuntimeError(
                 f"nvcc failed ({proc.returncode}) for {src}:\n{proc.stdout}\n{proc.stderr}"
             )
+        tmp_report = report.with_suffix(f".{os.getpid()}.tmp")
+        tmp_report.write_text(record["ptxas"])
+        os.replace(tmp_report, report)  # the report first: a library never stands without it
         os.replace(tmp, so)
         record["built"] = True
     lib = ctypes.CDLL(str(so))
@@ -112,8 +142,10 @@ def window_patchify_library() -> ctypes.CDLL:
     fn = lib.vpt_window_patchify_fwd
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, i, p]
+        # window, centers, sizes, kernel, bias, out, n, swin, c, crop, patch,
+        # d, dtype, path, grid_x, grid_y, stream
+        fn.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, i, p]
         fn.restype = ctypes.c_int
-        lib.vpt_window_patchify_smem_bytes.argtypes = [i, i]
+        lib.vpt_window_patchify_smem_bytes.argtypes = [i, i, i, i]
         lib.vpt_window_patchify_smem_bytes.restype = ctypes.c_int
     return lib

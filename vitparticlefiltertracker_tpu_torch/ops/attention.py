@@ -23,16 +23,16 @@ from typing import NamedTuple
 
 import torch
 
+from vitparticlefiltertracker_tpu_torch.utils.platform import H100_SMS, sm_count
+
 HEAD_DIM = 64  # the one head width the kernel takes (every ViT preset)
 SMALL_T_MAX = 16  # csrc/flash_attn.cu kSmallTMax: crop sizes 32/48/64 -> T 4/9/16
-H100_SMS = 132
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _PATH_CODES = {"small": 0, "tiled": 1}
 # Warps a block each path can run with, most first (csrc/flash_attn.cu).
 _WARP_CHOICES = {("small", torch.float32): (8, 4, 2, 1), ("small", torch.bfloat16): (8, 4, 2, 1),
                  ("tiled", torch.bfloat16): (4, 2, 1), ("tiled", torch.float32): (4,)}
 _MAX_GRID = 2**31 - 1
-_SM_COUNT: dict[int, int] = {}  # device index -> SMs, read once
 
 
 def reference_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -148,10 +148,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.
         raise ValueError("flash_attention takes CUDA tensors; use reference_attention on the CPU")
     out = empty_attention_output(q)
     dev = q.device
-    sms = _SM_COUNT.get(dev.index)
-    if sms is None:
-        sms = _SM_COUNT[dev.index] = torch.cuda.get_device_properties(dev).multi_processor_count
-    plan = launch_plan(q, k, v, out, sms)
+    plan = launch_plan(q, k, v, out, sm_count(dev))
     from vitparticlefiltertracker_tpu_torch.ops._build import flash_attn_library
 
     lib = flash_attn_library()

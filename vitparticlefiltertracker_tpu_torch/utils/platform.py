@@ -21,3 +21,16 @@ def resolve_device(device: str | torch.device | None = "cuda") -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {str(dev)!r} (expected 'cuda' or 'cpu')")
     return dev
+
+
+H100_SMS = 132  # what the launch plans assume where no card is asked
+_SM_COUNT: dict[int, int] = {}  # device index -> SMs, read once
+
+
+def sm_count(device: torch.device) -> int:
+    """The streaming multiprocessors of a CUDA device, read once a process
+    (the kernels' launch plans size their grids by it on every launch)."""
+    sms = _SM_COUNT.get(device.index)
+    if sms is None:
+        sms = _SM_COUNT[device.index] = torch.cuda.get_device_properties(device).multi_processor_count
+    return sms
