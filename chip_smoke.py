@@ -19,13 +19,22 @@ Phases, each timed and printed:
                 views of a fused qkv activation (as the ViT passes them) and
                 on contiguous tensors.
   4. tracker  — tiny dense and crop configs on the card against the same
-                runs on the CPU, then the two main paths, each 60 frames of
-                480x640 synthetic:moving-square through Tracker.run with
-                config.yaml's values (ViT-B/16, bf16, 1024 particles) and the
-                committed B/16 checkpoint: dense mode, and crop mode through
-                K2 (tracker.mode crop, crop_impl window-pallas). Each checks
-                its kernels' launch counts (by shape), the lost flags and the
-                RMSE.
+                runs on the CPU (and two with global re-detection: dense with
+                the residual head and its automatic blend, crop through K2),
+                then the three main paths. Two are 60 frames of 480x640
+                synthetic:moving-square through Tracker.run with config.yaml's
+                values (ViT-B/16, bf16, 1024 particles) and the committed B/16
+                checkpoint: dense mode, and crop mode through K2
+                (tracker.mode crop, crop_impl window-pallas). Each checks its
+                kernels' launch counts (by shape), the lost flags and the
+                RMSE. The third, "robust", is configs/robust-head.yaml with
+                the teleport gates of tools/eval_quality.py and the automatic
+                head blend on 48 frames of 480x640 synthetic:teleport: the
+                head-only checkpoints/vit_b16_head.npz with its trunk
+                regenerated on the card (timed, and leaves held to the CPU's),
+                global re-detection's 49-window scan (K1 at B 49), launches by
+                shape against the scans the run's states show, the RMSE after
+                the reappearance and the last records' lost flags.
   5. times    — K1, its plain version and torch's scaled_dot_product_attention
                 (a yardstick the port never calls) on fused-qkv views at the
                 dense, crop (B 1024 and B 1) and re-detection shapes; K2, its
@@ -58,7 +67,11 @@ import torch
 
 from vitparticlefiltertracker_tpu_torch.config import Config
 from vitparticlefiltertracker_tpu_torch.filters import particle as pf
+from vitparticlefiltertracker_tpu_torch.io.synthetic import teleport_times
 from vitparticlefiltertracker_tpu_torch.io.video import open_source
+from vitparticlefiltertracker_tpu_torch.models import jax_random
+from vitparticlefiltertracker_tpu_torch.models import params as vit_params
+from vitparticlefiltertracker_tpu_torch.models.vit import VitSpec
 from vitparticlefiltertracker_tpu_torch.ops import _build, attention
 from vitparticlefiltertracker_tpu_torch.ops import patchify_window as pw
 from vitparticlefiltertracker_tpu_torch.ops.patchify import crop_sample_coords
@@ -136,6 +149,33 @@ CROP_OVERRIDES = {"mode": "crop", "crop_impl": "window-pallas"}
 JAX_CROP_RMSE_PX_MAX = 0.729
 CROP_RMSE_BOUND_PX = JAX_CROP_RMSE_PX_MAX + 2.0
 
+# The robust main path: configs/robust-head.yaml's values (a CPU test holds
+# this dict equal to load_config("configs/robust-head.yaml") plus the
+# overrides) with the teleport clip's gates of tools/eval_quality.py
+# (filter.lost_conf_ratio 0.55, tracker.redetect_global_after 3,
+# redetect_accept_ratio 0.35, redetect_accept_z 3.0), the automatic head
+# blend of docs/QUALITY.md's trained-auto rows, and io.source teleport.
+HEAD_CHECKPOINT = "checkpoints/vit_b16_head.npz"
+ROBUST_CONFIG = {
+    "model": {"variant": "vit-b16", "image_size": 224, "dtype": "bfloat16", "use_flash_attention": True,
+              "checkpoint": HEAD_CHECKPOINT, "head_depth": 2, "head_blend": 0.5, "head_blend_auto": True},
+    "filter": {"num_particles": 1024, "lost_conf_ratio": 0.55},
+    "tracker": {"mode": "dense", "redetect_global_after": 3, "redetect_accept_ratio": 0.35,
+                "redetect_accept_z": 3.0, "relock_conf_ratio": 0.9},
+    "io": {"source": "synthetic:teleport", "num_frames": 48, "frame_size": [480, 640]},
+}
+# tools/port_rmse_reference.py --config configs/robust-head.yaml --checkpoint
+# checkpoints/vit_b16_head.npz --frames 48 --set io.source=synthetic:teleport
+# --set model.head_blend_auto=true --set filter.lost_conf_ratio=0.55 --set
+# tracker.redetect_global_after=3 --set tracker.redetect_accept_ratio=0.35
+# --set tracker.redetect_accept_z=3.0 (the JAX package on the CPU, clip seed
+# 0, the 22 records from the fourth after the reappearance on): RMSE
+# 0.612-0.704 px over filter seeds 0-3, 7 of 47 records lost on every seed,
+# none of the last 5. Same 2 px of room as the other paths.
+ROBUST_RMSE_RANGE = (0.612, 0.704)
+ROBUST_LOST_RANGE = (7, 7)
+ROBUST_RMSE_BOUND_PX = ROBUST_RMSE_RANGE[1] + 2.0
+
 CHECK_SHAPES = [(1, 12, t, 64) for t in (128, 130, 196, 197, 389, 3600)] + [(49, 12, 196, 64)]
 # Crop mode: one crop (T = 4 tokens; the template forward), and the main
 # path's 1024 crops.
@@ -153,10 +193,11 @@ TIME_SHAPES = [DENSE_SHAPE, CROP_SHAPE, CROP_ONE_SHAPE, REDETECT_SHAPE]
 # weights and once with a 0..255 window and normalization-folded weights.
 # N reaches every edge of the launch plan's tiles: one box (4 or 9 rows in
 # one 16-row tile), 3, a 64-row tile exactly (16 at crop 32), one row past
-# it, 33, the crop path's 1024 and eval5's 16384 particles (both on the wide
-# tile); D 100 goes to the scalar kernel (D % 8 != 0); 768 fills two of the
+# it, 33, crop-mode re-detection's 49 tile centres, the crop path's 1024
+# and eval5's 16384 particles (both on the wide tile); D 100 goes to the
+# scalar kernel (D % 8 != 0); 768 fills two of the
 # wide tile's 384 columns, 192 and 1024 leave the last one ragged.
-K2_NS = (1, 3, 16, 17, 33, 1024, 16384)
+K2_NS = (1, 3, 16, 17, 33, 49, 1024, 16384)
 K2_CROPS = ((32, 16), (48, 16))  # (crop, patch)
 K2_SWINS = (64, 256)
 K2_DIMS = (100, 192, 768, 1024)
@@ -327,20 +368,48 @@ TINY_NO_RESAMPLE = copy.deepcopy(TINY)
 TINY_NO_RESAMPLE["filter"]["ess_threshold"] = 0.0
 TINY_CROP_NO_RESAMPLE = copy.deepcopy(TINY_NO_RESAMPLE)
 TINY_CROP_NO_RESAMPLE["tracker"] = dict(CROP_OVERRIDES)
+# Global re-detection at the tiny size: 12 frames of 192x192
+# synthetic:teleport (hidden from frame 4, back at 8), a relative lost gate
+# that fires, a 5 x 5 scan after 2 lost frames (tests/test_torch_redetect.py
+# runs the same against the JAX package). Dense with the head, its automatic
+# blend and the robust config's acceptance and re-lock gates; crop through K2
+# (the scan's 25 crops at N 25).
+REDETECT_AFTER = 2
+TINY_TELEPORT = copy.deepcopy(TINY_NO_RESAMPLE)
+TINY_TELEPORT["filter"]["lost_conf_ratio"] = 0.9
+TINY_TELEPORT["io"] = {"source": "synthetic:teleport", "num_frames": 12, "frame_size": [192, 192]}
+TINY_HEAD_REDETECT = copy.deepcopy(TINY_TELEPORT)
+TINY_HEAD_REDETECT["model"].update(head_depth=2, head_blend_auto=True)
+TINY_HEAD_REDETECT["tracker"] = {"redetect_global_after": REDETECT_AFTER, "redetect_global_grid": 5,
+                                 "redetect_accept_ratio": 0.35, "redetect_accept_z": 2.0, "relock_conf_ratio": 0.9}
+TINY_CROP_REDETECT = copy.deepcopy(TINY_TELEPORT)
+TINY_CROP_REDETECT["tracker"] = {**CROP_OVERRIDES, "redetect_global_after": REDETECT_AFTER,
+                                 "redetect_global_grid": 5, "redetect_accept_conf": 0.3}
+
+
+def scan_accepted(state, n_after: int) -> tuple[bool, bool]:
+    """(scanned, accepted) for the step that left `state`, read from the state
+    alone: an accepted match reseeds the cloud with zero velocity everywhere;
+    a scan without one leaves lost_count at n_after or more."""
+    accepted = bool((state.pf.particles[:, 2:4] == 0).all())
+    return accepted or int(state.lost_count) >= n_after, accepted
 
 
 def check_tracker_small(cfg_dict: dict = TINY_NO_RESAMPLE, label: str = "tiny tracker") -> None:
     """The tracker on the card (its kernels inside) against the same tracker
-    on the CPU (plain versions), same weights and noise, f32, 7 steps."""
+    on the CPU (plain versions), same weights and noise, f32. With global
+    re-detection, both scan and accept on the same steps, at least once."""
     cfg = Config.from_dict(copy.deepcopy(cfg_dict))
     src = open_source(cfg.io.source, cfg.io.num_frames, tuple(cfg.io.frame_size))
     fns = build_tracker_fns(cfg)
     cpu = Tracker(cfg, device="cpu")
     prm = {"cpu": cpu.vit_params, "cuda": Tracker(cfg, vit_params=cpu.vit_params, device="cuda").vit_params}
     n = cfg.filter.num_particles
+    n_after = cfg.tracker.redetect_global_after
     bbox = torch.as_tensor(src.init_bbox)
     # The CUDA and CPU generators give other numbers for one seed, so both
-    # runs take the CPU's draws: the initial cloud and every step's noise.
+    # runs take the CPU's draws: the initial cloud, every step's noise and
+    # re-detection's reseed normals.
     cloud = pf.init_state(0, bbox[:2] + bbox[2:] / 2, n, pf.PFParams()).particles
     out = {}
     for dev in ("cpu", "cuda"):
@@ -350,13 +419,32 @@ def check_tracker_small(cfg_dict: dict = TINY_NO_RESAMPLE, label: str = "tiny tr
         for i in range(1, len(src.frames)):
             z = pf.draw_step_noise(0, i - 1, n, torch.device("cpu"))
             noise = pf.StepNoise(*(x.to(dev) for x in z))
-            state, o = fns.step(prm[dev], state, torch.from_numpy(src.frames[i]).to(dev), noise=noise)
-            rows.append((o.position.cpu().numpy(), float(o.conf), bool(o.resampled), bool(o.lost)))
+            reseed = pf.draw_reseed_noise(0, i - 1, n, torch.device("cpu")).to(dev)
+            state, o = fns.step(prm[dev], state, torch.from_numpy(src.frames[i]).to(dev), noise=noise, reseed=reseed)
+            scan = scan_accepted(state, n_after) if n_after > 0 else (False, False)
+            rows.append((o.position.cpu().numpy(), float(o.conf), bool(o.resampled), bool(o.lost), scan))
         out[dev] = rows
     for i, (a, b) in enumerate(zip(out["cpu"], out["cuda"])):
         check(np.abs(a[0] - b[0]).max() < 0.5 and abs(a[1] - b[1]) < 1e-3 and a[2:] == b[2:],
-              f"tiny tracker step {i}: cpu {a} vs cuda {b}")
-    print(f"  {label}: cuda == cpu within 0.5 px over {len(out['cpu'])} steps", flush=True)
+              f"{label} step {i}: cpu {a} vs cuda {b}")
+    scans, accepts = (sum(r[4][k] for r in out["cuda"]) for k in (0, 1))
+    if n_after > 0:
+        check(scans >= 1 and accepts >= 1, f"{label}: {scans} scans, {accepts} accepted (at least one each)")
+    print(f"  {label}: cuda == cpu within 0.5 px over {len(out['cpu'])} steps"
+          + (f", {scans} scans and {accepts} accepted matches on both" if n_after > 0 else ""), flush=True)
+
+
+def reset_counts() -> None:
+    """Every kernel wrapper's launch counts to 0."""
+    attention.flash_attention.launches = 0
+    attention.flash_attention.shapes = Counter()
+    pw.gather_patchify_window.launches = 0
+    pw.gather_patchify_window.sizes = Counter()
+
+
+def read_counts() -> dict:
+    return {"launches": attention.flash_attention.launches, "k1_shapes": dict(attention.flash_attention.shapes),
+            "k2_launches": pw.gather_patchify_window.launches, "k2_sizes": dict(pw.gather_patchify_window.sizes)}
 
 
 def run_main_path(tracker_overrides: dict | None = None, rmse_bound: float = RMSE_BOUND_PX) -> dict:
@@ -370,15 +458,11 @@ def run_main_path(tracker_overrides: dict | None = None, rmse_bound: float = RMS
     crop = cfg.tracker.mode == "crop"
     src = open_source(cfg.io.source, cfg.io.num_frames, tuple(cfg.io.frame_size), seed=cfg.filter.seed)
     tracker = Tracker(cfg, device="cuda")
-    attention.flash_attention.launches = 0
-    attention.flash_attention.shapes = Counter()
-    pw.gather_patchify_window.launches = 0
-    pw.gather_patchify_window.sizes = Counter()
+    reset_counts()
     recs = list(tracker.run(src))
-    launches = attention.flash_attention.launches
-    k1_shapes = dict(attention.flash_attention.shapes)
-    k2_launches = pw.gather_patchify_window.launches
-    k2_sizes = dict(pw.gather_patchify_window.sizes)
+    counts = read_counts()
+    launches, k1_shapes, k2_launches, k2_sizes = (counts[k] for k in ("launches", "k1_shapes", "k2_launches",
+                                                                       "k2_sizes"))
     depth = cfg.model.depth
     probes = 0
     if not crop and (cfg.filter.lost_conf_threshold > 0 or cfg.filter.lost_conf_ratio > 0):
@@ -419,6 +503,100 @@ def run_main_path(tracker_overrides: dict | None = None, rmse_bound: float = RMS
           f"{len(step_ms)} frames after 5 warm-up; {1e3 / med:.1f} frames/s", flush=True)
     return {"launches": launches, "k1_shapes": k1_shapes, "k2_launches": k2_launches, "k2_sizes": k2_sizes,
             "rmse_px": rmse, "step_ms_median": med}
+
+
+def check_trunk_regeneration(tracker: Tracker, cfg: Config) -> float:
+    """The head-only file's trunk, regenerated on the card from its trunk
+    seed (timed), against the port's own CPU regeneration, bit for bit in
+    f32: patch_embed/kernel and block 0's leaves (a depth-1 init on the CPU
+    draws them as the depth-12 one does) and block 11's; then the tracker's
+    cast trunk against the card's. Returns the regeneration's seconds."""
+    spec = VitSpec.from_config(cfg.model)._replace(head_depth=0)
+    key = vit_params.trunk_key(vit_params.load_params(str(ROOT / HEAD_CHECKPOINT))["__trunk_seed__"])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    card = vit_params.init_vit_params(key, spec, "cuda")
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    numbers = sum(x.numel() for g in card["blocks"].values() for x in g.values()) + card["patch_embed"]["kernel"].numel()
+    print(f"  trunk regenerated on the card: {seconds:.3f} s ({spec.depth} blocks, {numbers / 1e6:.1f} M numbers)",
+          flush=True)
+    cpu = vit_params.init_vit_params(key, spec._replace(depth=1), "cpu")
+    last = spec.depth - 1
+    cpu_last = vit_params.init_block_params(jax_random.split(key, 4 + spec.depth)[4 + last], spec, "cpu")
+    pairs = {"patch_embed/kernel": (card["patch_embed"]["kernel"], cpu["patch_embed"]["kernel"])}
+    for g, leaf in (("attn", "wqkv"), ("attn", "wo"), ("mlp", "w1"), ("mlp", "w2")):
+        pairs[f"blocks/{g}/{leaf}[0]"] = (card["blocks"][g][leaf][0], cpu["blocks"][g][leaf][0])
+        pairs[f"blocks/{g}/{leaf}[{last}]"] = (card["blocks"][g][leaf][last], cpu_last[g][leaf])
+    for name, (a, b) in pairs.items():
+        check(a.dtype == b.dtype == torch.float32 and torch.equal(a.cpu(), b), f"trunk leaf {name}: card == cpu")
+    mine = tracker.vit_params
+    check(torch.equal(mine["patch_embed"]["kernel"], card["patch_embed"]["kernel"]), "the tracker's patch_embed")
+    for g, leaf in (("attn", "wqkv"), ("mlp", "w2")):
+        check(torch.equal(mine["blocks"][g][leaf], card["blocks"][g][leaf].to(mine["blocks"][g][leaf].dtype)),
+              f"the tracker's blocks/{g}/{leaf} is the regenerated trunk, cast")
+    print(f"  trunk leaves equal to the CPU's, bit for bit: {', '.join(pairs)}; the tracker's trunk is this one",
+          flush=True)
+    return seconds
+
+
+def run_robust_path() -> dict:
+    """The robust main path (ROBUST_CONFIG) through Tracker.run on the card:
+    counts set to 0 just before the run and read just after it; the scans
+    and accepted matches read from the state each step leaves."""
+    cfg_dict = copy.deepcopy(ROBUST_CONFIG)
+    cfg_dict["model"]["checkpoint"] = str(ROOT / HEAD_CHECKPOINT)
+    cfg = Config.from_dict(cfg_dict)
+    frames = cfg.io.num_frames
+    src = open_source(cfg.io.source, frames, tuple(cfg.io.frame_size), seed=cfg.filter.seed)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tracker = Tracker(cfg, device="cuda")
+    torch.cuda.synchronize()
+    print(f"  Tracker(cfg) on the card: {time.perf_counter() - t0:.3f} s (head file read, trunk regenerated, "
+          "weights cast)", flush=True)
+    regen_s = check_trunk_regeneration(tracker, cfg)
+    n_after = cfg.tracker.redetect_global_after
+    reset_counts()
+    recs, scans, accepts = [], 0, 0
+    for rec in tracker.run(src):
+        recs.append(rec)
+        scanned, accepted = scan_accepted(tracker.state, n_after)
+        scans += scanned
+        accepts += accepted
+    counts = read_counts()
+    depth = cfg.model.depth + cfg.model.head_depth
+    probes = sum(r["lost"] for r in recs[:-1])  # a step probes when the state was lost
+    heads, t = cfg.model.heads, tracker.spec.seq_len
+    g2 = cfg.tracker.redetect_global_grid ** 2
+    k1_expected = {(1, heads, t): depth * (1 + len(recs) + probes)}
+    if scans:
+        k1_expected[(g2, heads, t)] = depth * scans
+    print(f"  robust path: {len(recs)} steps, {probes} probes, {scans} scans, {accepts} accepted matches", flush=True)
+    print(f"  K1 launches by (B, H, T): {counts['k1_shapes']} (expected {k1_expected}); K2: "
+          f"{counts['k2_launches']} (expected 0)", flush=True)
+    check(scans >= 1 and accepts >= 1, f"at least one scan ({scans}) and one accepted match ({accepts})")
+    check(counts["k1_shapes"] == k1_expected, f"K1 launches by shape {counts['k1_shapes']} == {k1_expected}")
+    check(counts["k2_launches"] == 0, "no K2 launch on the dense robust path")
+    check(len(recs) == frames - 1, f"{len(recs)} records for {frames} frames")
+    pos = np.array([r["position"] for r in recs])
+    check(bool(np.all(np.isfinite(pos))), "positions are finite")
+    lost = sum(r["lost"] for r in recs)
+    print(f"  lost records: {lost} of {len(recs)} (JAX package: {ROBUST_LOST_RANGE[0]}-{ROBUST_LOST_RANGE[1]}); "
+          f"last 5: {[r['lost'] for r in recs[-5:]]}", flush=True)
+    check(not any(r["lost"] for r in recs[-5:]), "the last 5 records are not lost")
+    # From the fourth record after the reappearance on, as tools/eval_quality.py.
+    err = np.linalg.norm(pos - src.truth[1:], axis=1)[teleport_times(frames)[1] + 3:]
+    rmse = float(np.sqrt(np.mean(err**2)))
+    print(f"  RMSE after the reappearance {rmse:.3f} px over {err.size} records (bound {ROBUST_RMSE_BOUND_PX:.2f} "
+          f"px; JAX package {ROBUST_RMSE_RANGE[0]}-{ROBUST_RMSE_RANGE[1]}), max err {err.max():.3f} px", flush=True)
+    check(rmse <= ROBUST_RMSE_BOUND_PX, f"RMSE {rmse} px within {ROBUST_RMSE_BOUND_PX} px")
+    step_ms = [r["step_ms"] for r in recs[5:]]
+    med = statistics.median(step_ms)
+    print(f"  step ms: median {med:.3f} (min {min(step_ms):.3f}, max {max(step_ms):.3f}) over "
+          f"{len(step_ms)} frames after 5 warm-up; {1e3 / med:.1f} frames/s", flush=True)
+    return {**counts, "rmse_px": rmse, "step_ms_median": med, "lost": lost, "scans": scans, "accepts": accepts,
+            "probes": probes, "trunk_regen_s": regen_s}
 
 
 def time_kernels() -> dict:
@@ -541,8 +719,11 @@ def main() -> int:
     t0 = time.perf_counter()
     check_tracker_small()
     check_tracker_small(TINY_CROP_NO_RESAMPLE, "tiny crop tracker (window-pallas)")
+    check_tracker_small(TINY_HEAD_REDETECT, "tiny dense tracker (head, auto blend, re-detection)")
+    check_tracker_small(TINY_CROP_REDETECT, "tiny crop tracker (window-pallas, re-detection)")
     main_path = run_main_path()
     crop_path = run_main_path(CROP_OVERRIDES, CROP_RMSE_BOUND_PX)
+    robust_path = run_robust_path()
     phase("tracker", t0)
 
     t0 = time.perf_counter()
@@ -552,8 +733,9 @@ def main() -> int:
     phase("times", t0)
 
     # One entry per kernel, main path and shape: K1 at the dense path's
-    # shape and at the crop path's two (the particles at B = 1024, the init
-    # and template forwards at B = 1); K2 at N = 1024 and N = 1. Each with
+    # shape, at the crop path's two (the particles at B = 1024, the init
+    # and template forwards at B = 1) and at the robust path's scan (49 tile
+    # windows); K2 at N = 1024 and N = 1. Each with
     # the launches at that shape in that path's run, its bf16 error on the
     # fused views and its times.
     k1_common = dict(name="flash_attention", route="cuda",
@@ -562,7 +744,7 @@ def main() -> int:
     k1_rows = [dict(**k1_common, path=path, shape=list(shape), launches=run["k1_shapes"].get(shape[:3], 0),
                     max_abs_err=errs[(shape, torch.bfloat16, "fused")], **times[shape])
                for path, shape, run in (("dense", DENSE_SHAPE, main_path), ("crop", CROP_SHAPE, crop_path),
-                                        ("crop", CROP_ONE_SHAPE, crop_path))]
+                                        ("crop", CROP_ONE_SHAPE, crop_path), ("robust", REDETECT_SHAPE, robust_path))]
     k2_rows = [dict(name="gather_patchify_window", route="cuda",
                     source="vitparticlefiltertracker_tpu_torch/csrc/window_patchify.cu",
                     replaces="vitparticlefiltertracker_tpu/ops/patchify_pallas.py:59",
@@ -573,7 +755,10 @@ def main() -> int:
     check(all(r["launches"] > 0 for r in k1_rows + k2_rows), "every kernel row was launched on its main path")
     print(json.dumps({"shape_49x12x196x64_bf16": times[REDETECT_SHAPE],
                       "step_ms_median": main_path["step_ms_median"], "rmse_px": main_path["rmse_px"],
-                      "crop_step_ms_median": crop_path["step_ms_median"], "crop_rmse_px": crop_path["rmse_px"]}))
+                      "crop_step_ms_median": crop_path["step_ms_median"], "crop_rmse_px": crop_path["rmse_px"],
+                      "robust": {k: robust_path[k] for k in ("step_ms_median", "rmse_px", "lost", "scans", "accepts",
+                                                             "probes", "trunk_regen_s")},
+                      "robust_k1_shapes": {str(k): v for k, v in robust_path["k1_shapes"].items()}}))
     print(f"[phase] total: {time.perf_counter() - t_start:.2f} s", flush=True)
     print(f"card: {smi}")
     print(json.dumps({"kernels": k1_rows + k2_rows}))

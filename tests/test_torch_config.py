@@ -41,3 +41,23 @@ def test_chip_smoke_config_is_config_yaml_plus_checkpoint():
     want["model"]["checkpoint"] = "checkpoints/vit_b16_tracking.npz"
     assert chip_smoke.SMOKE_CONFIG == want
     assert os.path.exists(os.path.join(ROOT, chip_smoke.CHECKPOINT))
+
+
+def test_chip_smoke_robust_config_is_robust_head_plus_overrides():
+    """chip_smoke.py's robust path: configs/robust-head.yaml plus the
+    teleport clip's gates of tools/eval_quality.py, the automatic head blend
+    and the teleport source, in both packages' loaders."""
+    import importlib.util
+
+    import chip_smoke
+
+    spec = importlib.util.spec_from_file_location("eval_quality", os.path.join(ROOT, "tools", "eval_quality.py"))
+    eval_quality = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(eval_quality)
+    overrides = [f"{k}={v}" for k, v in eval_quality.CLIP_OVERRIDES["teleport"].items()]
+    overrides += ["model.head_blend_auto=true", "io.source=synthetic:teleport"]
+    path = os.path.join(ROOT, "configs", "robust-head.yaml")
+    want = jconfig.load_config(path, overrides).to_dict()
+    assert tconfig.load_config(path, overrides).to_dict() == want
+    assert tconfig.Config.from_dict(chip_smoke.ROBUST_CONFIG).to_dict() == want
+    assert os.path.exists(os.path.join(ROOT, chip_smoke.HEAD_CHECKPOINT))

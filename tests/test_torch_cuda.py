@@ -171,3 +171,33 @@ def test_crop_tracker_launches_both_kernels(cuda_device):
     assert pw.gather_patchify_window.launches == forwards
     assert attention.flash_attention.launches == 2 * forwards
     assert np.all(np.isfinite([r["position"] for r in recs]))
+
+
+@pytest.mark.parametrize("name", ["TINY_HEAD_REDETECT", "TINY_CROP_REDETECT"])
+def test_redetecting_tracker_on_card_matches_cpu(cuda_device, name):
+    """Tiny global re-detection configs (dense with the head and its
+    automatic blend; crop through K2) on the card against the CPU, same
+    weights and draws: every step within 0.5 px, the same scans and
+    accepted matches, at least one of each (chip_smoke.check_tracker_small)."""
+    import chip_smoke
+
+    chip_smoke.check_tracker_small(getattr(chip_smoke, name), name)
+
+
+def test_threefry_init_on_card_equals_cpu(cuda_device):
+    """The port's JAX random init gives the same bits on the card as on the
+    CPU (every float rounding is written out; no library transcendental)."""
+    from vitparticlefiltertracker_tpu_torch.models import params as tparams
+    from vitparticlefiltertracker_tpu_torch.models.vit import VitSpec
+
+    spec = VitSpec(depth=2, dim=128, heads=2, mlp_dim=256, image_size=64, head_depth=2)
+    cpu = tparams.init_vit_params(tparams.trunk_key(4), spec, "cpu")
+    card = tparams.init_vit_params(tparams.trunk_key(4), spec, cuda_device)
+
+    def leaves(tree, prefix=""):
+        for k, v in tree.items():
+            yield from leaves(v, f"{prefix}{k}/") if isinstance(v, dict) else [(f"{prefix}{k}", v)]
+
+    got = dict(leaves(card))
+    for k, v in leaves(cpu):
+        assert torch.equal(got[k].cpu(), v), k

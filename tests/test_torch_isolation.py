@@ -25,6 +25,14 @@ cfg = Config.from_dict(chip_smoke.TINY)
 src = open_source(cfg.io.source, 3, tuple(cfg.io.frame_size))
 recs = list(Tracker(cfg, device="cpu").run(src))
 assert len(recs) == 2, recs
+# The head, its automatic blend and global re-detection, with the weights
+# from the port's own threefry (models/jax_random.py).
+from vitparticlefiltertracker_tpu_torch.models import jax_random
+assert jax_random.split(jax_random.key(0), 2)[1] == jax_random.fold_in(jax_random.key(0), 1)
+cfg = Config.from_dict(chip_smoke.TINY_HEAD_REDETECT)
+src = open_source(cfg.io.source, 6, tuple(cfg.io.frame_size))
+recs = list(Tracker(cfg, device="cpu").run(src))
+assert len(recs) == 5, recs
 loaded = [m for m in ("jax", "ml_dtypes", "yaml", "vitparticlefiltertracker_tpu") if sys.modules.get(m) is not None]
 assert not loaded, loaded
 print("OK", len(names))

@@ -3,8 +3,9 @@
 
 synthetic:moving-square goes through both packages in f32 with a tiny ViT,
 the JAX package's random weights bridged into the port, and the JAX
-package's noise draws (draw_step_noise(fold_in(key, frame_idx)) and the
-init_state cloud) injected into the port. The JAX side runs under HIGHEST
+package's noise draws (draw_step_noise(fold_in(key, frame_idx)), the
+init_state cloud and global re-detection's reseed normals) injected into the
+port. The JAX side runs under HIGHEST
 matmul precision (this JAX build's default is bf16-class even on the CPU).
 Per frame: position within 0.5 px, `resampled` and `lost` exact.
 """
@@ -29,6 +30,14 @@ from vitparticlefiltertracker_tpu_torch.io.video import open_source as t_open_so
 from vitparticlefiltertracker_tpu_torch.models.vit import VitSpec
 from vitparticlefiltertracker_tpu_torch.runtime import tracker as ttr
 
+# The suite runs in several worker processes on one host, and every worker
+# imports this module (the shared parity helper of the tracker tests) while
+# collecting. With torch's default of one intra-op thread per core each
+# worker's parallel regions wait on threads the other workers hold: the
+# tracker tests ran many times slower in six workers than alone. One
+# thread a worker keeps them at their single-process time.
+torch.set_num_threads(1)
+
 FRAMES = 9  # one init frame + 8 steps
 
 BASE = {
@@ -48,14 +57,17 @@ def _crop(impl):
     return d
 
 
-def _run_both(cfg_dict, tmp_path=None):
+def _run_both(cfg_dict, frames=FRAMES):
+    """Both packages over `frames` frames of the config's source -> (JAX
+    outputs, port outputs, JAX states, port states), one a step."""
     jcfg = JConfig.from_dict(copy.deepcopy(cfg_dict))
     tcfg = TConfig.from_dict(copy.deepcopy(cfg_dict))
-    src = j_open_source(jcfg.io.source, FRAMES, tuple(jcfg.io.frame_size), seed=0)
-    tsrc = t_open_source(tcfg.io.source, FRAMES, tuple(tcfg.io.frame_size), seed=0)
+    size = tuple(jcfg.io.frame_size)
+    src = j_open_source(jcfg.io.source, frames, size, seed=0)
+    tsrc = t_open_source(tcfg.io.source, frames, size, seed=0)
     np.testing.assert_array_equal(tsrc.frames, src.frames)
     np.testing.assert_array_equal(tsrc.truth, src.truth)
-    frames, bbox = src.frames, np.asarray(src.init_bbox, np.float32)
+    clip, bbox = src.frames, np.asarray(src.init_bbox, np.float32)
     n = jcfg.filter.num_particles
 
     jp = resolve_vit_params(jcfg)
@@ -66,23 +78,30 @@ def _run_both(cfg_dict, tmp_path=None):
     center = jnp.asarray(bbox[:2] + bbox[2:] / 2)
     cloud = jpf.init_state(jax.random.fold_in(key, 0xFFFFFFFF), center, n, jtr._pf_params(jcfg))
 
+    def t_(x):
+        return torch.from_numpy(np.array(x))
+
     with jax.default_matmul_precision("highest"):
-        jstate = jax.jit(jf.init)(jp, jnp.asarray(frames[0]), jnp.asarray(bbox), jnp.int32(0))
+        jstate = jax.jit(jf.init)(jp, jnp.asarray(clip[0]), jnp.asarray(bbox), jnp.int32(0))
         jstep = jax.jit(jf.step)
-        tstate = tf.init(tp, torch.from_numpy(frames[0]), torch.from_numpy(bbox), 0,
-                         cloud=torch.from_numpy(np.array(cloud.particles)))
+        tstate = tf.init(tp, torch.from_numpy(clip[0]), torch.from_numpy(bbox), 0,
+                         cloud=t_(cloud.particles))
         np.testing.assert_allclose(tstate.pf.particles.numpy(), np.asarray(jstate.pf.particles),
                                    atol=1e-4)
         np.testing.assert_allclose(tstate.template.numpy(), np.asarray(jstate.template), atol=1e-5)
-        jouts, touts = [], []
-        for i in range(1, FRAMES):
-            z = jpf.draw_step_noise(jax.random.fold_in(key, i - 1), n)
-            noise = tpf.StepNoise(*(torch.from_numpy(np.array(x)) for x in z))
-            jstate, jo = jstep(jp, jstate, jnp.asarray(frames[i]))
-            tstate, to = tf.step(tp, tstate, torch.from_numpy(frames[i]), noise=noise)
+        jouts, touts, jstates, tstates = [], [], [], []
+        for i in range(1, frames):
+            fkey = jax.random.fold_in(key, i - 1)
+            noise = tpf.StepNoise(*(t_(x) for x in jpf.draw_step_noise(fkey, n)))
+            # The JAX step's reseed draw (runtime/tracker.py, fold constant 0x5EED1).
+            reseed = t_(jax.random.normal(jax.random.fold_in(fkey, 0x5EED1), (n, 2), jnp.float32))
+            jstate, jo = jstep(jp, jstate, jnp.asarray(clip[i]))
+            tstate, to = tf.step(tp, tstate, torch.from_numpy(clip[i]), noise=noise, reseed=reseed)
             jouts.append(jax.tree.map(np.asarray, jo))
             touts.append(to)
-    return jouts, touts, jstate, tstate
+            jstates.append(jstate)
+            tstates.append(tstate)
+    return jouts, touts, jstates, tstates
 
 
 def _compare(jouts, touts):
@@ -100,7 +119,8 @@ def test_dense_tracker_matches_jax():
 
 
 def test_dense_tracker_lost_gate_matches_jax(tmp_path):
-    jouts, touts, jstate, tstate = _run_both(LOST)
+    jouts, touts, jstates, tstates = _run_both(LOST)
+    jstate, tstate = jstates[-1], tstates[-1]
     _compare(jouts, touts)
     lost = [bool(o.lost) for o in jouts]
     assert any(lost) and not all(lost), lost  # both branches of the gate ran
@@ -157,13 +177,12 @@ def test_tracker_class_runs_and_resumes_on_cpu(tmp_path):
 
 
 def test_unported_options_raise():
-    for section, key, val in [("tracker", "redetect_global_after", 3)]:
-        d = copy.deepcopy(BASE)
-        d[section][key] = val
-        if key == "redetect_global_after":
-            d["filter"]["lost_conf_threshold"] = 0.3
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            ttr.build_tracker_fns(TConfig.from_dict(d))
+    """Banked trackers (runtime.banks > 1) are not ported: the Tracker
+    refuses them with a pointer to ROADMAP.md."""
+    d = copy.deepcopy(BASE)
+    d["runtime"] = {"banks": 2}
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        ttr.Tracker(TConfig.from_dict(d), device="cpu")
     with pytest.raises(RuntimeError, match="cuda"):
         ttr.Tracker(TConfig.from_dict(copy.deepcopy(BASE)), device="cuda") if not torch.cuda.is_available() \
             else (_ for _ in ()).throw(RuntimeError("cuda present"))

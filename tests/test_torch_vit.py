@@ -131,31 +131,53 @@ def test_cast_for_inference_matches_jax():
 
 
 def test_random_init_shapes_match_jax():
+    """The port's random init is the JAX package's, number for number (the
+    name predates threefry in the port, when only the shapes agreed)."""
     jspec, tspec = _specs("float32", True)
-    want = {k: np.shape(v) for k, v in _leaves(jvit.init_vit_params(jax.random.key(0), jspec))}
-    g = torch.Generator().manual_seed(0)
-    tp = tparams.init_vit_params(tspec, g)
-    got = {k: tuple(v.shape) for k, v in _leaves(tp)}
-    assert got == want
-    w = tp["blocks"]["attn"]["wqkv"]
-    assert float(w.abs().max()) <= 2.0 * 128**-0.5 + 1e-6  # truncated at 2 std
-    g2 = torch.Generator().manual_seed(0)
-    assert torch.equal(tparams.init_vit_params(tspec, g2)["blocks"]["attn"]["wqkv"], w)
+    want = dict(_leaves(jvit.init_vit_params(jax.random.key(0), jspec)))
+    got = dict(_leaves(tparams.init_vit_params(tparams.jax_random.key(0), tspec)))
+    assert sorted(got) == sorted(want)
+    for k in want:
+        assert tuple(got[k].shape) == np.shape(want[k]), k
+        np.testing.assert_array_equal(got[k].numpy(), np.asarray(want[k]), err_msg=k)
+    # load_or_init without a checkpoint: JAX's weights for the same filter.seed.
+    want = dict(_leaves(jparams.load_or_init("", jspec, seed=3)))
+    got = dict(_leaves(tparams.load_or_init("", tspec, seed=3)))
+    for k in want:
+        np.testing.assert_array_equal(got[k].numpy(), np.asarray(want[k]), err_msg=k)
 
 
 def test_head_only_checkpoint_raises(tmp_path):
+    """A head-only file is refused only in a headless config, with the JAX
+    package's message; with model.head_depth > 0 it loads
+    (tests/test_torch_jax_random.py holds that load to JAX's)."""
     path = str(tmp_path / "head.npz")
     np.savez(path, **{"head/ln/scale": np.ones(4, np.float32),
                       "__vpt_trunk_seed__": np.asarray(0),
                       "__vpt_format__": np.asarray(2),
                       "__vpt_dtypes__": np.frombuffer(json.dumps({}).encode(), np.uint8)})
-    with pytest.raises(ValueError, match="head-only"):
-        tparams.load_params(path)
+    jspec, tspec = _specs("float32", False)
+    with pytest.raises(ValueError, match="head-only") as want:
+        jparams.load_or_init(path, jspec)
+    with pytest.raises(ValueError, match="head-only") as got:
+        tparams.load_or_init(path, tspec)
+    assert str(got.value) == str(want.value)
+    assert tparams.load_params(path)["__trunk_seed__"] == 0
 
 
 def test_head_depth_not_ported():
+    """The residual head is ported (the name predates that): head_depth
+    reaches the spec, and the forward emits concat(trunk, head) features of
+    2 * dim, 14 K1 calls at ViT-B/16's depth 12 plus a head of 2."""
     from vitparticlefiltertracker_tpu_torch.config import ModelConfig
 
     m = ModelConfig(variant="vit-t16", head_depth=2).resolve()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tvit.VitSpec.from_config(m)
+    spec = tvit.VitSpec.from_config(m)
+    assert spec.head_depth == 2 and spec.out_dim == 2 * spec.dim
+    tspec = _specs("float32", False)[1]._replace(head_depth=2)
+    prm = tparams.init_vit_params(tparams.jax_random.key(1), tspec)
+    images = torch.randn(3, 64, 64, 3, generator=torch.Generator().manual_seed(0))
+    out = tvit.vit_forward_tokens(prm, images, tspec)
+    assert out.shape == (3, 16, 2 * 128)
+    headless = tvit.vit_forward_tokens(prm, images, tspec._replace(head_depth=0))
+    torch.testing.assert_close(out[..., :128], headless, rtol=0, atol=0)

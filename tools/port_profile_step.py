@@ -7,11 +7,19 @@ Runs the main path of chip_smoke.py (config.yaml, the B/16 checkpoint,
 the device-busy share (summed kernel time over the window's wall time), and
 the kernels with the most device time. Each --set section.key=value
 (repeatable; the value read as JSON, else as a string) overrides the
-config, so the crop main path is one option away. Imports only the port;
-needs a card.
+config, so the crop main path is one option away. --robust starts from
+chip_smoke.py's robust path instead (configs/robust-head.yaml with the
+teleport gates, the head checkpoint, synthetic:teleport): its 48-frame clip
+holds the lost frames, the probes and the re-detection scans, so use
+--warmup 10 --frames 37 to profile all of them. --syncs then runs the same
+frames again under torch.cuda.set_sync_debug_mode("warn") and prints how
+many times the host waited for the card in each step (every device-to-host
+read and every copy from pageable host memory; Tracker.step's own
+synchronize is one), by kind of step. Imports only the port; needs a card.
 
 Usage: python3 tools/port_profile_step.py [--frames 20] [--warmup 10] [--top 15]
            [--set tracker.mode=crop --set tracker.crop_impl=window-pallas]
+       python3 tools/port_profile_step.py --robust --warmup 10 --frames 37 --syncs
 """
 
 from __future__ import annotations
@@ -22,6 +30,8 @@ import json
 import os
 import sys
 import time
+import warnings
+from collections import defaultdict
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
@@ -41,14 +51,20 @@ def main() -> int:
     ap.add_argument("--warmup", type=int, default=10)
     ap.add_argument("--top", type=int, default=15)
     ap.add_argument("--set", dest="overrides", action="append", default=[], metavar="SECTION.KEY=VALUE")
+    ap.add_argument("--robust", action="store_true", help="chip_smoke.py's robust path as the base config")
+    ap.add_argument("--syncs", action="store_true", help="count the host's waits for the card in each step")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("needs a CUDA device", file=sys.stderr)
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    d = copy.deepcopy(chip_smoke.SMOKE_CONFIG)
-    d["model"]["checkpoint"] = str(chip_smoke.ROOT / chip_smoke.CHECKPOINT)
+    if args.robust:
+        d = copy.deepcopy(chip_smoke.ROBUST_CONFIG)
+        d["model"]["checkpoint"] = str(chip_smoke.ROOT / chip_smoke.HEAD_CHECKPOINT)
+    else:
+        d = copy.deepcopy(chip_smoke.SMOKE_CONFIG)
+        d["model"]["checkpoint"] = str(chip_smoke.ROOT / chip_smoke.CHECKPOINT)
     n_total = 1 + args.warmup + args.frames
     d["io"]["num_frames"] = n_total
     for item in args.overrides:
@@ -94,7 +110,31 @@ def main() -> int:
     for e in rows[: args.top]:
         print(f"  {e.self_device_time_total / args.frames:9.1f} us/step  {e.count / args.frames:6.1f}/step  "
               f"{100 * e.self_device_time_total / busy_us:5.1f}%  {e.key[:110]}")
+    if args.syncs:
+        count_syncs(cfg, frames, src.init_bbox)
     return 0
+
+
+def count_syncs(cfg: Config, frames, bbox) -> None:
+    """Each step of a fresh tracker over `frames` under the sync debug mode:
+    the host's waits for the card a step, by kind (a scan, a probe while
+    lost, neither)."""
+    tr = Tracker(cfg, device="cuda")
+    tr.init(frames[0], bbox)
+    n_after = cfg.tracker.redetect_global_after
+    by_kind = defaultdict(list)
+    for f in frames[1:]:
+        was_lost = bool(tr.state.lost)
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            tr.step(f)
+            torch.cuda.set_sync_debug_mode("default")
+        waits = sum("synchronizing" in str(w.message) for w in caught)
+        scanned = n_after > 0 and chip_smoke.scan_accepted(tr.state, n_after)[0]
+        by_kind["scan" if scanned else "probe (lost)" if was_lost else "locked"].append(waits)
+    for kind, counts in sorted(by_kind.items()):
+        print(f"  host waits a step, {kind}: {min(counts)}-{max(counts)} over {len(counts)} steps")
 
 
 if __name__ == "__main__":

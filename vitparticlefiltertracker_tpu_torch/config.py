@@ -44,7 +44,9 @@ class ModelConfig:
     drop_cls_token: bool = True
     ln_eps: float = 1e-6
     scan_unroll: int = 0  # JAX layer-loop lowering; no meaning in the port
-    # Residual discriminative head (not ported yet: head_depth > 0 raises).
+    # Residual discriminative head: head_depth extra blocks; scores blend the
+    # trunk and head halves' cosines at head_blend (or, with head_blend_auto,
+    # the likelihood at a per-step blend).
     head_depth: int = 0
     head_blend: float = 0.5
     head_blend_auto: bool = False
@@ -158,7 +160,7 @@ class TrackerConfig:
     template_anchor_mix: float = 0.5
     redetect_window_boost: float = 1.5
     redetect_noise_boost: float = 2.0
-    redetect_global_after: int = 0  # global re-detect: not ported yet
+    redetect_global_after: int = 0  # lost frames before a whole-frame scan; 0 = off
     redetect_global_grid: int = 7
     redetect_accept_conf: float = 0.0
     redetect_accept_z: float = 0.0

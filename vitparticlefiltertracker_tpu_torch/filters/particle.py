@@ -24,6 +24,11 @@ STATE_DIM = 5
 # Frame index used for the initial cloud's generator (the JAX package folds
 # 0xFFFFFFFF into its key for the same draw).
 INIT_STREAM = 0xFFFFFFFF
+# Global re-detection's reseed draw at frame i comes from stream
+# RESEED_STREAM | i. Step noise uses streams 0 .. 2**31 - 1 (the int32 frame
+# index) and the initial cloud 2**32 - 1, so no stream is shared. (The JAX
+# package folds 0x5EED1 into its frame key for the same draw.)
+RESEED_STREAM = 1 << 32
 
 
 class MotionParams(NamedTuple):
@@ -87,6 +92,12 @@ def draw_step_noise(
         scale=torch.randn((n,), generator=g, device=device, dtype=dtype),
         resample_u=torch.rand((), generator=g, device=device, dtype=dtype),
     )
+
+
+def draw_reseed_noise(seed: int, frame_idx: int, n: int, device: torch.device) -> torch.Tensor:
+    """[N, 2] standard normals for global re-detection's reseed at a frame."""
+    g = make_generator(seed, RESEED_STREAM | int(frame_idx), device)
+    return torch.randn((n, 2), generator=g, device=device, dtype=torch.float32)
 
 
 def init_state(

@@ -3,7 +3,10 @@
 
 One ViT forward on the search window per frame; every particle hypothesis
 then reads its appearance from the token grid (ROI pooling), so all N
-particles share that one forward.
+particles share that one forward. With the residual head the token features
+are concat(trunk, head), and a score blends the two halves' cosines, each
+half centered and normalized on its own. ``tiled_window_embed`` is global
+re-detection's batch of tile windows through one forward.
 """
 
 from __future__ import annotations
@@ -25,7 +28,6 @@ from vitparticlefiltertracker_tpu_torch.ops.image import (
     roi_pool_mxu,
     view_extract_window_mxu,
 )
-from vitparticlefiltertracker_tpu_torch.ops.likelihood import center_embeddings
 
 
 def _as_view(frame) -> FrameView:
@@ -99,7 +101,11 @@ def make_dense_embedder(
     def score(tmpl: torch.Tensor, boxes_xy: torch.Tensor, boxes_wh: torch.Tensor):
         return score_from_feat(feat, mean_emb, center, side, es, tmpl, boxes_xy, boxes_wh)
 
-    pool.score = score
+    def score_halves(tmpl: torch.Tensor, boxes_xy: torch.Tensor, boxes_wh: torch.Tensor):
+        return score_halves_from_feat(feat, mean_emb, center, side, es, tmpl, boxes_xy, boxes_wh)
+
+    pool.score = score  # scores without forming the boxes' embeddings
+    pool.score_halves = score_halves  # (cos_trunk, cos_head) for a per-step blend
     return pool
 
 
@@ -114,25 +120,41 @@ def _grid_boxes(center, side, es: DenseEmbedSpec, boxes_xy, boxes_wh):
 
 
 def pool_from_feat(
-    feat: torch.Tensor,  # [grid, grid, D]
-    mean_emb: torch.Tensor,  # [D]
-    center: torch.Tensor,
+    feat: torch.Tensor,  # [..., grid, grid, D]
+    mean_emb: torch.Tensor,  # [..., D]
+    center: torch.Tensor,  # [..., 1, 2] (or [2])
     side: torch.Tensor,
     es: DenseEmbedSpec,
-    boxes_xy: torch.Tensor,  # [M, 2] frame px
-    boxes_wh: torch.Tensor,  # [M, 2] frame px
+    boxes_xy: torch.Tensor,  # [..., M, 2] frame px
+    boxes_wh: torch.Tensor,  # [..., M, 2] frame px
 ):
-    """ROI-pool per-box embeddings from a window feature grid."""
+    """ROI-pool per-box embeddings from a window feature grid ->
+    ([..., M, K*K, D] or [..., M, D], in_win [..., M]). Leading axes batch
+    windows, each with its own boxes (the tiled re-detection scan)."""
     gxy, gwh, in_win = _grid_boxes(center, side, es, boxes_xy, boxes_wh)
     if es.appearance == "cells":
         k = es.roi_grid
-        emb = roi_cells_mxu(feat, gxy, gwh, k)  # [M, K, K, D]
-        emb = emb.reshape(emb.shape[0], k * k, feat.shape[-1])
+        emb = roi_cells_mxu(feat, gxy, gwh, k)  # [..., M, K, K, D]
+        emb = emb.reshape(*emb.shape[:-3], k * k, feat.shape[-1])
     else:
-        emb = roi_pool_mxu(feat, gxy, gwh, es.roi_grid)  # [M, D]
+        emb = roi_pool_mxu(feat, gxy, gwh, es.roi_grid)  # [..., M, D]
     if es.center_features:
-        emb = center_embeddings(emb, mean_emb)
+        # Subtract each window's mean embedding from all of its boxes' rows.
+        lead = mean_emb.shape[:-1]
+        emb = emb - mean_emb.reshape(*lead, *([1] * (emb.dim() - len(lead) - 1)), -1)
     return emb, in_win
+
+
+def _half_cosines(feat, mean_emb, es: DenseEmbedSpec, tmpl, gxy, gwh):
+    """The fused scorer on the trunk half and on the head half, each
+    centered and normalized on its own -> (cos_trunk [M], cos_head [M])."""
+    fused = roi_cells_cos_mxu if es.appearance == "cells" else roi_pool_cos_mxu
+    d, _ = es.split
+    mean_f = mean_emb[:d] if es.center_features else None
+    mean_h = mean_emb[d:] if es.center_features else None
+    cos_f = fused(feat[..., :d], mean_f, tmpl[..., :d], gxy, gwh, es.roi_grid)
+    cos_h = fused(feat[..., d:], mean_h, tmpl[..., d:], gxy, gwh, es.roi_grid)
+    return cos_f, cos_h
 
 
 def score_from_feat(
@@ -145,10 +167,54 @@ def score_from_feat(
     boxes_xy: torch.Tensor,
     boxes_wh: torch.Tensor,
 ):
-    """Fused template cosine scores for M boxes -> (cos [M], in_win [M])."""
-    if es.split is not None:
-        raise NotImplementedError("the residual head is not ported yet; see ROADMAP.md")
+    """Fused template cosine scores for M boxes -> (cos [M], in_win [M]).
+    With the head, (1 - b) * cos_trunk + b * cos_head at the static blend."""
     gxy, gwh, in_win = _grid_boxes(center, side, es, boxes_xy, boxes_wh)
+    if es.split is not None:
+        cos_f, cos_h = _half_cosines(feat, mean_emb, es, tmpl, gxy, gwh)
+        b = es.split[1]
+        return (1.0 - b) * cos_f + b * cos_h, in_win
     fused = roi_cells_cos_mxu if es.appearance == "cells" else roi_pool_cos_mxu
     mean = mean_emb if es.center_features else None
     return fused(feat, mean, tmpl, gxy, gwh, es.roi_grid), in_win
+
+
+def score_halves_from_feat(
+    feat: torch.Tensor,
+    mean_emb: torch.Tensor,
+    center: torch.Tensor,
+    side: torch.Tensor,
+    es: DenseEmbedSpec,
+    tmpl: torch.Tensor,
+    boxes_xy: torch.Tensor,
+    boxes_wh: torch.Tensor,
+):
+    """score_from_feat's two halves unblended -> (cos_trunk [M], cos_head
+    [M], in_win [M]), for a blend chosen per step. Needs the head."""
+    if es.split is None:
+        raise ValueError("score_halves_from_feat needs the residual head (model.head_depth > 0)")
+    gxy, gwh, in_win = _grid_boxes(center, side, es, boxes_xy, boxes_wh)
+    return (*_half_cosines(feat, mean_emb, es, tmpl, gxy, gwh), in_win)
+
+
+def tiled_window_embed(
+    prm: dict,
+    frame_f32,  # [H, W, 3] float frame or FrameView
+    tile_ctrs: torch.Tensor,  # [G, 2] tile window centers, frame px
+    tile_side: torch.Tensor,  # [] tile window side, frame px
+    es: DenseEmbedSpec,
+    cand_xy: torch.Tensor,  # [G, C, 2] candidate box centers per tile, frame px
+    cand_wh: torch.Tensor,  # [2] candidate box size, frame px
+):
+    """Embed C candidate boxes in each of G tile windows with one batched
+    ViT forward (global re-detection): each tile is a window at about the
+    local search's scale, so candidates are scored at the resolution the
+    appearance model tracks at. -> (emb [G, C, ...], valid [G, C])."""
+    spec = es.vit
+    grid = es.s_img // es.patch
+    windows = normalize_window(view_extract_window_mxu(_as_view(frame_f32), tile_ctrs, tile_side, es.s_img))
+    feats = vit_forward_tokens(prm, windows, spec)  # [G, T, out_dim]
+    feats = feats.reshape(feats.shape[0], grid, grid, spec.out_dim)
+    mean_embs = feats.mean(dim=(1, 2))  # [G, out_dim]
+    wh = cand_wh.expand(cand_xy.shape)
+    return pool_from_feat(feats, mean_embs, tile_ctrs[:, None, :], tile_side, es, cand_xy, wh)

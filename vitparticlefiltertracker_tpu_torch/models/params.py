@@ -6,6 +6,11 @@ The npz format is the JAX package's ``__vpt_format__`` v2: leaves keyed by
 stored as uint16 with a ``__vpt_dtypes__`` JSON sidecar. The reader uses
 numpy only and turns bfloat16-as-uint16 into ``torch.bfloat16`` by a bit
 view, so every leaf is bit-identical to what the JAX reader gives.
+
+Random init draws JAX's threefry numbers (``models/jax_random.py``), so one
+seed gives the JAX package's weights. A head-only file (``__vpt_trunk_seed__``)
+holds a trained residual head; its trunk is that random init, regenerated in
+memory on the run's device.
 """
 
 from __future__ import annotations
@@ -15,6 +20,7 @@ import json
 import numpy as np
 import torch
 
+from vitparticlefiltertracker_tpu_torch.models import jax_random
 from vitparticlefiltertracker_tpu_torch.models.vit import VitSpec
 
 FORMAT_VERSION = 2
@@ -44,7 +50,8 @@ def leaf_to_torch(arr: np.ndarray, dtype_name: str | None = None) -> torch.Tenso
 
 
 def load_params(path: str, device: torch.device | str = "cpu") -> dict:
-    """Read an npz checkpoint into the nested parameter dict of torch tensors."""
+    """Read an npz checkpoint into the nested parameter dict of torch tensors.
+    A head-only file's trunk seed comes back as the int ``__trunk_seed__``."""
     if not path.endswith(".npz"):
         raise ValueError(f"{path}: the port reads .npz checkpoints only")
     with np.load(path) as z:
@@ -57,60 +64,75 @@ def load_params(path: str, device: torch.device | str = "cpu") -> dict:
         raise ValueError(
             f"{path}: param format v{version}, this build expects v{FORMAT_VERSION}"
         )
-    if "__vpt_trunk_seed__" in raw:
-        raise ValueError(
-            f"{path} is a head-only checkpoint: its trunk is regenerated with "
-            "JAX's threefry random init, which the port cannot reproduce"
-        )
+    trunk_seed = raw.pop("__vpt_trunk_seed__", None)
     flat = {k: leaf_to_torch(v, dtypes.get(k)).to(device) for k, v in raw.items()}
-    return _unflatten(flat)
+    tree = _unflatten(flat)
+    if trunk_seed is not None:
+        tree["__trunk_seed__"] = int(trunk_seed)
+    return tree
 
 
-def init_vit_params(spec: VitSpec, generator: torch.Generator, device="cpu") -> dict:
-    """Truncated-normal / zeros init, f32 master weights.
+def _tn(k: jax_random.Key, shape, std: float, device) -> torch.Tensor:
+    """std * truncated_normal(k, -2, 2, shape), std rounded to f32 first."""
+    return jax_random.truncated_normal(k, -2.0, 2.0, shape, device) * float(np.float32(std))
 
-    Same shapes and scales as the JAX package's init_vit_params, but drawn
-    from a torch.Generator: the numbers differ from JAX's threefry draws.
-    """
+
+def _ln(d: int, device) -> dict:
+    return {"scale": torch.ones(d, device=device), "bias": torch.zeros(d, device=device)}
+
+
+def init_block_params(bkey: jax_random.Key, spec: VitSpec, device="cpu") -> dict:
+    """One block of the JAX package's init_vit_params: split(bkey, 4) keys
+    wqkv, wo, w1 and w2; LN ones and zeros, biases zeros; f32."""
     d, mlp = spec.dim, spec.mlp_dim
-    patch_in = spec.patch_size * spec.patch_size * 3
-    depth = spec.depth
-
-    def tn(shape, std):
-        t = torch.empty(shape, dtype=torch.float32)
-        torch.nn.init.trunc_normal_(t, 0.0, std, -2.0 * std, 2.0 * std, generator=generator)
-        return t
-
-    def zeros(*shape):
-        return torch.zeros(shape, dtype=torch.float32)
-
-    def ones(*shape):
-        return torch.ones(shape, dtype=torch.float32)
-
-    params = {
-        "patch_embed": {"kernel": tn((patch_in, d), patch_in**-0.5), "bias": zeros(d)},
-        "pos_embed": tn((spec.seq_len, d), 0.02),
-        "ln_final": {"scale": ones(d), "bias": zeros(d)},
-        "blocks": {
-            "ln1": {"scale": ones(depth, d), "bias": zeros(depth, d)},
-            "attn": {
-                "wqkv": tn((depth, d, 3 * d), d**-0.5),
-                "bqkv": zeros(depth, 3 * d),
-                "wo": tn((depth, d, d), d**-0.5),
-                "bo": zeros(depth, d),
-            },
-            "ln2": {"scale": ones(depth, d), "bias": zeros(depth, d)},
-            "mlp": {
-                "w1": tn((depth, d, mlp), d**-0.5),
-                "b1": zeros(depth, mlp),
-                "w2": tn((depth, mlp, d), mlp**-0.5),
-                "b2": zeros(depth, d),
-            },
+    bk = jax_random.split(bkey, 4)
+    return {
+        "ln1": _ln(d, device),
+        "attn": {
+            "wqkv": _tn(bk[0], (d, 3 * d), d**-0.5, device),
+            "bqkv": torch.zeros(3 * d, device=device),
+            "wo": _tn(bk[1], (d, d), d**-0.5, device),
+            "bo": torch.zeros(d, device=device),
+        },
+        "ln2": _ln(d, device),
+        "mlp": {
+            "w1": _tn(bk[2], (d, mlp), d**-0.5, device),
+            "b1": torch.zeros(mlp, device=device),
+            "w2": _tn(bk[3], (mlp, d), mlp**-0.5, device),
+            "b2": torch.zeros(d, device=device),
         },
     }
+
+
+def _stack(blocks: list[dict]) -> dict:
+    """Blocks stacked on a leading depth axis, leaf by leaf."""
+    return {g: {n: torch.stack([b[g][n] for b in blocks]) for n in blocks[0][g]} for g in blocks[0]}
+
+
+def init_vit_params(key: jax_random.Key, spec: VitSpec, device="cpu") -> dict:
+    """The JAX package's init_vit_params, number for number: split(key,
+    4 + depth) keys patch_embed, pos_embed, cls_token and the blocks; the
+    head's blocks are keyed on split(fold_in(key, 0x4EAD), head_depth), so a
+    head never changes the trunk. Built leaf by leaf on `device`."""
+    d = spec.dim
+    patch_in = spec.patch_size * spec.patch_size * 3
+    keys = jax_random.split(key, 4 + spec.depth)
+    params = {
+        "patch_embed": {"kernel": _tn(keys[0], (patch_in, d), patch_in**-0.5, device),
+                        "bias": torch.zeros(d, device=device)},
+        "pos_embed": _tn(keys[1], (spec.seq_len, d), 0.02, device),
+        "ln_final": _ln(d, device),
+    }
     if spec.use_cls_token:
-        params["cls_token"] = tn((d,), 0.02)
-    return _map(params, lambda x: x.to(device))
+        params["cls_token"] = _tn(keys[2], (d,), 0.02, device)
+    params["blocks"] = _stack([init_block_params(keys[4 + i], spec, device) for i in range(spec.depth)])
+    if spec.head_depth > 0:
+        hkeys = jax_random.split(jax_random.fold_in(key, 0x4EAD), spec.head_depth)
+        params["head"] = {
+            "blocks": _stack([init_block_params(k, spec, device) for k in hkeys]),
+            "ln": _ln(d, device),
+        }
+    return params
 
 
 def _map(tree, fn):
@@ -119,26 +141,49 @@ def _map(tree, fn):
     return fn(tree)
 
 
+def trunk_key(seed: int) -> jax_random.Key:
+    """The key of the random trunk for a seed (filter.seed, or a head-only
+    file's trunk seed)."""
+    return jax_random.key(int(seed) ^ 0x5EED)
+
+
 def load_or_init(checkpoint: str, spec: VitSpec, seed: int = 0, device="cpu") -> dict:
-    if checkpoint:
-        return load_params(checkpoint, device)
-    g = torch.Generator(device="cpu")
-    g.manual_seed(int(seed) ^ 0x5EED)
-    return init_vit_params(spec, g, device)
+    """Load a checkpoint, or the JAX package's random init for `seed`. A
+    head-only file gets its trunk regenerated from its trunk seed."""
+    if not checkpoint:
+        return init_vit_params(trunk_key(seed), spec, device)
+    prm = load_params(checkpoint, device)
+    ts = prm.pop("__trunk_seed__", None)
+    if ts is None:
+        return prm
+    if spec.head_depth <= 0:
+        # The JAX package's refusal, word for word.
+        raise ValueError(
+            f"{checkpoint} is a head-only checkpoint but "
+            "model.head_depth is 0 — the trained head would be silently "
+            "ignored and the model would be pure random init. Set "
+            "model.head_depth to the depth the head was trained with "
+            "(configs/train-head*.yaml: 2)."
+        )
+    trunk = init_vit_params(trunk_key(ts), spec._replace(head_depth=0), device)
+    return dict(trunk, head=prm["head"])
 
 
 def cast_for_inference(params: dict, spec: VitSpec) -> dict:
-    """Pre-cast the block matmul weights (and cls/pos embeddings) to the
-    compute dtype once; LN params and patch_embed keep their stored dtype.
+    """Pre-cast the block matmul weights (trunk and head) and the cls/pos
+    embeddings to the compute dtype once; LN params and patch_embed keep
+    their stored dtype.
     Values are bit-identical to casting at every use."""
     dt = spec.dtype
     if dt == torch.float32:
         return params
-    out = dict(params)
-    blocks = dict(params["blocks"])
-    for g in ("attn", "mlp"):
-        blocks[g] = _map(params["blocks"][g], lambda x: x.to(dt))
-    out["blocks"] = blocks
+
+    def cast_blocks(blocks: dict) -> dict:
+        return dict(blocks, **{g: _map(blocks[g], lambda x: x.to(dt)) for g in ("attn", "mlp")})
+
+    out = dict(params, blocks=cast_blocks(params["blocks"]))
+    if "head" in params:
+        out["head"] = dict(params["head"], blocks=cast_blocks(params["head"]["blocks"]))
     for k in ("cls_token", "pos_embed"):
         if out.get(k) is not None:
             out[k] = out[k].to(dt)
@@ -147,9 +192,10 @@ def cast_for_inference(params: dict, spec: VitSpec) -> dict:
 
 def resolve_vit_params(cfg, vit_params=None, device="cpu") -> dict:
     """Load cfg.model.checkpoint (or random-init) unless weights are given,
-    drop a checkpoint's residual head, and pre-cast for inference. In crop
-    mode a random init sizes pos_embed for one crop (g*g rows); a
-    checkpoint keeps its own, of which the tracker reads the first g*g."""
+    check the head against model.head_depth (a headless config drops a
+    checkpoint's head), and pre-cast for inference. In crop mode a random
+    init sizes pos_embed for one crop (g*g rows); a checkpoint keeps its
+    own, of which the tracker reads the first g*g."""
     spec = VitSpec.from_config(cfg.model)
     if cfg.tracker.mode == "crop":
         spec = spec._replace(image_size=cfg.tracker.crop_size)
@@ -157,6 +203,18 @@ def resolve_vit_params(cfg, vit_params=None, device="cpu") -> dict:
         vit_params = load_or_init(cfg.model.checkpoint, spec, cfg.filter.seed, device)
     else:
         vit_params = _map(vit_params, lambda x: x.to(device))
-    if "head" in vit_params:
+    if spec.head_depth > 0:
+        if "head" not in vit_params:
+            raise ValueError(
+                f"model.head_depth={spec.head_depth} but the weights have no "
+                "'head' subtree — train one with configs/train-head.yaml or set "
+                "model.head_depth: 0"
+            )
+        have = int(vit_params["head"]["blocks"]["attn"]["wqkv"].shape[0])
+        if have != spec.head_depth:
+            raise ValueError(
+                f"model.head_depth={spec.head_depth} but the checkpoint's head has {have} blocks"
+            )
+    elif "head" in vit_params:
         vit_params = {k: v for k, v in vit_params.items() if k != "head"}
     return cast_for_inference(vit_params, spec)

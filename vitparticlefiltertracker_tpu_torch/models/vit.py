@@ -32,7 +32,10 @@ class VitSpec(NamedTuple):
     # Dense tracking needs translation-equivariant token features, so the
     # tracker turns position embeddings off (see the JAX VitSpec).
     use_pos_embed: bool = True
-    head_depth: int = 0  # residual head: not ported yet
+    # Residual head: head_depth extra blocks continue the trunk's stream
+    # before its final LN, with their own LN; encode_tokens then returns
+    # concat(trunk, head) [B, T, 2 * dim]. 0 = no head.
+    head_depth: int = 0
 
     @property
     def grid(self) -> int:
@@ -53,11 +56,6 @@ class VitSpec(NamedTuple):
     @classmethod
     def from_config(cls, m) -> "VitSpec":
         """Build from config.ModelConfig."""
-        if m.head_depth > 0:
-            raise NotImplementedError(
-                "model.head_depth > 0 (residual head) is not ported yet; "
-                "see ROADMAP.md, open items"
-            )
         return cls(
             depth=m.depth,
             dim=m.dim,
@@ -129,11 +127,8 @@ def vit_forward_tokens(params: dict, images: torch.Tensor, spec: VitSpec) -> tor
 
 
 def encode_tokens(params: dict, x: torch.Tensor, spec: VitSpec) -> torch.Tensor:
-    """Encoder over already patch-embedded tokens [B, T_patches, D]."""
-    if spec.head_depth > 0:
-        raise NotImplementedError(
-            "the residual head (head_depth > 0) is not ported yet; see ROADMAP.md"
-        )
+    """Encoder over already patch-embedded tokens [B, T_patches, D] ->
+    [B, T, spec.out_dim]."""
     dtype = spec.dtype
     b = x.shape[0]
     if spec.use_cls_token:
@@ -143,7 +138,16 @@ def encode_tokens(params: dict, x: torch.Tensor, spec: VitSpec) -> torch.Tensor:
         x = x + params["pos_embed"].to(dtype)[None, : x.shape[1]]
     for i in range(spec.depth):
         x = _block(x, _block_params(params["blocks"], i), spec)
-    return _layer_norm(x, params["ln_final"], dtype, spec.ln_eps)
+    trunk = _layer_norm(x, params["ln_final"], dtype, spec.ln_eps)
+    if spec.head_depth <= 0:
+        return trunk
+    # The head continues the stream from before the final LN (a readout, not
+    # part of the pre-LN stream) and ends in its own LN; the trunk half is
+    # the headless forward's output.
+    for i in range(spec.head_depth):
+        x = _block(x, _block_params(params["head"]["blocks"], i), spec)
+    head = _layer_norm(x, params["head"]["ln"], dtype, spec.ln_eps)
+    return torch.cat([trunk, head], dim=-1)
 
 
 def pool_tokens(tokens: torch.Tensor, spec: VitSpec) -> torch.Tensor:

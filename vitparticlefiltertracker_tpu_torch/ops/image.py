@@ -76,15 +76,18 @@ def _offsets(out_size: int, device) -> torch.Tensor:
 def extract_window_mxu(
     img: torch.Tensor, center: torch.Tensor, side: torch.Tensor, out_size: int
 ) -> torch.Tensor:
-    """Separable bilinear resample of a square window: [H, W, C] -> [out, out, C]."""
+    """Separable bilinear resample of square windows of one side:
+    [H, W, C] -> [..., out, out, C] for centers [..., 2] (one window for a
+    [2] center, G of them in one batched product for [G, 2])."""
     h, w, c = img.shape
+    lead = center.shape[:-1]
     t = _offsets(out_size, img.device)
-    wy = hat_weights(center[1] + side * t, h)  # [out, H]
-    wx = hat_weights(center[0] + side * t, w)  # [out, W]
-    a = wy @ img.reshape(h, w * c)  # [out, W*C]
-    a = a.reshape(out_size, w, c).permute(0, 2, 1).reshape(out_size * c, w)
-    b = a @ wx.T  # [out*C, out]
-    return b.reshape(out_size, c, out_size).permute(0, 2, 1)
+    wy = hat_weights(center[..., 1:2] + side * t, h)  # [..., out, H]
+    wx = hat_weights(center[..., 0:1] + side * t, w)  # [..., out, W]
+    a = wy @ img.reshape(h, w * c)  # [..., out, W*C]
+    a = a.reshape(*lead, out_size, w, c).transpose(-1, -2).reshape(*lead, out_size * c, w)
+    b = a @ wx.transpose(-1, -2)  # [..., out*C, out]
+    return b.reshape(*lead, out_size, c, out_size).transpose(-1, -2)
 
 
 class FrameView(NamedTuple):
@@ -112,7 +115,8 @@ def full_view(frame_f32: torch.Tensor) -> FrameView:
 def view_extract_window_mxu(
     view: FrameView, center: torch.Tensor, side: torch.Tensor, out_size: int
 ) -> torch.Tensor:
-    """extract_window_mxu through a FrameView (frame-coord center and side)."""
+    """extract_window_mxu through a FrameView (frame-coord centers [..., 2]
+    and side)."""
     inv = 1.0 / float(view.stride)
     return extract_window_mxu(view.pixels, (center - view.origin) * inv, side * inv, out_size)
 
@@ -145,24 +149,25 @@ def frame_to_window_coords(
 
 def _cell_coords(centers, sizes, grid):
     t = _offsets(grid, centers.device)
-    ys = centers[:, 1:2] + sizes[:, 1:2] * t[None, :]  # [N, K]
-    xs = centers[:, 0:1] + sizes[:, 0:1] * t[None, :]
+    ys = centers[..., 1:2] + sizes[..., 1:2] * t  # [..., N, K]
+    xs = centers[..., 0:1] + sizes[..., 0:1] * t
     return ys, xs
 
 
 def roi_cells_mxu(
-    feat: torch.Tensor,  # [Gh, Gw, D]
-    centers: torch.Tensor,  # [N, 2] grid coords (x, y)
-    sizes: torch.Tensor,  # [N, 2] grid units (w, h)
+    feat: torch.Tensor,  # [..., Gh, Gw, D]
+    centers: torch.Tensor,  # [..., N, 2] grid coords (x, y)
+    sizes: torch.Tensor,  # [..., N, 2] grid units (w, h)
     grid: int,
 ) -> torch.Tensor:
-    """Per-cell ROI features without pooling -> [N, K, K, D]."""
-    gh, gw, d = feat.shape
+    """Per-cell ROI features without pooling -> [..., N, K, K, D]; leading
+    axes batch feature grids with their own boxes."""
+    gh, gw = feat.shape[-3:-1]
     ys, xs = _cell_coords(centers, sizes, grid)
-    wy = hat_weights(ys, gh)  # [N, K, Gh]
-    wx = hat_weights(xs, gw)  # [N, K, Gw]
-    a = torch.einsum("nkr,rcd->nkcd", wy, feat.float())  # [N, K, Gw, D]
-    return torch.einsum("njc,nkcd->nkjd", wx, a)  # [N, K(y), K(x), D]
+    wy = hat_weights(ys, gh)  # [..., N, K, Gh]
+    wx = hat_weights(xs, gw)  # [..., N, K, Gw]
+    a = torch.einsum("...nkr,...rcd->...nkcd", wy, feat.float())  # [..., N, K, Gw, D]
+    return torch.einsum("...njc,...nkcd->...nkjd", wx, a)  # [..., N, K(y), K(x), D]
 
 
 def roi_cells_cos_mxu(
@@ -233,16 +238,16 @@ def roi_pool_cos_mxu(
 
 
 def roi_pool_mxu(
-    feat: torch.Tensor,  # [Gh, Gw, D]
-    centers: torch.Tensor,  # [N, 2]
-    sizes: torch.Tensor,  # [N, 2]
+    feat: torch.Tensor,  # [..., Gh, Gw, D]
+    centers: torch.Tensor,  # [..., N, 2]
+    sizes: torch.Tensor,  # [..., N, 2]
     grid: int,
 ) -> torch.Tensor:
-    """ROI-align mean pooling through per-axis averaged hat weights -> [N, D]."""
-    gh, gw, d = feat.shape
-    n = centers.shape[0]
+    """ROI-align mean pooling through per-axis averaged hat weights ->
+    [..., N, D]; leading axes batch feature grids with their own boxes."""
+    gh, gw, d = feat.shape[-3:]
     ys, xs = _cell_coords(centers, sizes, grid)
-    ay = hat_weights(ys, gh).mean(dim=1)  # [N, Gh]
-    ax = hat_weights(xs, gw).mean(dim=1)  # [N, Gw]
-    s1 = ay @ feat.float().reshape(gh, gw * d)  # [N, Gw*D]
-    return torch.einsum("nc,ncd->nd", ax, s1.reshape(n, gw, d))
+    ay = hat_weights(ys, gh).mean(dim=-2)  # [..., N, Gh]
+    ax = hat_weights(xs, gw).mean(dim=-2)  # [..., N, Gw]
+    s1 = ay @ feat.float().reshape(*feat.shape[:-3], gh, gw * d)  # [..., N, Gw*D]
+    return torch.einsum("...nc,...ncd->...nd", ax, s1.reshape(*s1.shape[:-1], gw, d))

@@ -8,17 +8,20 @@ crop per particle instead (``tracker.crop_impl``: from the frame, or from one
 resampled search window through the plain version or kernel K2), embeds all
 N crops in one ViT forward with position embeddings, mean-pools them and
 scores each against the template. The JAX version is one jitted program
-with ``lax.cond`` for the lost-only probe; here PyTorch runs eagerly and the
-probe (dense mode only) is a host branch on the lost flag.
+with ``lax.cond`` for its two lost-only branches; here PyTorch runs eagerly
+and each is a host branch: the probe (dense mode only) on the lost flag, the
+global re-detection scan on lost_count reaching redetect_global_after.
 
 Ported: dense and crop mode with the lost gate and probe, template EMA and
-anchor, coasting, the Tracker class and the name-keyed state npz shared with
-the JAX package. Not ported yet (raise NotImplementedError, see
-ROADMAP.md): the residual head and its automatic blend, global re-detection.
+anchor, coasting, the residual head's blend (static, or automatic for the
+likelihood), global re-detection (the tiled scan in dense mode, one flat
+grid of crops in crop mode) with its reseed, the Tracker class and the
+name-keyed state npz shared with the JAX package.
 """
 
 from __future__ import annotations
 
+import math
 import time
 from typing import Any, Callable, NamedTuple
 
@@ -31,12 +34,17 @@ from vitparticlefiltertracker_tpu_torch.filters.particle import (
     PFParams,
     PFState,
     StepNoise,
+    draw_reseed_noise,
     draw_step_noise,
     init_state,
     pf_update,
     propagate,
 )
-from vitparticlefiltertracker_tpu_torch.models.embedder import DenseEmbedSpec, make_dense_embedder
+from vitparticlefiltertracker_tpu_torch.models.embedder import (
+    DenseEmbedSpec,
+    make_dense_embedder,
+    tiled_window_embed,
+)
 from vitparticlefiltertracker_tpu_torch.models.vit import VitSpec, encode_tokens, pool_tokens
 from vitparticlefiltertracker_tpu_torch.ops.image import (
     IMAGENET_MEAN,
@@ -47,8 +55,10 @@ from vitparticlefiltertracker_tpu_torch.ops.image import (
     view_extract_window_mxu,
 )
 from vitparticlefiltertracker_tpu_torch.ops.likelihood import (
+    auto_blend_target,
     cosine_log_likelihood,
     l2_normalize_split,
+    landscape_spread,
     znormed_log_likelihood,
     znormed_logits_from_cos,
 )
@@ -79,7 +89,8 @@ class TrackerState(NamedTuple):
     coast_xy: torch.Tensor  # [2] f32 last-locked position, advanced while lost
     coast_vel: torch.Tensor  # [2] f32 last-locked velocity
     coast_acc: torch.Tensor  # [2] f32 EMA of locked per-frame velocity deltas
-    blend: torch.Tensor  # [] f32 running head blend (-1 = unseeded; inert here)
+    blend: torch.Tensor  # [] f32 running likelihood head blend of the automatic
+    # policy (-1 = unseeded; inert when model.head_blend_auto is off)
 
 
 class TrackOutput(NamedTuple):
@@ -151,22 +162,16 @@ def build_tracker_fns(cfg: Config) -> _Fns:
     """Build (init_fn, step_fn) for a dense- or crop-mode config.
 
     init(params, frame, bbox, seed, cloud=None) -> TrackerState
-    step(params, state, frame, noise=None) -> (TrackerState, TrackOutput)
+    step(params, state, frame, noise=None, reseed=None) -> (TrackerState, TrackOutput)
 
     frame: [H, W, 3] tensor (uint8 or float, 0..255) on the run's device.
-    cloud / noise: optional injected initial particles / step draws (parity
-    runs); by default they are drawn from generators keyed on (seed, frame).
+    cloud / noise / reseed: optional injected initial particles, step draws
+    and [N, 2] re-detection reseed normals (parity runs); by default they are
+    drawn from generators keyed on (seed, frame).
     """
     t = cfg.tracker
     m = cfg.model
     mode = t.mode
-    if m.head_blend_auto:
-        raise NotImplementedError("model.head_blend_auto is not ported yet; see ROADMAP.md, open items")
-    if t.redetect_global_after > 0:
-        raise NotImplementedError(
-            "tracker.redetect_global_after > 0 (global re-detection) is not "
-            "ported yet; see ROADMAP.md, open items"
-        )
     if mode == "crop":
         # Each crop is its own image of crop_size px, position embeddings on
         # (the first g*g rows of pos_embed).
@@ -186,6 +191,11 @@ def build_tracker_fns(cfg: Config) -> _Fns:
     ema = t.template_ema
     upd_conf = t.template_update_conf
     anchor_mix = t.template_anchor_mix
+    # Automatic head blend (model.head_blend_auto): the likelihood blends the
+    # halves at a per-step weight; the gates, the probe and re-detection keep
+    # the static head_blend (through `split`).
+    auto_blend = bool(m.head_blend_auto) and split is not None
+    ab_init = float(min(max(m.head_blend, m.head_blend_min), m.head_blend_max))
 
     def f32(x, dev):
         return torch.tensor(x, dtype=torch.float32, device=dev)
@@ -248,7 +258,50 @@ def build_tracker_fns(cfg: Config) -> _Fns:
             blend=f32(-1.0, dev),
         )
 
-    def step_fn(prm, state: TrackerState, frame, noise: StepNoise | None = None):
+    n_after = t.redetect_global_after
+    g = t.redetect_global_grid
+    c_sub = 3  # candidate sub-grid per tile (dense tiled scan)
+
+    def global_scan(prm, view: FrameView, tmpl, side, cand_wh):
+        """Score a grid of candidate boxes of size cand_wh over the whole frame
+        against the template -> (best_xy [2], best_cos [], best_z []), z being
+        the winner's margin over the valid candidates in standard deviations.
+
+        Dense mode tiles the frame with G*G windows at about the local
+        search's scale (one batched ViT forward) and C*C candidates a tile;
+        crop mode embeds the G*G tile centres as crops of one whole-frame
+        window. A function of tensors only, so a captured step can hold it."""
+        dev = cand_wh.device
+        h_px, w_px = int(view.pixels.shape[0]), int(view.pixels.shape[1])
+        gxs = (torch.arange(g, dtype=torch.float32, device=dev) + 0.5) * (w_px / g)
+        gys = (torch.arange(g, dtype=torch.float32, device=dev) + 0.5) * (h_px / g)
+        tile_ctrs = torch.stack([gxs.repeat(g), gys.repeat_interleave(g)], dim=-1)  # [G*G, 2], row-major
+        frame_side = f32(max(h_px, w_px), dev)
+        if mode == "dense":
+            tile_side = torch.maximum(1.25 * frame_side / g, side)
+            oxs = (torch.arange(c_sub, dtype=torch.float32, device=dev) - (c_sub - 1) / 2) * (w_px / (g * c_sub))
+            oys = (torch.arange(c_sub, dtype=torch.float32, device=dev) - (c_sub - 1) / 2) * (h_px / (g * c_sub))
+            offs = torch.stack([oxs.repeat(c_sub), oys.repeat_interleave(c_sub)], dim=-1)  # [C*C, 2]
+            cand = tile_ctrs[:, None, :] + offs[None, :, :]  # [G*G, C*C, 2]
+            emb, valid = tiled_window_embed(prm, view, tile_ctrs, tile_side, es, cand, cand_wh)
+            emb = emb.reshape(g * g * c_sub * c_sub, *emb.shape[2:])
+            valid = valid.reshape(-1)
+            cand = cand.reshape(-1, 2)
+        else:
+            cand = tile_ctrs
+            center = torch.tensor([w_px / 2.0, h_px / 2.0], dtype=torch.float32, device=dev)
+            emb, valid = crop_embeddings(prm, view, center, frame_side, cand, cand_wh.expand(cand.shape))
+        _, cos = cosine_log_likelihood(emb, tmpl, 1.0, split=split)
+        cos = torch.where(valid, cos, f32(-2.0, dev))
+        b = torch.argmax(cos)
+        nv = torch.clamp(valid.sum(), min=1)
+        mu = torch.sum(torch.where(valid, cos, f32(0.0, dev))) / nv
+        var = torch.sum(torch.where(valid, (cos - mu) ** 2, f32(0.0, dev))) / nv
+        z = (cos[b] - mu) * torch.rsqrt(var + 1e-8)
+        return cand[b], cos[b], z
+
+    def step_fn(prm, state: TrackerState, frame, noise: StepNoise | None = None,
+                reseed: torch.Tensor | None = None):
         dev = state.center.device
         view = full_view(frame.to(torch.float32))
         fh, fw = int(frame.shape[0]), int(frame.shape[1])
@@ -272,7 +325,24 @@ def build_tracker_fns(cfg: Config) -> _Fns:
             )
         else:
             tmpl = state.template
-        if mode == "dense":
+        if auto_blend:
+            # Two blends from one scoring pass: the gates' cosine at the
+            # static blend, the likelihood's at max(running, target) (fast
+            # attack), or the static one while lost.
+            cos_f, cos_h, in_win = pool.score_halves(tmpl, boxes_xy, boxes_wh)
+            b_run = torch.where(state.blend >= 0.0, state.blend, f32(ab_init, dev))
+            b_static = split[1]
+            cos = (1.0 - b_static) * cos_f + b_static * cos_h
+            # Confusion: the spatial spread of the trunk landscape's top slice,
+            # in box diagonals.
+            spread = landscape_spread(cos_f, boxes_xy, m.head_blend_top_frac, mask=in_win)
+            box_diag = torch.linalg.vector_norm(state.box_wh) * state.prev_scale
+            b_tgt = auto_blend_target(spread, box_diag, m.head_blend_spread_lo, m.head_blend_spread_hi,
+                                      m.head_blend_min, m.head_blend_max)
+            b_use = torch.where(state.lost, f32(b_static, dev), torch.maximum(b_run, b_tgt))
+            cos_loc = (1.0 - b_use) * cos_f + b_use * cos_h
+            loglik = znormed_logits_from_cos(cos_loc, zscale, mask=in_win) if use_znorm else temp * cos_loc
+        elif mode == "dense":
             cos, in_win = pool.score(tmpl, boxes_xy, boxes_wh)
             if use_znorm:
                 # Masked stats: out-of-window particles' clamped-edge cosines
@@ -339,31 +409,79 @@ def build_tracker_fns(cfg: Config) -> _Fns:
         # When lost, freeze the search window instead of chasing noise.
         new_center = torch.where(lost, state.center, est_xy)
         lost_count = torch.where(lost, state.lost_count + 1, torch.zeros_like(state.lost_count))
+        new_pf = out.state
+        scale_frozen = lost  # prev_scale keeps the pre-reseed lost flag
+        accepted = torch.zeros_like(lost)
+        est_out = est_xy
+
+        # Global re-detection: after redetect_global_after lost frames in a
+        # row, scan a grid over the whole frame against the template and, on
+        # an accepted match, reseed the cloud there (a host branch where the
+        # JAX package has lax.cond).
+        if n_after > 0 and bool(lost_count >= n_after):
+            cand_wh = state.box_wh * state.prev_scale
+            best_xy, best_cos, best_z = global_scan(prm, view, tmpl, side, cand_wh)
+            accept = (best_cos >= t.redetect_accept_conf) & (best_z >= t.redetect_accept_z)
+            if t.redetect_accept_ratio > 0:
+                # A fraction of the locked-state confidence EMA, skipped while
+                # unseeded.
+                accept = accept & ((state.conf_ema <= 0) | (best_cos >= t.redetect_accept_ratio * state.conf_ema))
+            if reseed is None:
+                reseed = draw_reseed_noise(key_seed(state.key), int(state.frame_idx), n, dev)
+            # A fresh cloud spread over the winning grid cell, zero velocity,
+            # uniform weights.
+            cell_sigma = torch.tensor([fw / g, fh / g], dtype=torch.float32, device=dev) / 4.0
+            reseeded = torch.cat([best_xy[None, :] + cell_sigma * reseed,
+                                  torch.zeros((n, 2), dtype=torch.float32, device=dev),
+                                  new_pf.particles[:, 4:]], dim=1)
+            uniform_w = torch.full((n,), -math.log(n), dtype=torch.float32, device=dev)
+            new_pf = PFState(particles=torch.where(accept, reseeded, new_pf.particles),
+                             log_weights=torch.where(accept, uniform_w, new_pf.log_weights))
+            new_center = torch.where(accept, best_xy, new_center)
+            lost_count = torch.where(accept, torch.zeros_like(lost_count), lost_count)
+            # An accepted match is the re-acquisition and clears `lost`, unless
+            # re-lock hysteresis is on: then the next step's unboosted probe
+            # must clear relock_conf_ratio first.
+            if relock_ratio <= 0.0:
+                lost = lost & ~accept
+            accepted = accept
+            est_out = torch.where(accept, best_xy, est_xy)
 
         # Lost-aware output: while lost the reported trajectory coasts on the
         # last-locked position and velocity (plus the clipped acceleration
-        # EMA), clamped to the frame; the filter itself is untouched.
+        # EMA), clamped to the frame; the filter itself is untouched. An
+        # accepted global match snaps the output to the match and resets the
+        # coast.
         frame_max = torch.tensor([fw - 1, fh - 1], dtype=torch.float32, device=dev)
         est_vel = est[2:4]
+        zero2 = torch.zeros_like(est_vel)
         a_ema = t.coast_accel_ema
         acc_upd = torch.clamp(
             (1.0 - a_ema) * state.coast_acc + a_ema * (est_vel - state.coast_vel),
             -t.coast_accel_clip,
             t.coast_accel_clip,
         )
-        coast_acc = torch.where(lost, state.coast_acc, acc_upd)
+        coast_acc = torch.where(lost, state.coast_acc, torch.where(accepted, zero2, acc_upd))
         vel_lost = state.coast_vel + state.coast_acc
         coast_xy = torch.where(
-            lost, torch.clamp(state.coast_xy + vel_lost, min=torch.zeros_like(frame_max), max=frame_max), est_xy
+            lost, torch.clamp(state.coast_xy + vel_lost, min=torch.zeros_like(frame_max), max=frame_max), est_out
         )
-        coast_vel = torch.where(lost, vel_lost, est_vel)
+        coast_vel = torch.where(lost, vel_lost, torch.where(accepted, zero2, est_vel))
+        if auto_blend:
+            # Frozen while lost; otherwise attack at once and release along
+            # the EMA.
+            blend_next = torch.where(
+                lost, b_run, torch.maximum((1.0 - m.head_blend_ema) * b_run + m.head_blend_ema * b_tgt, b_tgt)
+            )
+        else:
+            blend_next = state.blend
         new_state = TrackerState(
-            pf=out.state,
+            pf=new_pf,
             template=template,
             anchor=state.anchor,
             box_wh=state.box_wh,
             center=new_center,
-            prev_scale=torch.where(lost, state.prev_scale, est_scale),
+            prev_scale=torch.where(scale_frozen, state.prev_scale, est_scale),
             key=state.key,
             frame_idx=state.frame_idx + 1,
             conf=conf_gate,
@@ -373,7 +491,7 @@ def build_tracker_fns(cfg: Config) -> _Fns:
             coast_xy=coast_xy,
             coast_vel=coast_vel,
             coast_acc=coast_acc,
-            blend=state.blend,
+            blend=blend_next,
         )
         track_out = TrackOutput(
             position=coast_xy,
