@@ -33,8 +33,16 @@ Phases, each timed and printed:
                 head-only checkpoints/vit_b16_head.npz with its trunk
                 regenerated on the card (timed, and leaves held to the CPU's),
                 global re-detection's 49-window scan (K1 at B 49), launches by
-                shape against the scans the run's states show, the RMSE after
-                the reappearance and the last records' lost flags.
+                shape against the probes and armed steps the run's states
+                show, the RMSE after the reappearance and the last records'
+                lost flags. Each main
+                path runs four times in turns, eagerly and with every step a
+                replay of its captured CUDA graph (eager, graph, graph,
+                eager): records equal, launches by shape counted per replay,
+                both step medians and their ratio, the host's waits (at most
+                1 a Tracker.step; none inside track_clip_device on dense and
+                crop); dense also runs its 59 steps in one track_clip_device
+                call, whose records equal Tracker.run's.
   5. times    — K1, its plain version and torch's scaled_dot_product_attention
                 (a yardstick the port never calls) on fused-qkv views at the
                 dense, crop (B 1024 and B 1) and re-detection shapes; K2, its
@@ -59,6 +67,8 @@ import statistics
 import subprocess
 import sys
 import time
+import traceback
+import warnings
 from collections import Counter
 from pathlib import Path
 
@@ -447,9 +457,122 @@ def read_counts() -> dict:
             "k2_launches": pw.gather_patchify_window.launches, "k2_sizes": dict(pw.gather_patchify_window.sizes)}
 
 
+# Graph against eager, same weights, same draws: the same kernels on the same
+# inputs in the same order, so the records are expected bitwise equal; the
+# positions are held to 0.01 px in case cuBLAS picks another algorithm for a
+# GEMM captured on the capture stream (its workspace is per stream), which
+# can move a bf16 product by a rounding. `lost` and `resampled` must be equal.
+GRAPH_POS_TOL_PX = 0.01
+WAIT_STEPS = 5  # steps over which the host's waits are counted
+
+
+def count_waits(fn, stacks: list | None = None) -> int:
+    """The host's waits for the card while fn runs: every device-to-host
+    read, stream or device synchronize and copy from pageable memory, as
+    torch.cuda.set_sync_debug_mode("warn") reports them. `stacks` gets the
+    Python stack of each."""
+    waits = []
+
+    def seen(message, *args, **kwargs):
+        # Not the one-time note that the mode itself prints ("...does not yet
+        # detect all synchronizing operations").
+        if "synchronizing CUDA operation" in str(message):
+            waits.append("".join(f for f in traceback.format_stack(limit=14)[:-1] if "warnings.py" not in f))
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = seen
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    if stacks is not None:
+        stacks.extend(waits)
+    return len(waits)
+
+
+def run_turns(cfg: Config, prm: dict, src, n_after: int = 0) -> list[dict]:
+    """Tracker.run over the source on the card in turns, eager, graph, graph,
+    eager (Tracker(graphs=False/True)), same weights. The launch counts are
+    set to 0 just before each run and read just after it. With global
+    re-detection, each step's armed flag (the state before it at
+    lost_count >= n_after - 1) and (scanned, accepted) are read from the
+    states the run leaves."""
+    runs = []
+    for graphs in (False, True, True, False):
+        tracker = Tracker(cfg, vit_params=prm, device="cuda", graphs=graphs)
+        reset_counts()
+        recs, steps, prev_count = [], [], 0
+        for rec in tracker.run(src):
+            recs.append(rec)
+            if n_after > 0:
+                steps.append((prev_count >= n_after - 1, *scan_accepted(tracker.state, n_after)))
+                prev_count = int(tracker.state.lost_count)
+        runs.append({"graphs": graphs, "recs": recs, "steps": steps, "tracker": tracker, **read_counts()})
+    return runs
+
+
+def check_turns(runs: list[dict], label: str) -> dict:
+    """Every graph run's records against every eager run's: `lost` and
+    `resampled` equal, positions within GRAPH_POS_TOL_PX; launch counts
+    equal; both step medians and their ratio -> summary."""
+    eager = [r for r in runs if not r["graphs"]]
+    graph = [r for r in runs if r["graphs"]]
+    worst, bitwise = 0.0, True
+    for g in graph:
+        for e in eager:
+            check(len(g["recs"]) == len(e["recs"]), f"{label}: graph and eager record counts")
+            for i, (a, b) in enumerate(zip(g["recs"], e["recs"])):
+                check(a["lost"] == b["lost"] and a["resampled"] == b["resampled"],
+                      f"{label} step {i + 1}: graph lost/resampled {a['lost']}/{a['resampled']} == eager "
+                      f"{b['lost']}/{b['resampled']}")
+                d = float(np.abs(np.subtract(a["position"], b["position"])).max())
+                worst = max(worst, d)
+                bitwise &= all(a[k] == b[k] for k in a if k not in ("step_ms", "frame"))
+            check(g["k1_shapes"] == e["k1_shapes"] and g["k2_sizes"] == e["k2_sizes"],
+                  f"{label}: launches by shape, graph {g['k1_shapes']} {g['k2_sizes']} == eager "
+                  f"{e['k1_shapes']} {e['k2_sizes']}")
+    check(worst <= GRAPH_POS_TOL_PX, f"{label}: graph positions within {GRAPH_POS_TOL_PX} px of eager ({worst})")
+    med = {r_id: statistics.median(r["recs"][i]["step_ms"] for i in range(5, len(r["recs"])))
+           for r_id, r in enumerate(runs)}
+    g_med = statistics.median(med[i] for i, r in enumerate(runs) if r["graphs"])
+    e_med = statistics.median(med[i] for i, r in enumerate(runs) if not r["graphs"])
+    print(f"  {label}: graph records == eager records ({'bitwise' if bitwise else f'max position diff {worst:.2e} px'}"
+          f", lost and resampled equal); launches by shape equal", flush=True)
+    print(f"  {label} step ms, median after 5 warm-up, turns eager/graph/graph/eager: "
+          f"{'/'.join(f'{med[i]:.3f}' for i in range(len(runs)))}; eager {e_med:.3f}, graph {g_med:.3f}, "
+          f"eager/graph {e_med / g_med:.2f}x; graph {1e3 / g_med:.1f} frames/s, eager {1e3 / e_med:.1f} frames/s",
+          flush=True)
+    return {"step_ms_median": g_med, "eager_step_ms_median": e_med, "bitwise": bitwise, "max_pos_diff_px": worst,
+            "turn_medians_ms": [med[i] for i in range(len(runs))]}
+
+
+def check_waits(tracker: Tracker, frames, clip_waits_max: int | None, label: str) -> dict:
+    """Host waits on the graph path: each of WAIT_STEPS Tracker.step calls
+    (at most 1), and track_clip_device over WAIT_STEPS frames already on the
+    card (at most clip_waits_max in all; None: printed only)."""
+    stacks = []
+    per_step = [count_waits(lambda f=f: tracker.step(f), stacks) for f in frames[:WAIT_STEPS]]
+    clip = torch.from_numpy(np.stack(frames[:WAIT_STEPS])).cuda()
+    torch.cuda.synchronize()
+    in_clip = count_waits(lambda: tracker.track_clip_device(clip), stacks)
+    torch.cuda.synchronize()
+    print(f"  {label}: host waits a Tracker.step {per_step}; in track_clip_device over {WAIT_STEPS} frames "
+          f"{in_clip}", flush=True)
+    if max(per_step) > 1 or (clip_waits_max is not None and in_clip > clip_waits_max):
+        for stack in stacks:
+            print(f"  a wait, at:\n{stack}", flush=True)
+    check(max(per_step) <= 1, f"{label}: at most 1 host wait a Tracker.step ({per_step})")
+    if clip_waits_max is not None:
+        check(in_clip <= clip_waits_max, f"{label}: {in_clip} host waits in track_clip_device (max {clip_waits_max})")
+    return {"waits_per_step": max(per_step), "waits_in_clip": in_clip}
+
+
 def run_main_path(tracker_overrides: dict | None = None, rmse_bound: float = RMSE_BOUND_PX) -> dict:
-    """One main path, 60 frames through Tracker.run on the card. The launch
-    counts are set to 0 just before the run and read just after it."""
+    """One main path, 60 frames through Tracker.run on the card, in turns
+    eagerly and through the captured graphs (run_turns); the launch counts
+    of each run by shape, the lost flags and the RMSE."""
     cfg_dict = copy.deepcopy(SMOKE_CONFIG)
     cfg_dict["model"]["checkpoint"] = str(ROOT / CHECKPOINT)
     cfg_dict["io"]["num_frames"] = FRAMES
@@ -457,52 +580,86 @@ def run_main_path(tracker_overrides: dict | None = None, rmse_bound: float = RMS
     cfg = Config.from_dict(cfg_dict)
     crop = cfg.tracker.mode == "crop"
     src = open_source(cfg.io.source, cfg.io.num_frames, tuple(cfg.io.frame_size), seed=cfg.filter.seed)
-    tracker = Tracker(cfg, device="cuda")
-    reset_counts()
-    recs = list(tracker.run(src))
-    counts = read_counts()
-    launches, k1_shapes, k2_launches, k2_sizes = (counts[k] for k in ("launches", "k1_shapes", "k2_launches",
-                                                                       "k2_sizes"))
+    prm = vit_params.resolve_vit_params(cfg, None, "cuda")
+    runs = run_turns(cfg, prm, src)
     depth = cfg.model.depth
-    probes = 0
-    if not crop and (cfg.filter.lost_conf_threshold > 0 or cfg.filter.lost_conf_ratio > 0):
-        probes = sum(r["lost"] for r in recs[:-1])  # a step probes when the state was lost
-    # init + one per step + lost-only probes (dense); crop mode adds the
-    # template EMA's forward at the estimate every step and has no probe.
-    template_forwards = len(recs) if crop and cfg.tracker.template_ema > 0 else 0
-    forwards = 1 + len(recs) + probes + template_forwards
-    print(f"  K1 launches on the {cfg.tracker.mode} path: {launches} "
-          f"(expected {depth} x {forwards} forwards = {depth * forwards})", flush=True)
-    check(launches == depth * forwards, f"K1 launches {launches} == {depth * forwards}")
-    k2_expected = forwards if crop else 0
-    print(f"  K2 launches on the {cfg.tracker.mode} path: {k2_launches} (expected {k2_expected})", flush=True)
-    check(k2_launches == k2_expected, f"K2 launches {k2_launches} == {k2_expected}")
-    # By shape: crop mode's particle forward is at B = N particles, its init
-    # and template forwards at B = 1; dense mode's every forward at B = 1.
-    n, heads, t = cfg.filter.num_particles, cfg.model.heads, tracker.spec.seq_len
-    if crop:
-        k1_expected = {(n, heads, t): depth * len(recs), (1, heads, t): depth * (1 + template_forwards)}
-        k2_sizes_expected = {n: len(recs), 1: 1 + template_forwards}
-    else:
-        k1_expected, k2_sizes_expected = {(1, heads, t): depth * forwards}, {}
-    print(f"  K1 launches by (B, H, T): {k1_shapes} (expected {k1_expected}); "
-          f"K2 by N: {k2_sizes} (expected {k2_sizes_expected})", flush=True)
-    check(k1_shapes == k1_expected, f"K1 launches by shape {k1_shapes} == {k1_expected}")
-    check(k2_sizes == k2_sizes_expected, f"K2 launches by N {k2_sizes} == {k2_sizes_expected}")
-    check(len(recs) == FRAMES - 1, f"{len(recs)} records for {FRAMES} frames")
-    check(not any(r["lost"] for r in recs), "no record is lost")
-    pos = np.array([r["position"] for r in recs])
-    check(bool(np.all(np.isfinite(pos))), "positions are finite")
-    err = np.linalg.norm(pos - src.truth[1:], axis=1)
-    rmse = float(np.sqrt(np.mean(err**2)))
-    print(f"  RMSE {rmse:.3f} px (bound {rmse_bound:.2f} px), max err {err.max():.3f} px", flush=True)
-    check(rmse <= rmse_bound, f"RMSE {rmse} px within {rmse_bound} px")
-    step_ms = [r["step_ms"] for r in recs[5:]]
-    med = statistics.median(step_ms)
-    print(f"  step ms: median {med:.3f} (min {min(step_ms):.3f}, max {max(step_ms):.3f}) over "
-          f"{len(step_ms)} frames after 5 warm-up; {1e3 / med:.1f} frames/s", flush=True)
-    return {"launches": launches, "k1_shapes": k1_shapes, "k2_launches": k2_launches, "k2_sizes": k2_sizes,
-            "rmse_px": rmse, "step_ms_median": med}
+    n, heads = cfg.filter.num_particles, cfg.model.heads
+    for run in runs:
+        recs = run["recs"]
+        probes = 0
+        if not crop and (cfg.filter.lost_conf_threshold > 0 or cfg.filter.lost_conf_ratio > 0):
+            probes = sum(r["lost"] for r in recs[:-1])  # a step probes when the state was lost
+        # init + one per step + lost-only probes (dense); crop mode adds the
+        # template EMA's forward at the estimate every step and has no probe.
+        template_forwards = len(recs) if crop and cfg.tracker.template_ema > 0 else 0
+        forwards = 1 + len(recs) + probes + template_forwards
+        t = run["tracker"].spec.seq_len
+        # By shape: crop mode's particle forward is at B = N particles, its
+        # init and template forwards at B = 1; dense mode's every forward at B = 1.
+        if crop:
+            k1_expected = {(n, heads, t): depth * len(recs), (1, heads, t): depth * (1 + template_forwards)}
+            k2_sizes_expected = {n: len(recs), 1: 1 + template_forwards}
+        else:
+            k1_expected, k2_sizes_expected = {(1, heads, t): depth * forwards}, {}
+        kind = "graph" if run["graphs"] else "eager"
+        print(f"  {cfg.tracker.mode} path, {kind} run: K1 launches {run['launches']} (expected {depth} x {forwards} "
+              f"forwards = {depth * forwards}), by (B, H, T) {run['k1_shapes']} (expected {k1_expected}); K2 "
+              f"{run['k2_launches']} by N {run['k2_sizes']} (expected {k2_sizes_expected})", flush=True)
+        check(run["launches"] == depth * forwards, f"K1 launches {run['launches']} == {depth * forwards}")
+        check(run["k2_launches"] == (forwards if crop else 0), f"K2 launches {run['k2_launches']}")
+        check(run["k1_shapes"] == k1_expected, f"K1 launches by shape {run['k1_shapes']} == {k1_expected}")
+        check(run["k2_sizes"] == k2_sizes_expected, f"K2 launches by N {run['k2_sizes']} == {k2_sizes_expected}")
+        check(len(recs) == FRAMES - 1, f"{len(recs)} records for {FRAMES} frames")
+        check(not any(r["lost"] for r in recs), "no record is lost")
+        pos = np.array([r["position"] for r in recs])
+        check(bool(np.all(np.isfinite(pos))), "positions are finite")
+        err = np.linalg.norm(pos - src.truth[1:], axis=1)
+        run["rmse"] = float(np.sqrt(np.mean(err**2)))
+        check(run["rmse"] <= rmse_bound, f"RMSE {run['rmse']} px within {rmse_bound} px")
+    rmse = runs[1]["rmse"]
+    print(f"  RMSE {rmse:.3f} px on the graph runs, {runs[0]['rmse']:.3f} px on the eager ones (bound "
+          f"{rmse_bound:.2f} px)", flush=True)
+    summary = check_turns(runs, f"{cfg.tracker.mode} path")
+    frames = list(src)
+    waits = check_waits(runs[2]["tracker"], frames[1:], 0, f"{cfg.tracker.mode} path")
+    g = runs[1]
+    return {"launches": g["launches"], "k1_shapes": g["k1_shapes"], "k2_launches": g["k2_launches"],
+            "k2_sizes": g["k2_sizes"], "rmse_px": rmse, **summary, **waits, "cfg": cfg, "prm": prm, "src": src,
+            "recs": g["recs"]}
+
+
+def run_clip(path: dict) -> dict:
+    """track_clip_device over the path's 59 frames in one call, from a fresh
+    graph tracker: its records equal Tracker.run's on the graph path, and
+    its frames/s (host clock from the call to the readback of all rows)."""
+    cfg, src = path["cfg"], path["src"]
+    tracker = Tracker(cfg, vit_params=path["prm"], device="cuda")
+    tracker.init(src.frames[0], src.init_bbox)
+    clip = torch.from_numpy(np.stack(src.frames[1:])).cuda()
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    outs = tracker.track_clip_device(clip)
+    rows = pack_rows(outs)
+    seconds = time.perf_counter() - t0
+    counts = read_counts()
+    want = [[*r["position"], *r["box"], *r["velocity"], r["conf"], r["ess"], r["resampled"], r["lost"]]
+            for r in path["recs"]]
+    check(rows.shape == (len(want), 10) and np.array_equal(rows, np.array(want, np.float64)),
+          f"track_clip_device's records == Tracker.run's ({rows.shape})")
+    check(counts["k1_shapes"] == {k: v - cfg.model.depth for k, v in path["k1_shapes"].items()},
+          f"track_clip_device launches {counts['k1_shapes']}: Tracker.run's less the init forward")
+    fps = len(want) / seconds
+    print(f"  track_clip_device over {len(want)} frames: {seconds * 1e3:.1f} ms, {fps:.1f} frames/s; records == "
+          f"Tracker.run's (bitwise), K1 launches {counts['launches']}", flush=True)
+    return {"clip_frames_per_s": fps, "clip_ms": seconds * 1e3}
+
+
+def pack_rows(outs) -> np.ndarray:
+    """A TrackOutput with a leading K axis -> [K, 10] float64 rows on the host."""
+    cols = [outs.position, outs.box, outs.velocity, outs.conf[:, None], outs.ess[:, None],
+            outs.resampled[:, None].float(), outs.lost[:, None].float()]
+    return torch.cat(cols, dim=1).cpu().numpy().astype(np.float64)
 
 
 def check_trunk_regeneration(tracker: Tracker, cfg: Config) -> float:
@@ -541,9 +698,10 @@ def check_trunk_regeneration(tracker: Tracker, cfg: Config) -> float:
 
 
 def run_robust_path() -> dict:
-    """The robust main path (ROBUST_CONFIG) through Tracker.run on the card:
-    counts set to 0 just before the run and read just after it; the scans
-    and accepted matches read from the state each step leaves."""
+    """The robust main path (ROBUST_CONFIG) through Tracker.run on the card,
+    in turns eagerly and through the captured graphs (run_turns): the
+    launch counts of each run by shape, against its probes and armed steps;
+    the scans and accepted matches read from the states each step leaves."""
     cfg_dict = copy.deepcopy(ROBUST_CONFIG)
     cfg_dict["model"]["checkpoint"] = str(ROOT / HEAD_CHECKPOINT)
     cfg = Config.from_dict(cfg_dict)
@@ -557,46 +715,50 @@ def run_robust_path() -> dict:
           "weights cast)", flush=True)
     regen_s = check_trunk_regeneration(tracker, cfg)
     n_after = cfg.tracker.redetect_global_after
-    reset_counts()
-    recs, scans, accepts = [], 0, 0
-    for rec in tracker.run(src):
-        recs.append(rec)
-        scanned, accepted = scan_accepted(tracker.state, n_after)
-        scans += scanned
-        accepts += accepted
-    counts = read_counts()
+    runs = run_turns(cfg, tracker.vit_params, src, n_after)
     depth = cfg.model.depth + cfg.model.head_depth
-    probes = sum(r["lost"] for r in recs[:-1])  # a step probes when the state was lost
     heads, t = cfg.model.heads, tracker.spec.seq_len
     g2 = cfg.tracker.redetect_global_grid ** 2
-    k1_expected = {(1, heads, t): depth * (1 + len(recs) + probes)}
-    if scans:
-        k1_expected[(g2, heads, t)] = depth * scans
-    print(f"  robust path: {len(recs)} steps, {probes} probes, {scans} scans, {accepts} accepted matches", flush=True)
-    print(f"  K1 launches by (B, H, T): {counts['k1_shapes']} (expected {k1_expected}); K2: "
-          f"{counts['k2_launches']} (expected 0)", flush=True)
-    check(scans >= 1 and accepts >= 1, f"at least one scan ({scans}) and one accepted match ({accepts})")
-    check(counts["k1_shapes"] == k1_expected, f"K1 launches by shape {counts['k1_shapes']} == {k1_expected}")
-    check(counts["k2_launches"] == 0, "no K2 launch on the dense robust path")
-    check(len(recs) == frames - 1, f"{len(recs)} records for {frames} frames")
-    pos = np.array([r["position"] for r in recs])
-    check(bool(np.all(np.isfinite(pos))), "positions are finite")
-    lost = sum(r["lost"] for r in recs)
-    print(f"  lost records: {lost} of {len(recs)} (JAX package: {ROBUST_LOST_RANGE[0]}-{ROBUST_LOST_RANGE[1]}); "
-          f"last 5: {[r['lost'] for r in recs[-5:]]}", flush=True)
-    check(not any(r["lost"] for r in recs[-5:]), "the last 5 records are not lost")
-    # From the fourth record after the reappearance on, as tools/eval_quality.py.
-    err = np.linalg.norm(pos - src.truth[1:], axis=1)[teleport_times(frames)[1] + 3:]
-    rmse = float(np.sqrt(np.mean(err**2)))
-    print(f"  RMSE after the reappearance {rmse:.3f} px over {err.size} records (bound {ROBUST_RMSE_BOUND_PX:.2f} "
-          f"px; JAX package {ROBUST_RMSE_RANGE[0]}-{ROBUST_RMSE_RANGE[1]}), max err {err.max():.3f} px", flush=True)
-    check(rmse <= ROBUST_RMSE_BOUND_PX, f"RMSE {rmse} px within {ROBUST_RMSE_BOUND_PX} px")
-    step_ms = [r["step_ms"] for r in recs[5:]]
-    med = statistics.median(step_ms)
-    print(f"  step ms: median {med:.3f} (min {min(step_ms):.3f}, max {max(step_ms):.3f}) over "
-          f"{len(step_ms)} frames after 5 warm-up; {1e3 / med:.1f} frames/s", flush=True)
-    return {**counts, "rmse_px": rmse, "step_ms_median": med, "lost": lost, "scans": scans, "accepts": accepts,
-            "probes": probes, "trunk_regen_s": regen_s}
+    for run in runs:
+        recs = run["recs"]
+        armed, scans, accepts = (sum(s[k] for s in run["steps"]) for k in range(3))
+        probes = sum(r["lost"] for r in recs[:-1])  # a step probes when the state was lost
+        # Every armed step runs the scan's forward; it takes effect on the
+        # steps that trigger (scans) and accept.
+        k1_expected = {(1, heads, t): depth * (1 + len(recs) + probes)}
+        if armed:
+            k1_expected[(g2, heads, t)] = depth * armed
+        kind = "graph" if run["graphs"] else "eager"
+        print(f"  robust path, {kind} run: {len(recs)} steps, {probes} probes, {armed} armed steps, {scans} scans "
+              f"triggered, {accepts} accepted matches; K1 launches by (B, H, T) {run['k1_shapes']} (expected "
+              f"{k1_expected}); K2 {run['k2_launches']} (expected 0)", flush=True)
+        check(scans >= 1 and accepts >= 1, f"at least one scan ({scans}) and one accepted match ({accepts})")
+        check(run["k1_shapes"] == k1_expected, f"K1 launches by shape {run['k1_shapes']} == {k1_expected}")
+        check(run["k2_launches"] == 0, "no K2 launch on the dense robust path")
+        check(len(recs) == frames - 1, f"{len(recs)} records for {frames} frames")
+        pos = np.array([r["position"] for r in recs])
+        check(bool(np.all(np.isfinite(pos))), "positions are finite")
+        run["lost"] = sum(r["lost"] for r in recs)
+        check(ROBUST_LOST_RANGE[0] <= run["lost"] <= ROBUST_LOST_RANGE[1],
+              f"{run['lost']} lost records within the JAX package's {ROBUST_LOST_RANGE}")
+        check(not any(r["lost"] for r in recs[-5:]), "the last 5 records are not lost")
+        # From the fourth record after the reappearance on, as tools/eval_quality.py.
+        err = np.linalg.norm(pos - src.truth[1:], axis=1)[teleport_times(frames)[1] + 3:]
+        run["rmse"] = float(np.sqrt(np.mean(err**2)))
+        run["counts"] = (armed, scans, accepts, probes)
+        check(run["rmse"] <= ROBUST_RMSE_BOUND_PX, f"RMSE {run['rmse']} px within {ROBUST_RMSE_BOUND_PX} px")
+    g = runs[1]
+    armed, scans, accepts, probes = g["counts"]
+    print(f"  lost records: {g['lost']} of {len(g['recs'])} (JAX package: {ROBUST_LOST_RANGE[0]}-"
+          f"{ROBUST_LOST_RANGE[1]}); last 5: {[r['lost'] for r in g['recs'][-5:]]}", flush=True)
+    print(f"  RMSE after the reappearance {g['rmse']:.3f} px on the graph runs, {runs[0]['rmse']:.3f} px on the eager "
+          f"ones (bound {ROBUST_RMSE_BOUND_PX:.2f} px; JAX package {ROBUST_RMSE_RANGE[0]}-{ROBUST_RMSE_RANGE[1]})",
+          flush=True)
+    summary = check_turns(runs, "robust path")
+    waits = check_waits(runs[2]["tracker"], list(src)[1:], None, "robust path")
+    return {"launches": g["launches"], "k1_shapes": g["k1_shapes"], "k2_launches": g["k2_launches"],
+            "k2_sizes": g["k2_sizes"], "rmse_px": g["rmse"], "lost": g["lost"], "scans": scans, "accepts": accepts,
+            "armed": armed, "probes": probes, "trunk_regen_s": regen_s, **summary, **waits}
 
 
 def time_kernels() -> dict:
@@ -722,6 +884,7 @@ def main() -> int:
     check_tracker_small(TINY_HEAD_REDETECT, "tiny dense tracker (head, auto blend, re-detection)")
     check_tracker_small(TINY_CROP_REDETECT, "tiny crop tracker (window-pallas, re-detection)")
     main_path = run_main_path()
+    main_path.update(run_clip(main_path))
     crop_path = run_main_path(CROP_OVERRIDES, CROP_RMSE_BOUND_PX)
     robust_path = run_robust_path()
     phase("tracker", t0)
@@ -753,11 +916,13 @@ def main() -> int:
                     max_abs_err=k2_errs[(m["n"], m["crop"], m["swin"], m["d"], torch.bfloat16, True)], **kt)
                for m, kt in ((K2_MAIN, k2_times), (K2_ONE, k2_one_times))]
     check(all(r["launches"] > 0 for r in k1_rows + k2_rows), "every kernel row was launched on its main path")
+    path_keys = ("step_ms_median", "eager_step_ms_median", "turn_medians_ms", "bitwise", "max_pos_diff_px",
+                 "rmse_px", "waits_per_step", "waits_in_clip")
     print(json.dumps({"shape_49x12x196x64_bf16": times[REDETECT_SHAPE],
-                      "step_ms_median": main_path["step_ms_median"], "rmse_px": main_path["rmse_px"],
-                      "crop_step_ms_median": crop_path["step_ms_median"], "crop_rmse_px": crop_path["rmse_px"],
-                      "robust": {k: robust_path[k] for k in ("step_ms_median", "rmse_px", "lost", "scans", "accepts",
-                                                             "probes", "trunk_regen_s")},
+                      "dense": {k: main_path[k] for k in path_keys + ("clip_frames_per_s", "clip_ms")},
+                      "crop": {k: crop_path[k] for k in path_keys},
+                      "robust": {k: robust_path[k] for k in path_keys + ("lost", "armed", "scans", "accepts",
+                                                                         "probes", "trunk_regen_s")},
                       "robust_k1_shapes": {str(k): v for k, v in robust_path["k1_shapes"].items()}}))
     print(f"[phase] total: {time.perf_counter() - t_start:.2f} s", flush=True)
     print(f"card: {smi}")

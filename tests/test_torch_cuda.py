@@ -1,5 +1,6 @@
 """On-card tests of the port (marker `cuda`): kernels K1 and K2 against
-their plain versions, and the tracker's dense and crop paths through them.
+their plain versions, the tracker's dense and crop paths through them, and
+the tracker's captured step graphs against the same step run eagerly.
 
 Whether a card is present is decided inside the `cuda_device` fixture, never
 at import or collection, so every worker collects the same tests; without a
@@ -201,3 +202,120 @@ def test_threefry_init_on_card_equals_cpu(cuda_device):
     got = dict(leaves(card))
     for k, v in leaves(cpu):
         assert torch.equal(got[k].cpu(), v), k
+
+
+def _graph_and_eager_runs(cfg_dict, sources):
+    """The same tiny tracker through Tracker.run on the card twice, eagerly
+    (graphs=False) and through its captured graphs, with the same weights:
+    -> {graphs: (records, launch counts)}. Each source after the first
+    continues the run from its first frame on (steps only)."""
+    import chip_smoke
+    from vitparticlefiltertracker_tpu_torch.runtime.tracker import Tracker
+
+    cfg = Config.from_dict(copy.deepcopy(cfg_dict))
+    prm = Tracker(copy.deepcopy(cfg), device="cpu").vit_params
+    out = {}
+    for graphs in (False, True):
+        tr = Tracker(copy.deepcopy(cfg), vit_params=prm, device="cuda", graphs=graphs)
+        chip_smoke.reset_counts()
+        recs = list(tr.run(sources[0]))
+        for src in sources[1:]:
+            recs += [tr.step(f) for f in src.frames]
+        torch.cuda.synchronize()
+        out[graphs] = ([{k: v for k, v in r.items() if k != "step_ms"} for r in recs], chip_smoke.read_counts(), tr)
+    return out
+
+
+@pytest.mark.parametrize("name", ["TINY", "TINY_CROP_NO_RESAMPLE", "TINY_HEAD_REDETECT", "TINY_CROP_REDETECT"])
+def test_graph_step_matches_eager_step(cuda_device, name):
+    """Each step one replay of a captured graph against the same step run
+    eagerly: every record equal (the same kernels on the same inputs; the
+    noise is drawn outside the graph from the same (seed, frame) keys), and
+    the kernels' launch counts by shape equal when counted per replay."""
+    import chip_smoke
+    from vitparticlefiltertracker_tpu_torch.io.video import open_source
+
+    cfg = getattr(chip_smoke, name)
+    src = open_source(cfg["io"]["source"], cfg["io"]["num_frames"], tuple(cfg["io"]["frame_size"]))
+    runs = _graph_and_eager_runs(cfg, [src])
+    (eager, eager_counts, _), (graph, graph_counts, tr) = runs[False], runs[True]
+    assert graph == eager
+    assert graph_counts == eager_counts and graph_counts["launches"] > 0
+    assert tr.graphs and len(tr._step_graphs) == 1
+
+
+def test_graph_recaptures_for_a_new_frame_shape(cuda_device):
+    """A frame of another shape captures its own graphs (as a jit would
+    retrace); the steps on it equal the eager ones."""
+    import chip_smoke
+    from vitparticlefiltertracker_tpu_torch.io.video import open_source
+
+    cfg = chip_smoke.TINY
+    a = open_source("synthetic:moving-square", 5, (224, 224))
+    b = open_source("synthetic:moving-square", 4, (192, 256))
+    runs = _graph_and_eager_runs(cfg, [a, b])
+    assert runs[True][0] == runs[False][0] and runs[True][1] == runs[False][1]
+    assert sorted(k[0] for k in runs[True][2]._step_graphs) == [(192, 256, 3), (224, 224, 3)]
+
+
+def test_graph_tracker_never_steps_eagerly(cuda_device, monkeypatch):
+    """With graphs (the default on the card) every step is a replay: the
+    step function is never called after init, and a step that cannot be
+    captured makes init raise instead of running eagerly."""
+    from vitparticlefiltertracker_tpu_torch.io.video import open_source
+    from vitparticlefiltertracker_tpu_torch.runtime.tracker import Tracker
+
+    import chip_smoke
+
+    cfg = Config.from_dict(copy.deepcopy(chip_smoke.TINY_HEAD_REDETECT))
+    src = open_source(cfg.io.source, cfg.io.num_frames, tuple(cfg.io.frame_size))
+    tr = Tracker(copy.deepcopy(cfg), device="cuda")
+    tr.init(src.frames[0], src.init_bbox)
+    assert sorted(next(iter(tr._step_graphs.values())).graphs) == [(False, False), (False, True), (True, False),
+                                                                  (True, True)]
+
+    def boom(*a, **k):
+        raise AssertionError("an eager step ran")
+
+    tr._fns = tr._fns._replace(step=boom)
+    recs = [tr.step(f) for f in src.frames[1:]]
+    assert any(r["lost"] for r in recs) and np.all(np.isfinite([r["position"] for r in recs]))
+    frames = torch.from_numpy(np.stack(src.frames[1:4])).cuda()
+    assert tuple(tr.track_clip_device(frames).position.shape) == (3, 2)
+
+    bad = Tracker(copy.deepcopy(cfg), device="cuda")
+    body = bad._body
+
+    def reads_back(*a):
+        new, row = body(*a)
+        return new, row * float(row[0])  # a host read: not capturable
+
+    monkeypatch.setattr(bad, "_body", reads_back)
+    with pytest.raises(RuntimeError):
+        bad.init(src.frames[0], src.init_bbox)
+
+
+@pytest.mark.parametrize("donate", [True, False])
+def test_graph_state_donation(cuda_device, donate):
+    """runtime.donate_state true: Tracker.state is the graphs' buffers,
+    updated in place by each step; false: a copy after each step, which the
+    next step leaves alone."""
+    from vitparticlefiltertracker_tpu_torch.io.video import open_source
+    from vitparticlefiltertracker_tpu_torch.runtime.step_graph import state_leaves
+    from vitparticlefiltertracker_tpu_torch.runtime.tracker import Tracker
+
+    import chip_smoke
+
+    d = copy.deepcopy(chip_smoke.TINY)
+    d["runtime"] = {"donate_state": donate}
+    src = open_source("synthetic:moving-square", 4, (224, 224))
+    tr = Tracker(Config.from_dict(d), device="cuda")
+    tr.init(src.frames[0], src.init_bbox)
+    tr.step(src.frames[1])
+    before = tr.state
+    kept = [x.clone() for x in state_leaves(before)]
+    tr.step(src.frames[2])
+    unchanged = torch.equal(state_leaves(before)[0], kept[0])
+    assert (tr.state is before and not unchanged) if donate else (tr.state is not before and unchanged)
+    if not donate:
+        assert all(torch.equal(a, b) for a, b in zip(state_leaves(before), kept))

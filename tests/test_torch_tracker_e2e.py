@@ -57,9 +57,14 @@ def _crop(impl):
     return d
 
 
-def _run_both(cfg_dict, frames=FRAMES):
+def _run_both(cfg_dict, frames=FRAMES, host_branches=None):
     """Both packages over `frames` frames of the config's source -> (JAX
-    outputs, port outputs, JAX states, port states), one a step."""
+    outputs, port outputs, JAX states, port states), one a step.
+
+    host_branches: None, the port's step reads its probe and scan branches
+    itself; "host", they are given from the previous port state's lost flag
+    and lost count, as the Tracker gives them (the capturable step);
+    "every-step", the same probe, and the scan armed on every step."""
     jcfg = JConfig.from_dict(copy.deepcopy(cfg_dict))
     tcfg = TConfig.from_dict(copy.deepcopy(cfg_dict))
     size = tuple(jcfg.io.frame_size)
@@ -96,7 +101,12 @@ def _run_both(cfg_dict, frames=FRAMES):
             # The JAX step's reseed draw (runtime/tracker.py, fold constant 0x5EED1).
             reseed = t_(jax.random.normal(jax.random.fold_in(fkey, 0x5EED1), (n, 2), jnp.float32))
             jstate, jo = jstep(jp, jstate, jnp.asarray(clip[i]))
-            tstate, to = tf.step(tp, tstate, torch.from_numpy(clip[i]), noise=noise, reseed=reseed)
+            branches = {}
+            if host_branches:
+                n_after = tcfg.tracker.redetect_global_after
+                armed = host_branches == "every-step" or int(tstate.lost_count) >= n_after - 1
+                branches = {"probe": bool(tstate.lost), "scan": n_after > 0 and armed}
+            tstate, to = tf.step(tp, tstate, torch.from_numpy(clip[i]), noise=noise, reseed=reseed, **branches)
             jouts.append(jax.tree.map(np.asarray, jo))
             touts.append(to)
             jstates.append(jstate)

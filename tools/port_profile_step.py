@@ -5,7 +5,11 @@ Runs the main path of chip_smoke.py (config.yaml, the B/16 checkpoint,
 480x640 synthetic:moving-square) for --warmup frames, then profiles
 --frames steps with torch.profiler and prints: the host-clock step time,
 the device-busy share (summed kernel time over the window's wall time), and
-the kernels with the most device time. Each --set section.key=value
+the kernels with the most device time. Each step is a replay of the
+tracker's captured CUDA graph, as Tracker.step runs it on the card; the
+device time of one step is also timed by replaying the locked step's graph
+back to back between CUDA events. --eager profiles the same step run
+eagerly (Tracker(graphs=False)). Each --set section.key=value
 (repeatable; the value read as JSON, else as a string) overrides the
 config, so the crop main path is one option away. --robust starts from
 chip_smoke.py's robust path instead (configs/robust-head.yaml with the
@@ -14,10 +18,11 @@ holds the lost frames, the probes and the re-detection scans, so use
 --warmup 10 --frames 37 to profile all of them. --syncs then runs the same
 frames again under torch.cuda.set_sync_debug_mode("warn") and prints how
 many times the host waited for the card in each step (every device-to-host
-read and every copy from pageable host memory; Tracker.step's own
-synchronize is one), by kind of step. Imports only the port; needs a card.
+read, stream or device synchronize and copy from pageable host memory;
+Tracker.step's one wait for its record is one), by the branch the step
+took. Imports only the port; needs a card.
 
-Usage: python3 tools/port_profile_step.py [--frames 20] [--warmup 10] [--top 15]
+Usage: python3 tools/port_profile_step.py [--frames 20] [--warmup 10] [--top 15] [--eager]
            [--set tracker.mode=crop --set tracker.crop_impl=window-pallas]
        python3 tools/port_profile_step.py --robust --warmup 10 --frames 37 --syncs
 """
@@ -30,7 +35,6 @@ import json
 import os
 import sys
 import time
-import warnings
 from collections import defaultdict
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
@@ -53,6 +57,7 @@ def main() -> int:
     ap.add_argument("--set", dest="overrides", action="append", default=[], metavar="SECTION.KEY=VALUE")
     ap.add_argument("--robust", action="store_true", help="chip_smoke.py's robust path as the base config")
     ap.add_argument("--syncs", action="store_true", help="count the host's waits for the card in each step")
+    ap.add_argument("--eager", action="store_true", help="run the step eagerly instead of replaying its graph")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("needs a CUDA device", file=sys.stderr)
@@ -76,7 +81,8 @@ def main() -> int:
             d[section][key] = value
     cfg = Config.from_dict(d)
     src = open_source(cfg.io.source, n_total, tuple(cfg.io.frame_size), seed=cfg.filter.seed)
-    tr = Tracker(cfg, device="cuda")
+    graphs = not args.eager
+    tr = Tracker(cfg, device="cuda", graphs=graphs)
     frames = list(src)
     tr.init(frames[0], src.init_bbox)
     for f in frames[1 : 1 + args.warmup]:
@@ -94,7 +100,8 @@ def main() -> int:
             if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
     busy_us = sum(e.self_device_time_total for e in rows)
     launches = sum(e.count for e in rows)
-    print(f"card: {torch.cuda.get_device_name(0)}; overrides {args.overrides}")
+    print(f"card: {torch.cuda.get_device_name(0)}; overrides {args.overrides}; "
+          f"{'graph replay' if graphs else 'eager'} step")
     print(f"steps {args.frames}: wall {wall_us / args.frames / 1e3:.3f} ms/step (profiler on), "
           f"device busy {busy_us / args.frames / 1e3:.3f} ms/step = {100 * busy_us / wall_us:.1f}% "
           f"of wall, {launches / args.frames:.0f} kernels/step")
@@ -110,31 +117,53 @@ def main() -> int:
     for e in rows[: args.top]:
         print(f"  {e.self_device_time_total / args.frames:9.1f} us/step  {e.count / args.frames:6.1f}/step  "
               f"{100 * e.self_device_time_total / busy_us:5.1f}%  {e.key[:110]}")
+    if graphs:
+        print(f"device time of one locked step, its graph replayed back to back: {replay_ms(tr):.3f} ms")
     if args.syncs:
-        count_syncs(cfg, frames, src.init_bbox)
+        count_syncs(cfg, frames, src.init_bbox, graphs)
     return 0
 
 
-def count_syncs(cfg: Config, frames, bbox) -> None:
-    """Each step of a fresh tracker over `frames` under the sync debug mode:
-    the host's waits for the card a step, by kind (a scan, a probe while
-    lost, neither)."""
-    tr = Tracker(cfg, device="cuda")
+def replay_ms(tr: Tracker, reps: int = 20) -> float:
+    """Device time of one step: the locked step's graph replayed `reps`
+    times between CUDA events (the tracker state advances; use last)."""
+    graph = next(iter(tr._step_graphs.values())).graphs[(False, False)]
+    graph.replay()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def count_syncs(cfg: Config, frames, bbox, graphs: bool) -> None:
+    """Each step of a fresh tracker over `frames` under the sync debug mode
+    (chip_smoke.count_waits): the host's waits for the card a step, by the
+    branch it took (probe while lost, armed for the scan, both, neither),
+    and how many of the armed steps triggered a scan."""
+    tr = Tracker(cfg, device="cuda", graphs=graphs)
     tr.init(frames[0], bbox)
     n_after = cfg.tracker.redetect_global_after
     by_kind = defaultdict(list)
+    triggered = 0
+    shown = 0
     for f in frames[1:]:
-        was_lost = bool(tr.state.lost)
-        with warnings.catch_warnings(record=True) as caught:
-            warnings.simplefilter("always")
-            torch.cuda.set_sync_debug_mode("warn")
-            tr.step(f)
-            torch.cuda.set_sync_debug_mode("default")
-        waits = sum("synchronizing" in str(w.message) for w in caught)
-        scanned = n_after > 0 and chip_smoke.scan_accepted(tr.state, n_after)[0]
-        by_kind["scan" if scanned else "probe (lost)" if was_lost else "locked"].append(waits)
+        probe, scan = tr._branch()
+        stacks = []
+        waits = chip_smoke.count_waits(lambda f=f: tr.step(f), stacks)
+        by_kind[("probe " if probe else "") + ("armed" if scan else "") or "locked"].append(waits)
+        triggered += n_after > 0 and chip_smoke.scan_accepted(tr.state, n_after)[0]
+        if waits > 1 and shown < 2:  # where the waits beyond the record's are
+            shown += 1
+            for stack in stacks:
+                print(f"  a wait, at:\n{stack}")
     for kind, counts in sorted(by_kind.items()):
-        print(f"  host waits a step, {kind}: {min(counts)}-{max(counts)} over {len(counts)} steps")
+        print(f"  host waits a step ({'graph' if graphs else 'eager'}), {kind}: {min(counts)}-{max(counts)} over "
+              f"{len(counts)} steps")
+    if n_after > 0:
+        print(f"  scans triggered: {triggered}")
 
 
 if __name__ == "__main__":

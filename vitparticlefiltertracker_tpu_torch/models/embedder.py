@@ -17,11 +17,10 @@ import torch
 
 from vitparticlefiltertracker_tpu_torch.models.vit import VitSpec, vit_forward_tokens
 from vitparticlefiltertracker_tpu_torch.ops.image import (
-    IMAGENET_MEAN,
-    IMAGENET_STD,
     FrameView,
     frame_to_window_coords,
     full_view,
+    imagenet_stats,
     roi_cells_cos_mxu,
     roi_cells_mxu,
     roi_pool_cos_mxu,
@@ -69,9 +68,8 @@ class DenseEmbedSpec(NamedTuple):
 def normalize_window(window_raw: torch.Tensor) -> torch.Tensor:
     """Normalize an extracted uint8-valued float window (affine, so it
     commutes with the bilinear resample)."""
-    dev, dt = window_raw.device, window_raw.dtype
-    mean = torch.tensor(IMAGENET_MEAN, dtype=dt, device=dev) * 255.0
-    std = torch.tensor(IMAGENET_STD, dtype=dt, device=dev) * 255.0
+    mean, std = imagenet_stats(window_raw.dtype, window_raw.device)
+    mean, std = mean * 255.0, std * 255.0
     return (window_raw - mean) / std
 
 

@@ -11,6 +11,7 @@ ROI pooling is a weighted sum over the token grid.
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import torch
@@ -19,11 +20,19 @@ IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
 
 
+@functools.lru_cache(maxsize=None)
+def imagenet_stats(dtype: torch.dtype, device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
+    """(mean [3], std [3]) in `dtype` on `device`, built once each: a copy
+    from host memory inside a tracker step would be a wait for the card, and
+    is not allowed in a captured CUDA graph. Callers must not write to them."""
+    return (torch.tensor(IMAGENET_MEAN, dtype=dtype, device=device),
+            torch.tensor(IMAGENET_STD, dtype=dtype, device=device))
+
+
 def normalize_frame(frame: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
     """uint8 [H, W, 3] -> normalized float [H, W, 3]."""
     x = frame.to(dtype) / 255.0
-    mean = torch.tensor(IMAGENET_MEAN, dtype=dtype, device=frame.device)
-    std = torch.tensor(IMAGENET_STD, dtype=dtype, device=frame.device)
+    mean, std = imagenet_stats(dtype, frame.device)
     return (x - mean) / std
 
 

@@ -102,8 +102,7 @@ def landscape_spread(
     """Top-slice spatial spread of a cosine landscape -> [] (px)."""
     if mask is None:
         mask = torch.ones(cos.shape, dtype=torch.bool, device=cos.device)
-    neg = torch.tensor(float("-inf"), dtype=cos.dtype, device=cos.device)
-    cmax = torch.max(torch.where(mask, cos, neg))
+    cmax = torch.max(torch.where(mask, cos, float("-inf")))
     cnt = torch.clamp(mask.sum(), min=1)
     cmean = torch.sum(torch.where(mask, cos, torch.zeros_like(cos))) / cnt
     thr = cmax - top_frac * torch.clamp(cmax - cmean, min=1e-6)

@@ -47,11 +47,10 @@ from vitparticlefiltertracker_tpu_torch.models.embedder import (
 )
 from vitparticlefiltertracker_tpu_torch.models.vit import VitSpec, encode_tokens, pool_tokens
 from vitparticlefiltertracker_tpu_torch.ops.image import (
-    IMAGENET_MEAN,
-    IMAGENET_STD,
     FrameView,
     frame_to_window_coords,
     full_view,
+    imagenet_stats,
     view_extract_window_mxu,
 )
 from vitparticlefiltertracker_tpu_torch.ops.likelihood import (
@@ -67,6 +66,7 @@ from vitparticlefiltertracker_tpu_torch.ops.patchify_window import (
     window_gather_patchify,
     window_gather_patchify_plain,
 )
+from vitparticlefiltertracker_tpu_torch.runtime.step_graph import StepGraphs, clone_state, copy_state_
 from vitparticlefiltertracker_tpu_torch.utils.platform import resolve_device
 
 
@@ -104,8 +104,23 @@ class TrackOutput(NamedTuple):
 
 
 def pack_track_output(out: TrackOutput) -> torch.Tensor:
-    """Flatten a TrackOutput into one f32 vector, field order, each raveled."""
+    """Flatten a TrackOutput into one f32 vector [10]: the fields in order,
+    each raveled and cast to f32 (the JAX package's layout)."""
     return torch.cat([x.reshape(-1).to(torch.float32) for x in out])
+
+
+def unpack_track_output(packed: torch.Tensor) -> TrackOutput:
+    """pack_track_output's inverse on rows [..., 10] -> TrackOutput with the
+    leading axes (views of `packed`; the two flags compared to 0)."""
+    return TrackOutput(
+        position=packed[..., 0:2],
+        box=packed[..., 2:4],
+        velocity=packed[..., 4:6],
+        conf=packed[..., 6],
+        ess=packed[..., 7],
+        resampled=packed[..., 8] != 0,
+        lost=packed[..., 9] != 0,
+    )
 
 
 def _pf_params(cfg: Config) -> PFParams:
@@ -133,8 +148,8 @@ def _norm_folded_embed_weights(prm: dict, spec: VitSpec) -> tuple[torch.Tensor, 
     raw frames with it; the dense path normalizes the window instead."""
     kern_f = prm["patch_embed"]["kernel"].float()  # [p*p*3, D]
     dev = kern_f.device
-    mean = torch.tensor(IMAGENET_MEAN, dtype=torch.float32, device=dev) * 255.0
-    std = torch.tensor(IMAGENET_STD, dtype=torch.float32, device=dev) * 255.0
+    mean, std = imagenet_stats(torch.float32, dev)
+    mean, std = mean * 255.0, std * 255.0
     k3 = kern_f.reshape(-1, 3, spec.dim)
     kern_scaled = (k3 / std[None, :, None]).reshape(-1, spec.dim)
     bias_shift = torch.einsum("pcd,c->d", k3, mean / std)
@@ -156,18 +171,42 @@ def key_seed(key: torch.Tensor) -> int:
 class _Fns(NamedTuple):
     init: Callable
     step: Callable
+    track_clip: Callable
+
+
+def step_branches(cfg: Config) -> tuple[bool, int]:
+    """The step's two lost-only branches as the config sets them: (whether a
+    lost state runs the probe, lost frames in a row that trigger the global
+    scan, 0 = never)."""
+    f = cfg.filter
+    probe = cfg.tracker.mode == "dense" and (f.lost_conf_threshold > 0.0 or f.lost_conf_ratio > 0.0)
+    return probe, cfg.tracker.redetect_global_after
 
 
 def build_tracker_fns(cfg: Config) -> _Fns:
-    """Build (init_fn, step_fn) for a dense- or crop-mode config.
+    """Build (init_fn, step_fn, track_clip_fn) for a dense- or crop-mode config.
 
     init(params, frame, bbox, seed, cloud=None) -> TrackerState
-    step(params, state, frame, noise=None, reseed=None) -> (TrackerState, TrackOutput)
+    step(params, state, frame, noise=None, reseed=None, probe=None, scan=None)
+        -> (TrackerState, TrackOutput)
+    track_clip(params, state, frames, noises=None, reseeds=None)
+        -> (TrackerState, TrackOutput with a leading K axis)
 
     frame: [H, W, 3] tensor (uint8 or float, 0..255) on the run's device.
     cloud / noise / reseed: optional injected initial particles, step draws
     and [N, 2] re-detection reseed normals (parity runs); by default they are
     drawn from generators keyed on (seed, frame).
+
+    probe / scan choose the step's two lost-only branches (``lax.cond`` in
+    the JAX package). Left None, the step reads the flag it needs back from
+    the card: `state.lost` for the probe, the step's own lost count for the
+    scan. Given, the step is capturable in a CUDA graph, provided noise and,
+    when scan is True, reseed are given too: no host read and no copy from
+    host memory runs in it. probe=True probes (a no-op unless the config
+    gates on confidence in dense mode); scan=True ("armed") runs the scan and
+    applies its effects where the step's own lost count reaches
+    redetect_global_after and the match is accepted, so an armed step whose
+    trigger stays low gives what an unarmed one gives.
     """
     t = cfg.tracker
     m = cfg.model
@@ -196,9 +235,27 @@ def build_tracker_fns(cfg: Config) -> _Fns:
     # the static head_blend (through `split`).
     auto_blend = bool(m.head_blend_auto) and split is not None
     ab_init = float(min(max(m.head_blend, m.head_blend_min), m.head_blend_max))
+    probe_gated, n_after = step_branches(cfg)
 
     def f32(x, dev):
         return torch.tensor(x, dtype=torch.float32, device=dev)
+
+    consts: dict = {}
+
+    def frame_consts(fh: int, fw: int, dev) -> dict:
+        """Per-frame-size constants, built once per (size, device) and reused
+        by every later step (a copy from host memory inside a step would be a
+        wait for the card, and is not allowed in a captured graph)."""
+        key = (fh, fw, dev)
+        if key not in consts:
+            consts[key] = {
+                "frame_max": torch.tensor([fw - 1, fh - 1], dtype=torch.float32, device=dev),
+                "cell_sigma": (torch.tensor([fw / g, fh / g], dtype=torch.float32, device=dev) / 4.0
+                               if n_after > 0 else None),
+                "frame_center": torch.tensor([fw / 2.0, fh / 2.0], dtype=torch.float32, device=dev),
+                "frame_side": f32(max(fh, fw), dev),
+            }
+        return consts[key]
 
     def crop_embeddings(prm, view: FrameView, center, side, boxes_xy, boxes_wh):
         """Gather + patchify + embed every box's crop, then one batched ViT
@@ -258,7 +315,6 @@ def build_tracker_fns(cfg: Config) -> _Fns:
             blend=f32(-1.0, dev),
         )
 
-    n_after = t.redetect_global_after
     g = t.redetect_global_grid
     c_sub = 3  # candidate sub-grid per tile (dense tiled scan)
 
@@ -273,15 +329,18 @@ def build_tracker_fns(cfg: Config) -> _Fns:
         window. A function of tensors only, so a captured step can hold it."""
         dev = cand_wh.device
         h_px, w_px = int(view.pixels.shape[0]), int(view.pixels.shape[1])
+        fc = frame_consts(h_px, w_px, dev)
         gxs = (torch.arange(g, dtype=torch.float32, device=dev) + 0.5) * (w_px / g)
         gys = (torch.arange(g, dtype=torch.float32, device=dev) + 0.5) * (h_px / g)
-        tile_ctrs = torch.stack([gxs.repeat(g), gys.repeat_interleave(g)], dim=-1)  # [G*G, 2], row-major
-        frame_side = f32(max(h_px, w_px), dev)
+        # Row-major [G*G, 2]; expand + reshape repeats each y without the
+        # host read of repeat_interleave.
+        tile_ctrs = torch.stack([gxs.repeat(g), gys[:, None].expand(g, g).reshape(-1)], dim=-1)
+        frame_side = fc["frame_side"]
         if mode == "dense":
             tile_side = torch.maximum(1.25 * frame_side / g, side)
             oxs = (torch.arange(c_sub, dtype=torch.float32, device=dev) - (c_sub - 1) / 2) * (w_px / (g * c_sub))
             oys = (torch.arange(c_sub, dtype=torch.float32, device=dev) - (c_sub - 1) / 2) * (h_px / (g * c_sub))
-            offs = torch.stack([oxs.repeat(c_sub), oys.repeat_interleave(c_sub)], dim=-1)  # [C*C, 2]
+            offs = torch.stack([oxs.repeat(c_sub), oys[:, None].expand(c_sub, c_sub).reshape(-1)], dim=-1)  # [C*C, 2]
             cand = tile_ctrs[:, None, :] + offs[None, :, :]  # [G*G, C*C, 2]
             emb, valid = tiled_window_embed(prm, view, tile_ctrs, tile_side, es, cand, cand_wh)
             emb = emb.reshape(g * g * c_sub * c_sub, *emb.shape[2:])
@@ -289,32 +348,36 @@ def build_tracker_fns(cfg: Config) -> _Fns:
             cand = cand.reshape(-1, 2)
         else:
             cand = tile_ctrs
-            center = torch.tensor([w_px / 2.0, h_px / 2.0], dtype=torch.float32, device=dev)
-            emb, valid = crop_embeddings(prm, view, center, frame_side, cand, cand_wh.expand(cand.shape))
+            emb, valid = crop_embeddings(prm, view, fc["frame_center"], frame_side, cand, cand_wh.expand(cand.shape))
         _, cos = cosine_log_likelihood(emb, tmpl, 1.0, split=split)
-        cos = torch.where(valid, cos, f32(-2.0, dev))
-        b = torch.argmax(cos)
+        cos = torch.where(valid, cos, -2.0)
+        # A [1] index, not a 0-d one: indexing with a 0-d tensor reads it
+        # back to the host.
+        b = torch.argmax(cos, dim=0, keepdim=True)
         nv = torch.clamp(valid.sum(), min=1)
-        mu = torch.sum(torch.where(valid, cos, f32(0.0, dev))) / nv
-        var = torch.sum(torch.where(valid, (cos - mu) ** 2, f32(0.0, dev))) / nv
-        z = (cos[b] - mu) * torch.rsqrt(var + 1e-8)
-        return cand[b], cos[b], z
+        mu = torch.sum(torch.where(valid, cos, 0.0)) / nv
+        var = torch.sum(torch.where(valid, (cos - mu) ** 2, 0.0)) / nv
+        best_cos = cos[b][0]
+        z = (best_cos - mu) * torch.rsqrt(var + 1e-8)
+        return cand[b][0], best_cos, z
 
     def step_fn(prm, state: TrackerState, frame, noise: StepNoise | None = None,
-                reseed: torch.Tensor | None = None):
+                reseed: torch.Tensor | None = None, probe: bool | None = None, scan: bool | None = None):
         dev = state.center.device
         view = full_view(frame.to(torch.float32))
         fh, fw = int(frame.shape[0]), int(frame.shape[1])
+        fc = frame_consts(fh, fw, dev)
         if noise is None:
             noise = draw_step_noise(key_seed(state.key), int(state.frame_idx), n, dev)
+        probe = probe_gated and (bool(state.lost) if probe is None else probe)
         # While lost, sweep a wider area: inflate position diffusion and the
         # search window until re-lock.
-        noise_boost = torch.where(state.lost, f32(t.redetect_noise_boost, dev), f32(1.0, dev))
+        noise_boost = torch.where(state.lost, t.redetect_noise_boost, 1.0)
         noise = noise._replace(pos=noise.pos * noise_boost)
         particles = propagate(state.pf.particles, noise, pfp.motion)
 
         side = _window_side(state.box_wh, state.prev_scale, t.search_scale)
-        side = side * torch.where(state.lost, f32(t.redetect_window_boost, dev), f32(1.0, dev))
+        side = side * torch.where(state.lost, t.redetect_window_boost, 1.0)
         boxes_xy = particles[:, 0:2]
         boxes_wh = state.box_wh[None, :] * torch.exp(particles[:, 4:5])
         pool = make_embedder(prm, view, state.center, side)
@@ -330,7 +393,7 @@ def build_tracker_fns(cfg: Config) -> _Fns:
             # static blend, the likelihood's at max(running, target) (fast
             # attack), or the static one while lost.
             cos_f, cos_h, in_win = pool.score_halves(tmpl, boxes_xy, boxes_wh)
-            b_run = torch.where(state.blend >= 0.0, state.blend, f32(ab_init, dev))
+            b_run = torch.where(state.blend >= 0.0, state.blend, ab_init)
             b_static = split[1]
             cos = (1.0 - b_static) * cos_f + b_static * cos_h
             # Confusion: the spatial spread of the trunk landscape's top slice,
@@ -339,7 +402,7 @@ def build_tracker_fns(cfg: Config) -> _Fns:
             box_diag = torch.linalg.vector_norm(state.box_wh) * state.prev_scale
             b_tgt = auto_blend_target(spread, box_diag, m.head_blend_spread_lo, m.head_blend_spread_hi,
                                       m.head_blend_min, m.head_blend_max)
-            b_use = torch.where(state.lost, f32(b_static, dev), torch.maximum(b_run, b_tgt))
+            b_use = torch.where(state.lost, b_static, torch.maximum(b_run, b_tgt))
             cos_loc = (1.0 - b_use) * cos_f + b_use * cos_h
             loglik = znormed_logits_from_cos(cos_loc, zscale, mask=in_win) if use_znorm else temp * cos_loc
         elif mode == "dense":
@@ -360,14 +423,14 @@ def build_tracker_fns(cfg: Config) -> _Fns:
 
         out = pf_update(particles, state.pf.log_weights, loglik, noise.resample_u, pfp)
         if t.estimate == "mode":
-            est = particles[torch.argmax(state.pf.log_weights + loglik)]
+            est = particles[torch.argmax(state.pf.log_weights + loglik, dim=0, keepdim=True)][0]
         else:
             est = out.estimate
         est_xy = est[0:2]
         est_scale = torch.exp(est[4])
         # Confidence = best valid cosine; all-out-of-window gives -1.
-        conf = torch.max(torch.where(in_win, cos, f32(-1.0, dev)))
-        if mode == "dense" and (lost_thresh > 0.0 or lost_ratio > 0.0) and bool(state.lost):
+        conf = torch.max(torch.where(in_win, cos, -1.0))
+        if probe:
             # While lost the window is boosted, which depresses every cosine;
             # probe the estimate through an unboosted window instead (one
             # extra ViT forward, on lost frames only). Crop mode embeds at
@@ -376,7 +439,7 @@ def build_tracker_fns(cfg: Config) -> _Fns:
             pool_p = make_dense_embedder(prm, view, est_xy, side0, es)
             emb_p, ok_p = pool_p(est_xy[None], (state.box_wh * est_scale)[None])
             _, cos_p = cosine_log_likelihood(emb_p, tmpl, 1.0, split=split)
-            conf_gate = torch.where(ok_p[0], cos_p[0], f32(-1.0, dev))
+            conf_gate = torch.where(ok_p[0], cos_p[0], -1.0)
         else:
             conf_gate = conf
         lost = conf_gate < lost_thresh
@@ -416,12 +479,15 @@ def build_tracker_fns(cfg: Config) -> _Fns:
 
         # Global re-detection: after redetect_global_after lost frames in a
         # row, scan a grid over the whole frame against the template and, on
-        # an accepted match, reseed the cloud there (a host branch where the
-        # JAX package has lax.cond).
-        if n_after > 0 and bool(lost_count >= n_after):
+        # an accepted match, reseed the cloud there (a branch chosen on the
+        # host where the JAX package has lax.cond; its effects are gated on
+        # the trigger, so an armed step that does not trigger changes nothing).
+        if scan is None:
+            scan = n_after > 0 and bool(lost_count >= n_after)
+        if scan and n_after > 0:
             cand_wh = state.box_wh * state.prev_scale
             best_xy, best_cos, best_z = global_scan(prm, view, tmpl, side, cand_wh)
-            accept = (best_cos >= t.redetect_accept_conf) & (best_z >= t.redetect_accept_z)
+            accept = (lost_count >= n_after) & (best_cos >= t.redetect_accept_conf) & (best_z >= t.redetect_accept_z)
             if t.redetect_accept_ratio > 0:
                 # A fraction of the locked-state confidence EMA, skipped while
                 # unseeded.
@@ -430,8 +496,7 @@ def build_tracker_fns(cfg: Config) -> _Fns:
                 reseed = draw_reseed_noise(key_seed(state.key), int(state.frame_idx), n, dev)
             # A fresh cloud spread over the winning grid cell, zero velocity,
             # uniform weights.
-            cell_sigma = torch.tensor([fw / g, fh / g], dtype=torch.float32, device=dev) / 4.0
-            reseeded = torch.cat([best_xy[None, :] + cell_sigma * reseed,
+            reseeded = torch.cat([best_xy[None, :] + fc["cell_sigma"] * reseed,
                                   torch.zeros((n, 2), dtype=torch.float32, device=dev),
                                   new_pf.particles[:, 4:]], dim=1)
             uniform_w = torch.full((n,), -math.log(n), dtype=torch.float32, device=dev)
@@ -452,7 +517,7 @@ def build_tracker_fns(cfg: Config) -> _Fns:
         # EMA), clamped to the frame; the filter itself is untouched. An
         # accepted global match snaps the output to the match and resets the
         # coast.
-        frame_max = torch.tensor([fw - 1, fh - 1], dtype=torch.float32, device=dev)
+        frame_max = fc["frame_max"]
         est_vel = est[2:4]
         zero2 = torch.zeros_like(est_vel)
         a_ema = t.coast_accel_ema
@@ -504,7 +569,17 @@ def build_tracker_fns(cfg: Config) -> _Fns:
         )
         return new_state, track_out
 
-    return _Fns(init=init_fn, step=step_fn)
+    def track_clip_fn(prm, state: TrackerState, frames, noises=None, reseeds=None):
+        """K sequential steps over frames [K, H, W, 3] -> (state, TrackOutput
+        with a leading K axis); noises / reseeds: optional per-frame draws."""
+        outs = []
+        for i in range(frames.shape[0]):
+            state, out = step_fn(prm, state, frames[i], None if noises is None else noises[i],
+                                 None if reseeds is None else reseeds[i])
+            outs.append(out)
+        return state, TrackOutput(*(torch.stack(x) for x in zip(*outs)))
+
+    return _Fns(init=init_fn, step=step_fn, track_clip=track_clip_fn)
 
 
 # ---------------------------------------------------------------------------
@@ -608,12 +683,35 @@ def load_tracker_state(path: str, device="cpu") -> TrackerState:
 
 
 class Tracker:
-    """User-facing API: Tracker(cfg).init(frame, bbox); .step(frame); .run(source).
+    """User-facing API: Tracker(cfg).init(frame, bbox); .step(frame); .run(source);
+    the device-side steps .step_device, .step_packed and .track_clip_device.
 
     device: "cuda" (default) or "cpu". Asking for CUDA without a card raises.
+
+    On the card each step is one replay of a CUDA graph, captured once per
+    frame shape and dtype (at init, or at the first step of a new shape): the
+    port's counterpart of the JAX package's one jitted step. The graph reads
+    the state from static buffers and writes the new state back into them.
+    With runtime.donate_state true, ``state`` is those buffers (updated in
+    place, as JAX donates them); with false it is a copy taken after each
+    step, which later steps leave alone. ``graphs=False`` runs the same step
+    eagerly (the A/B of chip_smoke.py); a capture that fails raises. On the
+    CPU the step runs eagerly.
+
+    The step's noise is drawn on the host's call, keyed on (seed, frame
+    index), both kept on the host, so no step reads them back. Its two
+    lost-only branches are chosen on the host from the previous step's
+    `lost` flag and lost count: the probe graph while lost, and the "armed"
+    graph, which holds the global re-detection scan, once a trigger is
+    possible (lost_count >= redetect_global_after - 1). The JAX package
+    chooses both on the device (``lax.cond``), so it never waits; here a
+    config with either gate reads those two numbers back after every step:
+    one wait a step in step_device, step_packed and track_clip_device (a
+    config without gates waits for nothing there). ``step`` waits once a
+    step in any config, for its record.
     """
 
-    def __init__(self, cfg: Config, vit_params=None, device="cuda"):
+    def __init__(self, cfg: Config, vit_params=None, device="cuda", graphs: bool = True):
         from vitparticlefiltertracker_tpu_torch.models.params import resolve_vit_params
 
         cfg.resolve()
@@ -623,7 +721,7 @@ class Tracker:
         if r.mesh_particles * r.mesh_model > 1:
             raise NotImplementedError(
                 f"runtime.mesh_particles {r.mesh_particles} x mesh_model {r.mesh_model} (multi-GPU) "
-                "is not ported yet; see ROADMAP.md, open items §1 item 10"
+                "is not ported yet; see ROADMAP.md (open items §1, Multi-GPU)"
             )
         self.cfg = cfg
         self.device = resolve_device(device)
@@ -633,43 +731,196 @@ class Tracker:
         self.spec = spec
         self._fns = build_tracker_fns(cfg)
         self.vit_params = resolve_vit_params(cfg, vit_params, self.device)
-        self.state: TrackerState | None = None
+        self.graphs = graphs and self.device.type == "cuda"
+        self._donate = bool(r.donate_state)
+        self._probe_gated, self._n_after = step_branches(cfg)
+        self._n = cfg.filter.num_particles
+        self._state: TrackerState | None = None
+        self._static: TrackerState | None = None  # the graphs' state buffers
+        self._step_graphs: dict = {}  # (frame shape, dtype) -> StepGraphs
+        self._pool = None
+        self._pinned: dict = {}  # (shape, dtype) -> pinned host frame buffer (CUDA)
+        self._row_buf: torch.Tensor | None = None  # pinned host copy of a step's row (CUDA)
+        # Host copies of what the next step needs: the noise key and frame
+        # index, and the previous step's lost flag and lost count.
+        self._seed = 0
+        self._frame_idx = 0
+        self._lost = False
+        self._lost_count = 0
 
+    # -- state ---------------------------------------------------------------
+    @property
+    def state(self) -> TrackerState | None:
+        return self._state
+
+    @state.setter
+    def state(self, value: TrackerState) -> None:
+        """Install a state (read back once for the host's copies)."""
+        self._adopt(value, key_seed(value.key), int(value.frame_idx), bool(value.lost), int(value.lost_count))
+
+    def _adopt(self, state: TrackerState, seed: int, frame_idx: int, lost: bool, lost_count: int) -> None:
+        """Take `state` (on any device) and the host's copies of its noise
+        key, frame index, lost flag and lost count."""
+        state = TrackerState(*(x.to(self.device) if isinstance(x, torch.Tensor)
+                               else PFState(*(y.to(self.device) for y in x)) for x in state))
+        self._seed, self._frame_idx, self._lost, self._lost_count = seed, frame_idx, lost, lost_count
+        if not self.graphs:
+            self._state = state
+            return
+        if self._static is None:
+            self._static = clone_state(state)
+        else:
+            copy_state_(self._static, state)
+        self._state = self._static if self._donate else clone_state(self._static)
+
+    # -- lifecycle -----------------------------------------------------------
     def _frame(self, frame) -> torch.Tensor:
         if isinstance(frame, torch.Tensor):
             return frame.to(self.device)
         return torch.from_numpy(np.ascontiguousarray(frame)).to(self.device)
 
     def init(self, frame, bbox) -> None:
+        """Template and cloud from the first frame; on the card, also every
+        graph this config can need at this frame shape (captured now, so no
+        capture lands inside a run)."""
+        seed = int(self.cfg.filter.seed)
         bbox_t = torch.as_tensor(np.asarray(bbox, np.float32), device=self.device)
-        self.state = self._fns.init(
-            self.vit_params, self._frame(frame), bbox_t, int(self.cfg.filter.seed)
-        )
+        frame_t = self._frame(frame)
+        self._adopt(self._fns.init(self.vit_params, frame_t, bbox_t, seed), seed, 0, False, 0)
+        if self.graphs:
+            self._graphs_for(frame_t)
+
+    def save(self, path: str) -> None:
+        if self._state is None:
+            raise RuntimeError("nothing to save before init()")
+        save_tracker_state(path, self._state)
+
+    def resume(self, path: str) -> None:
+        """Restore a saved state; later steps continue its trajectory. The seed,
+        frame index and flags are read from the file on the host."""
+        self.state = load_tracker_state(path, "cpu")
+
+    # -- the step --------------------------------------------------------------
+    def _branch(self) -> tuple[bool, bool]:
+        """(probe, scan) for the next step, from the host's copies."""
+        return (self._probe_gated and self._lost,
+                self._n_after > 0 and self._lost_count >= self._n_after - 1)
+
+    def _body(self, state, frame, noise, reseed, probe: bool, scan: bool):
+        """One step, capturable -> (new state, [12] f32 row: the packed
+        TrackOutput, then the new lost flag and lost count)."""
+        new, out = self._fns.step(self.vit_params, state, frame, noise=noise, reseed=reseed if scan else None,
+                                  probe=probe, scan=scan)
+        row = torch.cat([pack_track_output(out), new.lost.reshape(1).to(torch.float32),
+                         new.lost_count.reshape(1).to(torch.float32)])
+        return new, row
+
+    def _graphs_for(self, frame: torch.Tensor):
+        """The StepGraphs of this frame's shape and dtype, captured on first sight."""
+        key = (tuple(frame.shape), frame.dtype)
+        if key not in self._step_graphs:
+            if self._pool is None:
+                self._pool = torch.cuda.graph_pool_handle()
+            probes = (False, True) if self._probe_gated else (False,)
+            scans = (False, True) if self._n_after > 0 else (False,)
+            self._step_graphs[key] = StepGraphs(self._body, self._static, frame.shape, frame.dtype, self._n,
+                                                [(p, s) for p in probes for s in scans], self._pool)
+        return self._step_graphs[key]
+
+    def _advance(self, frame: torch.Tensor) -> torch.Tensor:
+        """One step on `frame` (a tensor on the device, or in pinned host
+        memory) -> its [12] row on the device, enqueued, not waited for. On the
+        card with graphs the row is the graph's buffer, valid until the next step."""
+        if self._state is None:
+            raise RuntimeError("call init() or resume() first")
+        dev = self.device
+        probe, scan = self._branch()
+        noise = draw_step_noise(self._seed, self._frame_idx, self._n, dev)
+        reseed = draw_reseed_noise(self._seed, self._frame_idx, self._n, dev) if scan else None
+        if self.graphs:
+            sg = self._graphs_for(frame)
+            sg.frame.copy_(frame, non_blocking=True)
+            for dst, src in zip(sg.noise, noise):
+                dst.copy_(src)
+            if scan:
+                sg.reseed.copy_(reseed)
+            row = sg.replay((probe, scan))
+            if not self._donate:
+                self._state = clone_state(self._static)
+        else:
+            self._state, row = self._body(self._state, frame.to(dev, non_blocking=True), noise, reseed, probe, scan)
+        self._frame_idx += 1
+        return row
+
+    def _read(self, row: torch.Tensor) -> np.ndarray:
+        """The row on the host (on the card: one copy into pinned memory and
+        one wait, a stream synchronize, which torch's sync debug mode counts),
+        and the host's copies of the lost flag and count from it."""
+        if self.device.type == "cuda":
+            if self._row_buf is None:
+                self._row_buf = torch.empty(row.shape, dtype=torch.float32).pin_memory()
+            self._row_buf.copy_(row, non_blocking=True)
+            torch.cuda.current_stream(self.device).synchronize()
+            v = self._row_buf.numpy().copy()
+        else:
+            v = row.numpy().copy()
+        self._lost, self._lost_count = bool(v[10]), int(v[11])
+        return v
+
+    def _sync_flags(self, row: torch.Tensor) -> None:
+        """Read the lost flag and count back where the next step's branch needs them."""
+        if self._probe_gated or self._n_after > 0:
+            self._read(row)
+
+    def _stage(self, frame) -> torch.Tensor:
+        """A host frame on its way to the device: on the card, copied into a
+        pinned buffer (its copy to the device then needs no wait)."""
+        if isinstance(frame, torch.Tensor):
+            return frame
+        frame = torch.from_numpy(np.ascontiguousarray(frame))
+        if self.device.type != "cuda":
+            return frame
+        key = (tuple(frame.shape), frame.dtype)
+        buf = self._pinned.get(key)
+        if buf is None:
+            buf = self._pinned[key] = torch.empty(frame.shape, dtype=frame.dtype).pin_memory()
+        buf.copy_(frame)
+        return buf
 
     def step(self, frame) -> dict[str, Any]:
-        """Track one frame; returns a host-side record (one device-to-host copy)."""
-        if self.state is None:
-            raise RuntimeError("call init() or resume() first")
+        """Track one frame; returns a host-side record (one wait for the card)."""
         t0 = time.perf_counter()
-        self.state, out = self._fns.step(self.vit_params, self.state, self._frame(frame))
-        rec = self._to_record(out)
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        rec = self._to_record(self._read(self._advance(self._stage(frame))))
         rec["step_ms"] = (time.perf_counter() - t0) * 1e3
         return rec
 
-    def save(self, path: str) -> None:
-        if self.state is None:
-            raise RuntimeError("nothing to save before init()")
-        save_tracker_state(path, self.state)
+    def step_device(self, frame_dev: torch.Tensor) -> TrackOutput:
+        """Track one frame already on the device -> TrackOutput on the device
+        (a copy of the step's output). No wait on a config without gates."""
+        return unpack_track_output(self.step_packed(frame_dev))
 
-    def resume(self, path: str) -> None:
-        """Restore a saved state; later steps continue its trajectory."""
-        self.state = load_tracker_state(path, self.device)
+    def step_packed(self, frame_dev: torch.Tensor) -> torch.Tensor:
+        """step_device with the output packed on the device into one [10] f32
+        row (pack_track_output's layout), packed inside the same graph."""
+        row = self._advance(frame_dev)
+        packed = row[:10].clone()
+        self._sync_flags(row)
+        return packed
+
+    def track_clip_device(self, frames_dev: torch.Tensor) -> TrackOutput:
+        """Track a staged clip [K, H, W, 3] on the device -> TrackOutput with a
+        leading K axis, the same as K sequential steps: K replays, each row
+        copied into a [K, 10] buffer on the device."""
+        rows = torch.empty((frames_dev.shape[0], 10), dtype=torch.float32, device=self.device)
+        for i in range(frames_dev.shape[0]):
+            row = self._advance(frames_dev[i])
+            rows[i].copy_(row[:10])
+            self._sync_flags(row)
+        return unpack_track_output(rows)
 
     @staticmethod
-    def _to_record(out: TrackOutput) -> dict[str, Any]:
-        v = pack_track_output(out).cpu().numpy().astype(np.float64)
+    def _to_record(v: np.ndarray) -> dict[str, Any]:
+        v = v.astype(np.float64)
         return {
             "position": [float(v[0]), float(v[1])],
             "box": [float(v[2]), float(v[3])],
