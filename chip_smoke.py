@@ -15,9 +15,11 @@ Phases, each timed and printed:
                 tensor-core kernels hold HMMA instructions, and prints both
                 kernels' launch plans at the main paths' shapes.
   3. kernel   — K1 and K2 against their plain PyTorch versions on the card,
-                at the dense and crop paths' shapes and beyond; K1 both on
-                views of a fused qkv activation (as the ViT passes them) and
-                on contiguous tensors.
+                at the dense, crop, banked (B 8) and multi-stream (B 4)
+                paths' shapes and beyond; K1 both on views of a fused qkv
+                activation (as the ViT passes them) and on contiguous
+                tensors; K2 also over 1, 2 and 8 windows of 1024 boxes and
+                2 windows of 1 box in one launch.
   4. tracker  — tiny dense and crop configs on the card against the same
                 runs on the CPU (and two with global re-detection: dense with
                 the residual head and its automatic blend, crop through K2),
@@ -42,14 +44,28 @@ Phases, each timed and printed:
                 both step medians and their ratio, the host's waits (at most
                 1 a Tracker.step; none inside track_clip_device on dense and
                 crop); dense also runs its 59 steps in one track_clip_device
-                call, whose records equal Tracker.run's.
+                call, whose records equal Tracker.run's. Banked trackers
+                (runtime/banked.py): tiny banked dense (3 banks, lost gate and
+                re-detection), banked crop through K2 over 2 windows and
+                3-stream configs on the card against the CPU; the fourth main
+                path, "banked": configs/eval4-tpu-multiobject-720p.yaml's
+                values (8 banks x 1024 particles) on 48 frames of 720x1280
+                synthetic:multi-8, each bank on its own target, through
+                MultiTracker in turns eagerly and through the graphs (records
+                equal, K1 launches by shape, no lost record, the pooled RMSE,
+                step medians, host waits); reinit_bank(1, ...) leaves bank 0's
+                records bitwise as they were; the fifth, "multistream":
+                MultiStreamTracker over 4 clips of 480x640 moving-square with
+                config.yaml's values (K1 launches, each stream's RMSE, the
+                aggregate frames/s beside the dense path's).
   5. times    — K1, its plain version and torch's scaled_dot_product_attention
                 (a yardstick the port never calls) on fused-qkv views at the
-                dense, crop (B 1024 and B 1) and re-detection shapes; K2, its
+                dense, crop (B 1024 and B 1), re-detection, banked (B 8) and
+                multi-stream (B 4) shapes; K2, its
                 plain version and cuBLAS's product alone on sampled tokens
                 (a yardstick the port never calls) at the crop path's N 1024
-                and N 1 (tools/port_k2_times.py). Device times are of one
-                call inside a CUDA graph.
+                and N 1 (tools/port_k2_times.py), and over 8 windows of 1024
+                boxes. Device times are of one call inside a CUDA graph.
 
 Prints a JSON line of kernel numbers, then as its last line
 {"ok": true, "device": {...}}. Any failed check raises and exits non-zero.
@@ -85,6 +101,7 @@ from vitparticlefiltertracker_tpu_torch.models.vit import VitSpec
 from vitparticlefiltertracker_tpu_torch.ops import _build, attention
 from vitparticlefiltertracker_tpu_torch.ops import patchify_window as pw
 from vitparticlefiltertracker_tpu_torch.ops.patchify import crop_sample_coords
+from vitparticlefiltertracker_tpu_torch.runtime import banked
 from vitparticlefiltertracker_tpu_torch.runtime.tracker import Tracker, build_tracker_fns
 
 ROOT = Path(__file__).resolve().parent
@@ -186,7 +203,41 @@ ROBUST_RMSE_RANGE = (0.612, 0.704)
 ROBUST_LOST_RANGE = (7, 7)
 ROBUST_RMSE_BOUND_PX = ROBUST_RMSE_RANGE[1] + 2.0
 
+# The banked main path: configs/eval4-tpu-multiobject-720p.yaml's values (a
+# CPU test holds this dict equal to load_config of that file plus the
+# overrides): 8 banks x 1024 particles, ViT-B/16 bf16, dense, roi_grid 5;
+# the dense path's checkpoint (docs/QUALITY.md's eval4 "trained" weights) and
+# 48 frames of 720x1280 synthetic:multi-8, bank k on target k
+# (tools/eval_quality.py's eval4 geometry; nothing cut).
+BANKED_CONFIG = {
+    "model": {"variant": "vit-b16", "image_size": 224, "dtype": "bfloat16", "use_flash_attention": True,
+              "checkpoint": CHECKPOINT},
+    "filter": {"num_particles": 1024, "motion": {"sigma_pos": 4.0, "sigma_vel": 1.2}, "likelihood_temp": 20.0,
+               "seed": 0},
+    "tracker": {"mode": "dense", "search_scale": 4.0, "roi_grid": 5},
+    "io": {"source": "synthetic:multi-8", "num_frames": 48, "frame_size": [720, 1280]},
+    "runtime": {"banks": 8, "mesh_banks": 1, "mesh_particles": 1},
+}
+# tools/port_rmse_reference.py --banked --config
+# configs/eval4-tpu-multiobject-720p.yaml --frames 48 --set
+# io.source=synthetic:multi-8 (the JAX MultiTracker on the CPU, same clip and
+# checkpoint): pooled RMSE 4.210-4.302 px over filter seeds 0-3, no lost
+# record. Same 2 px of room as the other paths.
+JAX_BANKED_RMSE_PX_MAX = 4.302
+BANKED_RMSE_BOUND_PX = JAX_BANKED_RMSE_PX_MAX + 2.0
+# The multi-stream main path: config.yaml's values (runtime.streams 4, its
+# default) through MultiStreamTracker, 4 clips of 480x640 moving-square seeded
+# 0-3 and filter seeds 0-3, as the serve command opens them, 60 frames.
+# tools/port_rmse_reference.py --streams 4 (the JAX MultiStreamTracker on the
+# CPU): each stream's worst RMSE over filter seeds 0-3 (stream i with seed
+# base + i), no lost record. Each stream gets 2 px of room over its worst.
+JAX_STREAM_RMSE_PX_MAX = (4.278, 3.176, 2.249, 5.205)
+STREAMS = 4
+
 CHECK_SHAPES = [(1, 12, t, 64) for t in (128, 130, 196, 197, 389, 3600)] + [(49, 12, 196, 64)]
+# The banked path's forward (8 windows) and the multi-stream path's (4).
+BANKED_SHAPE, STREAMS_SHAPE = (8, 12, 196, 64), (STREAMS, 12, 196, 64)
+CHECK_SHAPES += [BANKED_SHAPE, STREAMS_SHAPE]
 # Crop mode: one crop (T = 4 tokens; the template forward), and the main
 # path's 1024 crops.
 CROP_CHECK_SHAPES = [(1, 12, 4, 64), (1024, 12, 4, 64)]
@@ -197,7 +248,7 @@ WIDE_CHECK_SHAPES = [(6000, 12, 4, 64)]
 LAYOUTS = ("fused", "contiguous")
 TOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}  # as tests/test_attention.py
 DENSE_SHAPE, CROP_SHAPE, CROP_ONE_SHAPE, REDETECT_SHAPE = (1, 12, 196, 64), (1024, 12, 4, 64), (1, 12, 4, 64), (49, 12, 196, 64)
-TIME_SHAPES = [DENSE_SHAPE, CROP_SHAPE, CROP_ONE_SHAPE, REDETECT_SHAPE]
+TIME_SHAPES = [DENSE_SHAPE, CROP_SHAPE, CROP_ONE_SHAPE, REDETECT_SHAPE, BANKED_SHAPE, STREAMS_SHAPE]
 
 # K2 checks: every combination, each once with a randn window and raw
 # weights and once with a 0..255 window and normalization-folded weights.
@@ -218,6 +269,8 @@ K2_TOL = {torch.float32: dict(atol=1e-4, rtol=1e-4),  # as tests/test_patchify_p
 # The crop path's two K2 calls, and the inputs of every K2 check and timing:
 # one definition, in tools/port_k2_times.py.
 K2_MAIN, K2_ONE, k2_inputs = _k2_times.K2_MAIN, _k2_times.K2_ONE, _k2_times.k2_inputs
+# K2 over K windows (crop-mode banks), each with its own boxes: (windows, N).
+K2_WINDOW_CASES = ((1, 1024), (2, 1024), (8, 1024), (2, 1))
 
 # H100 SXM published peaks (dense): bf16 tensor cores, f32 without them, HBM.
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
@@ -310,6 +363,38 @@ def check_window_patchify() -> dict:
     return errs
 
 
+def k2_window_inputs(windows: int, n: int, dtype, seed: int):
+    """K2's inputs for `windows` windows of 256 px, each with its own n
+    boxes (k2_inputs, raw windows with folded weights, seeded per window),
+    stacked: [K, 256, 256, 3], [K, N, 2], [K, N, 2], and the first window's
+    weights (D 768, crop 32, patch 16)."""
+    parts = [k2_inputs(n, 256, 16, 768, dtype, True, seed=seed + i) for i in range(windows)]
+    window, centers, sizes = (torch.stack([x[j] for x in parts]).contiguous() for j in range(3))
+    return window, centers, sizes, parts[0][3], parts[0][4]
+
+
+def check_window_patchify_windows() -> dict:
+    """K2 over K windows in one launch against its plain version (the
+    crop-mode banks' call), f32 and bf16, at K_WINDOW_CASES."""
+    errs = {}
+    for (windows, n), dtype in itertools.product(K2_WINDOW_CASES, (torch.float32, torch.bfloat16)):
+        window, centers, sizes, kernel, bias = k2_window_inputs(windows, n, dtype, seed=windows + n)
+        plan = pw.launch_plan(window, centers, sizes, 32, 16, kernel, bias)
+        out = pw.gather_patchify_window(window, centers, sizes, 32, 16, kernel, bias)
+        torch.cuda.synchronize()
+        ref = pw.window_gather_patchify_plain(window, centers, sizes, 32, 16, kernel, bias)
+        key = (windows, n, dtype)
+        check(out.shape == ref.shape == (windows, n, 4, 768) and out.dtype == dtype, f"K2 windows output at {key}")
+        check(bool(torch.isfinite(out.float()).all()), f"K2 windows output finite at {key}")
+        err = float((out.float() - ref.float()).abs().max())
+        check(torch.allclose(out.float(), ref.float(), **K2_TOL[dtype]),
+              f"K2 over {windows} windows x {n} boxes agrees with its plain version ({dtype}, max err {err})")
+        errs[key] = err
+        print(f"  K2 over {windows} windows x {n} boxes {str(dtype):15s} {plan.path} tile, grid {plan.grid}: "
+              f"max_abs_err {err:.3e} ok", flush=True)
+    return errs
+
+
 def ptxas_functions(report: str) -> dict[str, dict]:
     """nvcc -Xptxas -v's report -> {mangled function: {"registers",
     "spill_stores", "spill_loads"}}."""
@@ -395,6 +480,16 @@ TINY_HEAD_REDETECT["tracker"] = {"redetect_global_after": REDETECT_AFTER, "redet
 TINY_CROP_REDETECT = copy.deepcopy(TINY_TELEPORT)
 TINY_CROP_REDETECT["tracker"] = {**CROP_OVERRIDES, "redetect_global_after": REDETECT_AFTER,
                                  "redetect_global_grid": 5, "redetect_accept_conf": 0.3}
+# Banked at the tiny size: 3 banks on the teleport clip's one target (seeds
+# 0-2) with the lost gate and re-detection (tests/test_torch_banked.py runs
+# the same against the JAX package); 2 banks in crop mode through K2 (2
+# windows a launch) on synthetic:multi-2; the multi-stream check runs 3
+# moving-square clips (seeds 0-2) with TINY_NO_RESAMPLE.
+TINY_BANKED_REDETECT = copy.deepcopy(TINY_TELEPORT)
+TINY_BANKED_REDETECT["tracker"] = {"redetect_global_after": REDETECT_AFTER, "redetect_global_grid": 5,
+                                   "redetect_accept_conf": 0.3}
+TINY_BANKED_CROP = copy.deepcopy(TINY_CROP_NO_RESAMPLE)
+TINY_BANKED_CROP["io"]["source"] = "synthetic:multi-2"
 
 
 def scan_accepted(state, n_after: int) -> tuple[bool, bool]:
@@ -442,6 +537,62 @@ def check_tracker_small(cfg_dict: dict = TINY_NO_RESAMPLE, label: str = "tiny tr
         check(scans >= 1 and accepts >= 1, f"{label}: {scans} scans, {accepts} accepted (at least one each)")
     print(f"  {label}: cuda == cpu within 0.5 px over {len(out['cpu'])} steps"
           + (f", {scans} scans and {accepts} accepted matches on both" if n_after > 0 else ""), flush=True)
+
+
+def bank_scans(state, n_after: int) -> tuple[np.ndarray, np.ndarray]:
+    """scan_accepted a bank: ([K] scanned, [K] accepted) of the step that
+    left a banked state."""
+    accepted = (state.pf.particles[..., 2:4] == 0).all(-1).all(-1).cpu().numpy()
+    return accepted | (state.lost_count.cpu().numpy() >= n_after), accepted
+
+
+def check_banked_small(cfg_dict: dict, kind: str, k: int, label: str) -> None:
+    """A banked tracker's step (build_banked_fns / build_multistream_fns)
+    on the card against the same on the CPU, K filters with seeds 0..K-1,
+    the CPU's draws injected into both: every bank within 0.5 px, conf
+    within 1e-3, flags equal. With re-detection, the same scans and
+    accepted matches a bank on both, at least one of each."""
+    d = copy.deepcopy(cfg_dict)
+    d["runtime"] = {"banks": k}
+    cfg = Config.from_dict(d)
+    size = tuple(cfg.io.frame_size)
+    if kind == "banked":
+        src = open_source(cfg.io.source, cfg.io.num_frames, size)
+        frames, boxes = np.stack(src.frames), banked.banked_bboxes(src.init_bbox, k)
+        fns = banked.build_banked_fns(cfg)
+    else:
+        srcs = [open_source(cfg.io.source, cfg.io.num_frames, size, seed=i) for i in range(k)]
+        frames = np.stack([np.stack(x.frames) for x in srcs], axis=1)  # [T, K, H, W, 3]
+        boxes = np.stack([x.init_bbox for x in srcs])
+        fns = banked.build_multistream_fns(cfg, k)
+    cpu = Tracker(cfg, device="cpu")
+    prm = {"cpu": cpu.vit_params, "cuda": Tracker(cfg, vit_params=cpu.vit_params, device="cuda").vit_params}
+    n, n_after, seeds = cfg.filter.num_particles, cfg.tracker.redetect_global_after, list(range(k))
+    bbox = torch.from_numpy(boxes)
+    cloud = pf.init_state(seeds, bbox[:, :2] + bbox[:, 2:] / 2, n, pf.PFParams()).particles
+    out = {}
+    for dev in ("cpu", "cuda"):
+        state = fns.init(prm[dev], torch.from_numpy(frames[0]).to(dev), bbox.to(dev), seeds, cloud=cloud.to(dev))
+        rows = []
+        for i in range(1, len(frames)):
+            noise = pf.StepNoise(*(x.to(dev) for x in pf.draw_step_noise(seeds, i - 1, n, torch.device("cpu"))))
+            reseed = pf.draw_reseed_noise(seeds, i - 1, n, torch.device("cpu")).to(dev)
+            state, o = fns.step(prm[dev], state, torch.from_numpy(frames[i]).to(dev), noise=noise, reseed=reseed)
+            scans = bank_scans(state, n_after) if n_after > 0 else None
+            rows.append((o.position.cpu().numpy(), o.conf.cpu().numpy(), o.resampled.cpu().numpy(),
+                         o.lost.cpu().numpy(), scans))
+        out[dev] = rows
+    for i, (a, b) in enumerate(zip(out["cpu"], out["cuda"])):
+        same_scans = a[4] is None or all(np.array_equal(x, y) for x, y in zip(a[4], b[4]))
+        check(np.abs(a[0] - b[0]).max() < 0.5 and np.abs(a[1] - b[1]).max() < 1e-3 and np.array_equal(a[2], b[2])
+              and np.array_equal(a[3], b[3]) and same_scans, f"{label} step {i}: cpu {a} vs cuda {b}")
+    line = f"  {label}: cuda == cpu within 0.5 px, {k} banks over {len(out['cpu'])} steps"
+    if n_after > 0:
+        scans, accepts = (sum(int(r[4][j].sum()) for r in out["cuda"]) for j in (0, 1))
+        check(scans >= 1 and accepts >= 1, f"{label}: {scans} scans, {accepts} accepted (at least one each)")
+        lost = sum(int(r[3].sum()) for r in out["cuda"])
+        line += f", {lost} lost records, {scans} scans and {accepts} accepted matches (all banks) on both"
+    print(line, flush=True)
 
 
 def reset_counts() -> None:
@@ -761,6 +912,146 @@ def run_robust_path() -> dict:
             "armed": armed, "probes": probes, "trunk_regen_s": regen_s, **summary, **waits}
 
 
+def merge_banks(recs: list[dict]) -> dict:
+    """A MultiTracker.step's K records as one record: each field's K values
+    in bank order, the step's time once (so check_turns compares every
+    bank)."""
+    merged = {k: [r[k] for r in recs] for k in ("conf", "ess", "resampled", "lost")}
+    for k in ("position", "box"):
+        merged[k] = [x for r in recs for x in r[k]]
+    merged["step_ms"] = recs[0]["step_ms"]
+    return merged
+
+
+def run_banked_path() -> dict:
+    """The banked main path (BANKED_CONFIG) through MultiTracker.step on the
+    card, in turns eagerly and through the captured graphs (eager, graph,
+    graph, eager): records equal, K1 launches by shape counted per replay
+    (12 a step and 12 at init, all at B 8), no lost record, the pooled RMSE
+    over every bank and record, step medians, host waits."""
+    cfg_dict = copy.deepcopy(BANKED_CONFIG)
+    cfg_dict["model"]["checkpoint"] = str(ROOT / CHECKPOINT)
+    cfg = Config.from_dict(cfg_dict)
+    k, frames = cfg.runtime.banks, cfg.io.num_frames
+    src = open_source(cfg.io.source, frames, tuple(cfg.io.frame_size), seed=cfg.filter.seed)
+    check(src.init_bbox.shape == (k, 4), f"{cfg.io.source} gives a box for each of the {k} banks")
+    prm = vit_params.resolve_vit_params(cfg, None, "cuda")
+    runs = []
+    for graphs in (False, True, True, False):
+        tracker = banked.MultiTracker(cfg, vit_params=prm, device="cuda", graphs=graphs)
+        reset_counts()
+        tracker.init(src.frames[0], src.init_bbox)
+        steps = [tracker.step(f) for f in src.frames[1:]]
+        runs.append({"graphs": graphs, "recs": [merge_banks(r) for r in steps], "steps": steps, "tracker": tracker,
+                     **read_counts()})
+    depth, heads, t = cfg.model.depth, cfg.model.heads, runs[0]["tracker"].spec.seq_len
+    k1_expected = {(k, heads, t): depth * frames}  # init + one forward a step, all K windows at once
+    for run in runs:
+        kind = "graph" if run["graphs"] else "eager"
+        print(f"  banked path, {kind} run: K1 launches by (B, H, T) {run['k1_shapes']} (expected {k1_expected}); "
+              f"K2 {run['k2_launches']} (expected 0)", flush=True)
+        check(run["k1_shapes"] == k1_expected, f"K1 launches by shape {run['k1_shapes']} == {k1_expected}")
+        check(run["k2_launches"] == 0, "no K2 launch on the dense banked path")
+        check(len(run["steps"]) == frames - 1 and all(len(r) == k for r in run["steps"]),
+              f"{k} records a step for {frames - 1} steps")
+        check(not any(r["lost"] for step in run["steps"] for r in step), "no record is lost")
+        pos = np.array([[r["position"] for r in step] for step in run["steps"]])  # [T-1, K, 2]
+        check(bool(np.all(np.isfinite(pos))), "positions are finite")
+        err = np.linalg.norm(pos - src.truth[1:], axis=-1)
+        run["rmse"] = float(np.sqrt(np.mean(err**2)))
+        run["rmse_by_bank"] = np.sqrt(np.mean(err**2, axis=0)).tolist()
+        check(run["rmse"] <= BANKED_RMSE_BOUND_PX, f"pooled RMSE {run['rmse']} px within {BANKED_RMSE_BOUND_PX} px")
+    g = runs[1]
+    print(f"  pooled RMSE over {k} banks x {frames - 1} records {g['rmse']:.3f} px on the graph runs, "
+          f"{runs[0]['rmse']:.3f} px on the eager ones (bound {BANKED_RMSE_BOUND_PX:.2f} px; JAX package "
+          f"4.210-{JAX_BANKED_RMSE_PX_MAX}); by bank {[round(x, 3) for x in g['rmse_by_bank']]}", flush=True)
+    summary = check_turns(runs, "banked path")
+    waits = check_waits(runs[2]["tracker"], list(src)[1:], 0, "banked path")
+    return {"launches": g["launches"], "k1_shapes": g["k1_shapes"], "rmse_px": g["rmse"],
+            "rmse_px_by_bank": g["rmse_by_bank"], **summary, **waits, "cfg": cfg, "prm": prm, "src": src}
+
+
+def check_reinit_bank(path: dict, steps: int = 12, at: int = 6) -> dict:
+    """reinit_bank(1, ...) at step `at` on the card (bank 1 re-targeted onto
+    target 2's box at the frame before) leaves bank 0's records bitwise as
+    in a run without it, over the banked path's first `steps` steps; bank
+    1's records after it change."""
+    cfg, src = path["cfg"], path["src"]
+    runs = []
+    for reinit in (False, True):
+        mt = banked.MultiTracker(cfg, vit_params=path["prm"], device="cuda")
+        mt.init(src.frames[0], src.init_bbox)
+        recs = []
+        for i, f in enumerate(src.frames[1:steps + 1], start=1):
+            if reinit and i == at:
+                c, (w, h) = src.truth[i - 1, 2], src.init_bbox[2, 2:]
+                mt.reinit_bank(1, src.frames[i - 1], [c[0] - w / 2, c[1] - h / 2, w, h])
+            recs.append(mt.step(f))
+        runs.append(recs)
+    strip = [[{k: v for k, v in step[b].items() if k != "step_ms"} for step in recs] for recs in runs for b in (0, 1)]
+    check(strip[0] == strip[2], "reinit_bank(1) leaves bank 0's records bitwise equal")
+    check(strip[1][:at - 1] == strip[3][:at - 1] and strip[1][at:] != strip[3][at:],
+          "bank 1's records equal before the reinit and differ after it")
+    d2 = float(np.linalg.norm(np.subtract(runs[1][-1][1]["position"], src.truth[steps, 2])))
+    print(f"  reinit_bank(1) at step {at}: bank 0's {steps} records bitwise equal to the run without it; bank 1 "
+          f"{d2:.2f} px from target 2 after {steps - at + 1} more steps", flush=True)
+    return {"reinit_bank1_px_from_target2": d2}
+
+
+def run_multistream_path(dense: dict) -> dict:
+    """The multi-stream main path: MultiStreamTracker over STREAMS clips on
+    the card, step_packed a frame batch and its row read back (the serve
+    command's step), eagerly and through the graphs: rows equal, K1 launches
+    by shape, each stream's RMSE, and the graph step's aggregate frames/s
+    beside the dense path's single-object graph step in this call."""
+    cfg = dense["cfg"]
+    size = tuple(cfg.io.frame_size)
+    srcs = [open_source(cfg.io.source, FRAMES, size, seed=cfg.filter.seed + i) for i in range(STREAMS)]
+    clips = np.stack([np.stack(x.frames) for x in srcs], axis=1)  # [T, K, H, W, 3]
+    truth = np.stack([x.truth[1:] for x in srcs], axis=1)  # [T-1, K, 2]
+    clips_dev = torch.from_numpy(clips).cuda()
+    torch.cuda.synchronize()
+    runs = []
+    for graphs in (False, True, True, False):
+        ms = banked.MultiStreamTracker(cfg, STREAMS, vit_params=dense["prm"], device="cuda", graphs=graphs)
+        reset_counts()
+        ms.init(clips[0], np.stack([x.init_bbox for x in srcs]))
+        rows, times = [], []
+        for t in range(1, FRAMES):
+            t0 = time.perf_counter()
+            rows.append(ms.step_packed(clips_dev[t]).cpu().numpy())
+            times.append((time.perf_counter() - t0) * 1e3)
+        runs.append({"graphs": graphs, "rows": np.stack(rows), "ms": statistics.median(times[5:]), **read_counts()})
+    heads, t, depth = cfg.model.heads, VitSpec.from_config(cfg.model).seq_len, cfg.model.depth
+    k1_expected = {(STREAMS, heads, t): depth * FRAMES}
+    for run in runs:
+        check(run["k1_shapes"] == k1_expected, f"multistream K1 launches {run['k1_shapes']} == {k1_expected}")
+        check(np.array_equal(run["rows"], runs[0]["rows"]), "multistream rows: graph == eager, bitwise")
+    out = runs[1]["rows"]
+    pos = out[:, :2 * STREAMS].reshape(-1, STREAMS, 2)
+    lost = out[:, 9 * STREAMS:10 * STREAMS]
+    check(bool(np.all(np.isfinite(pos))) and not lost.any(), "multistream positions finite, no record lost")
+    rmse = np.sqrt(np.mean(np.linalg.norm(pos - truth, axis=-1) ** 2, axis=0))
+    for i, (r, jax_max) in enumerate(zip(rmse, JAX_STREAM_RMSE_PX_MAX)):
+        check(r <= jax_max + 2.0, f"stream {i} RMSE {r} px within {jax_max + 2.0} px")
+    g_ms = statistics.median(r["ms"] for r in runs if r["graphs"])
+    e_ms = statistics.median(r["ms"] for r in runs if not r["graphs"])
+    fps = STREAMS * 1e3 / g_ms
+    dense_fps = 1e3 / dense["step_ms_median"]
+    turns = "/".join(f"{r['ms']:.3f}" for r in runs)
+    print(f"  multistream path, {STREAMS} streams x {FRAMES - 1} steps: K1 launches {runs[1]['k1_shapes']} (expected "
+          f"{k1_expected}) on every run; rows graph == eager bitwise; RMSE by stream "
+          f"{[round(float(x), 3) for x in rmse]} px (bounds {[x + 2.0 for x in JAX_STREAM_RMSE_PX_MAX]})", flush=True)
+    print(f"  multistream step ms, median after 5 warm-up, turns eager/graph/graph/eager: "
+          f"{turns}; graph {g_ms:.3f} ms a batch of {STREAMS} "
+          f"frames = {fps:.1f} frames/s aggregate, against the dense path's single-object graph step "
+          f"{dense['step_ms_median']:.3f} ms = {dense_fps:.1f} frames/s in this call ({fps / dense_fps:.2f}x); "
+          f"eager {e_ms:.3f} ms", flush=True)
+    return {"launches": runs[1]["launches"], "k1_shapes": runs[1]["k1_shapes"], "step_ms_median": g_ms,
+            "eager_step_ms_median": e_ms, "aggregate_frames_per_s": fps, "dense_frames_per_s": dense_fps,
+            "rmse_px_by_stream": rmse.tolist()}
+
+
 def time_kernels() -> dict:
     """K1, its plain version and sdpa on the fused-qkv views the main path
     passes, bf16. Each is timed on the card (CUDA graph replay, the numbers
@@ -810,11 +1101,15 @@ def window_patchify_bound_ms(window, centers, sizes, crop, patch, kernel) -> tup
     boxes' taps read (window_taps_read), the boxes, weight and bias read once
     and the tokens written once, against the embed product's
     2·N·g²·(p²·C)·D FLOP at the weight dtype's peak (the sampling's few
-    FLOP per value are left out)."""
-    n, c, (k, d) = centers.shape[0], window.shape[2], kernel.shape
+    FLOP per value are left out). K windows [K, Swin, Swin, C] with boxes
+    [K, N, 2]: each window's taps, all K·N boxes."""
+    c, (k, d) = window.shape[-1], kernel.shape
+    wins = window.reshape(-1, *window.shape[-3:])
+    cs, ss = centers.reshape(wins.shape[0], -1, 2), sizes.reshape(wins.shape[0], -1, 2)
+    n = cs.shape[0] * cs.shape[1]
     elem, g2 = kernel.element_size(), (crop // patch) ** 2
-    nbytes = (window_taps_read(window, centers, sizes, crop) * c * window.element_size()
-              + 2 * n * 2 * 4 + (k * d + d) * elem + n * g2 * d * elem)
+    taps = sum(window_taps_read(w, c_, s_, crop) for w, c_, s_ in zip(wins, cs, ss))
+    nbytes = taps * c * window.element_size() + 2 * n * 2 * 4 + (k * d + d) * elem + n * g2 * d * elem
     byte_ms = nbytes / PEAK_BYTES_PER_S * 1e3
     op_ms = 2 * n * g2 * k * d / PEAK_FLOPS[kernel.dtype] * 1e3
     return max(byte_ms, op_ms), ("bytes" if byte_ms >= op_ms else "operations")
@@ -837,6 +1132,24 @@ def time_window_patchify(m: dict = K2_MAIN) -> dict:
     return {"ms": t["kernel_device_ms"], "plain_ms": t["plain_device_ms"], "library_ms": None, "bound_ms": bound,
             "bound_by": by, "eager_ms": t["kernel_eager_ms"], "host_us": t["kernel_host_us"],
             "product_ms": t["product_device_ms"]}
+
+
+def time_window_patchify_windows(windows: int = 8, n: int = 1024) -> dict:
+    """K2 over `windows` windows of n boxes in one launch (crop-mode banks),
+    bf16: device time of one call inside a CUDA graph, the plain version's
+    the same way, interleaved (plain, K2, K2, plain), and the bound."""
+    window, centers, sizes, kernel, bias = k2_window_inputs(windows, n, torch.bfloat16, seed=windows + n)
+    fns = {"k2": lambda: pw.gather_patchify_window(window, centers, sizes, 32, 16, kernel, bias),
+           "plain": lambda: pw.window_gather_patchify_plain(window, centers, sizes, 32, 16, kernel, bias)}
+    dev = {name: [] for name in fns}
+    for name in ("plain", "k2", "k2", "plain"):
+        dev[name].append(time_graph(fns[name]))
+    bound, by = window_patchify_bound_ms(window, centers, sizes, 32, 16, kernel)
+    print(f"  K2 over {windows} windows x {n} boxes, Swin 256, crop 32, D 768 bf16, device (graph): K2 "
+          f"{'/'.join(f'{x:.4f}' for x in dev['k2'])} ms, plain {'/'.join(f'{x:.4f}' for x in dev['plain'])} ms; "
+          f"bound {bound:.5f} ms ({by})", flush=True)
+    return {"ms": min(dev["k2"]), "plain_ms": min(dev["plain"]), "library_ms": None, "bound_ms": bound,
+            "bound_by": by}
 
 
 def main() -> int:
@@ -876,6 +1189,7 @@ def main() -> int:
     t0 = time.perf_counter()
     errs = check_kernel()
     k2_errs = check_window_patchify()
+    k2_window_errs = check_window_patchify_windows()
     phase("kernel", t0)
 
     t0 = time.perf_counter()
@@ -883,16 +1197,23 @@ def main() -> int:
     check_tracker_small(TINY_CROP_NO_RESAMPLE, "tiny crop tracker (window-pallas)")
     check_tracker_small(TINY_HEAD_REDETECT, "tiny dense tracker (head, auto blend, re-detection)")
     check_tracker_small(TINY_CROP_REDETECT, "tiny crop tracker (window-pallas, re-detection)")
+    check_banked_small(TINY_BANKED_REDETECT, "banked", 3, "tiny banked dense tracker (lost gate, re-detection)")
+    check_banked_small(TINY_BANKED_CROP, "banked", 2, "tiny banked crop tracker (K2 over 2 windows)")
+    check_banked_small(TINY_NO_RESAMPLE, "streams", 3, "tiny multi-stream tracker")
     main_path = run_main_path()
     main_path.update(run_clip(main_path))
     crop_path = run_main_path(CROP_OVERRIDES, CROP_RMSE_BOUND_PX)
     robust_path = run_robust_path()
+    banked_path = run_banked_path()
+    banked_path.update(check_reinit_bank(banked_path))
+    streams_path = run_multistream_path(main_path)
     phase("tracker", t0)
 
     t0 = time.perf_counter()
     times = time_kernels()
     k2_times = time_window_patchify(K2_MAIN)
     k2_one_times = time_window_patchify(K2_ONE)
+    k2_window_times = time_window_patchify_windows()
     phase("times", t0)
 
     # One entry per kernel, main path and shape: K1 at the dense path's
@@ -907,7 +1228,9 @@ def main() -> int:
     k1_rows = [dict(**k1_common, path=path, shape=list(shape), launches=run["k1_shapes"].get(shape[:3], 0),
                     max_abs_err=errs[(shape, torch.bfloat16, "fused")], **times[shape])
                for path, shape, run in (("dense", DENSE_SHAPE, main_path), ("crop", CROP_SHAPE, crop_path),
-                                        ("crop", CROP_ONE_SHAPE, crop_path), ("robust", REDETECT_SHAPE, robust_path))]
+                                        ("crop", CROP_ONE_SHAPE, crop_path), ("robust", REDETECT_SHAPE, robust_path),
+                                        ("banked", BANKED_SHAPE, banked_path),
+                                        ("multistream", STREAMS_SHAPE, streams_path))]
     k2_rows = [dict(name="gather_patchify_window", route="cuda",
                     source="vitparticlefiltertracker_tpu_torch/csrc/window_patchify.cu",
                     replaces="vitparticlefiltertracker_tpu/ops/patchify_pallas.py:59",
@@ -923,7 +1246,14 @@ def main() -> int:
                       "crop": {k: crop_path[k] for k in path_keys},
                       "robust": {k: robust_path[k] for k in path_keys + ("lost", "armed", "scans", "accepts",
                                                                          "probes", "trunk_regen_s")},
-                      "robust_k1_shapes": {str(k): v for k, v in robust_path["k1_shapes"].items()}}))
+                      "robust_k1_shapes": {str(k): v for k, v in robust_path["k1_shapes"].items()},
+                      "banked": {k: banked_path[k] for k in path_keys + ("rmse_px_by_bank",
+                                                                         "reinit_bank1_px_from_target2")},
+                      "multistream": {k: streams_path[k] for k in ("step_ms_median", "eager_step_ms_median",
+                                                                   "aggregate_frames_per_s", "dense_frames_per_s",
+                                                                   "rmse_px_by_stream")},
+                      "k2_8_windows_x_1024": {**k2_window_times,
+                                              "max_abs_err": k2_window_errs[(8, 1024, torch.bfloat16)]}}))
     print(f"[phase] total: {time.perf_counter() - t_start:.2f} s", flush=True)
     print(f"card: {smi}")
     print(json.dumps({"kernels": k1_rows + k2_rows}))

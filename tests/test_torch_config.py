@@ -61,3 +61,19 @@ def test_chip_smoke_robust_config_is_robust_head_plus_overrides():
     assert tconfig.load_config(path, overrides).to_dict() == want
     assert tconfig.Config.from_dict(chip_smoke.ROBUST_CONFIG).to_dict() == want
     assert os.path.exists(os.path.join(ROOT, chip_smoke.HEAD_CHECKPOINT))
+
+
+def test_chip_smoke_banked_config_is_eval4_plus_overrides():
+    """chip_smoke.py's banked path: configs/eval4-tpu-multiobject-720p.yaml
+    with the dense path's checkpoint and tools/eval_quality.py's eval4 clip
+    (48 frames of synthetic:multi-8), in both packages' loaders."""
+    import chip_smoke
+
+    overrides = ["model.checkpoint=checkpoints/vit_b16_tracking.npz", "io.source=synthetic:multi-8",
+                 "io.num_frames=48"]
+    path = os.path.join(ROOT, "configs", "eval4-tpu-multiobject-720p.yaml")
+    want = jconfig.load_config(path, overrides).to_dict()
+    assert tconfig.load_config(path, overrides).to_dict() == want
+    assert tconfig.Config.from_dict(chip_smoke.BANKED_CONFIG).to_dict() == want
+    assert want["runtime"]["banks"] == 8 and want["filter"]["num_particles"] == 1024
+    assert tuple(want["io"]["frame_size"]) == (720, 1280)

@@ -319,3 +319,82 @@ def test_graph_state_donation(cuda_device, donate):
     assert (tr.state is before and not unchanged) if donate else (tr.state is not before and unchanged)
     if not donate:
         assert all(torch.equal(a, b) for a, b in zip(state_leaves(before), kept))
+
+
+@pytest.mark.parametrize("layout", ["fused", "contiguous"])
+@pytest.mark.parametrize("shape", [(8, 12, 196, 64), (4, 12, 196, 64)], ids=["banked-8", "streams-4"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernel_at_banked_shapes(cuda_device, dtype, shape, layout):
+    """K1 at the banked path's forward (8 search windows) and the
+    multi-stream path's (4)."""
+    q, k, v = _qkv_views(shape, dtype, layout, seed=shape[0] + 196, device=cuda_device)
+    out = attention.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    ref = attention.reference_attention(q, k, v)
+    torch.testing.assert_close(out.float(), ref.float(), rtol=TOL[dtype], atol=TOL[dtype])
+
+
+@pytest.mark.parametrize("windows,n", [(1, 1024), (2, 1024), (8, 1024), (2, 1), (3, 17)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_window_patchify_kernel_over_windows(cuda_device, windows, n, dtype):
+    """K2 over K windows, each with its own boxes, in one launch (crop-mode
+    banks) against the plain version; one launch counted, under (K, N)."""
+    from chip_smoke import k2_window_inputs
+
+    window, centers, sizes, kernel, bias = k2_window_inputs(windows, n, dtype, seed=windows + n)
+    before = pw.gather_patchify_window.sizes[(windows, n)]
+    out = pw.window_gather_patchify(window, centers, sizes, 32, 16, kernel, bias)
+    torch.cuda.synchronize()
+    assert pw.gather_patchify_window.sizes[(windows, n)] == before + 1
+    ref = pw.window_gather_patchify_plain(window, centers, sizes, 32, 16, kernel, bias)
+    assert out.shape == ref.shape == (windows, n, 4, 768) and out.dtype == dtype
+    torch.testing.assert_close(out.float(), ref.float(), **K2_TOL[dtype])
+
+
+@pytest.mark.parametrize("name,kind,k", [("TINY_BANKED_REDETECT", "banked", 3), ("TINY_BANKED_CROP", "banked", 2),
+                                         ("TINY_NO_RESAMPLE", "streams", 3)])
+def test_banked_tracker_on_card_matches_cpu(cuda_device, name, kind, k):
+    """Banked and multi-stream steps on the card against the CPU, the CPU's
+    draws injected (chip_smoke.check_banked_small)."""
+    import chip_smoke
+
+    chip_smoke.check_banked_small(getattr(chip_smoke, name), kind, k, name)
+
+
+@pytest.mark.parametrize("kind", ["banked", "streams"])
+def test_banked_graph_step_matches_eager_step(cuda_device, kind):
+    """MultiTracker (3 banks with the lost gate and re-detection: four
+    graphs) and MultiStreamTracker (3 streams) through their captured graphs
+    against the same steps eagerly: every packed row equal, launch counts by
+    shape equal, K1 at B 3."""
+    import chip_smoke
+    from vitparticlefiltertracker_tpu_torch.io.video import open_source
+    from vitparticlefiltertracker_tpu_torch.runtime import banked
+    from vitparticlefiltertracker_tpu_torch.runtime.tracker import Tracker
+
+    d = copy.deepcopy(chip_smoke.TINY_BANKED_REDETECT if kind == "banked" else chip_smoke.TINY_NO_RESAMPLE)
+    d["runtime"] = {"banks": 3}
+    cfg = Config.from_dict(d)
+    size = tuple(cfg.io.frame_size)
+    if kind == "banked":
+        src = open_source(cfg.io.source, cfg.io.num_frames, size)
+        first, steps, boxes = src.frames[0], np.stack(src.frames[1:]), banked.banked_bboxes(src.init_bbox, 3)
+    else:
+        srcs = [open_source(cfg.io.source, cfg.io.num_frames, size, seed=i) for i in range(3)]
+        clips = np.stack([np.stack(s.frames) for s in srcs], axis=1)
+        first, steps, boxes = clips[0], clips[1:], np.stack([s.init_bbox for s in srcs])
+    prm = Tracker(copy.deepcopy(cfg), device="cpu").vit_params
+    out = {}
+    for graphs in (False, True):
+        tr = (banked.MultiTracker(copy.deepcopy(cfg), prm, "cuda", graphs) if kind == "banked"
+              else banked.MultiStreamTracker(copy.deepcopy(cfg), 3, prm, "cuda", graphs))
+        chip_smoke.reset_counts()
+        tr.init(first, boxes)
+        rows = torch.stack([tr.step_packed(torch.from_numpy(f).cuda()) for f in steps]).cpu()
+        out[graphs] = (rows, chip_smoke.read_counts(), tr)
+    assert torch.equal(out[True][0], out[False][0])
+    assert out[True][1] == out[False][1] and out[True][1]["k1_shapes"].get((3, 2, 16), 0) > 0
+    assert out[True][2].graphs and not out[False][2].graphs
+    if kind == "banked":
+        assert len(next(iter(out[True][2]._step_graphs.values())).graphs) == 4
+        assert bool(out[True][0][:, 27:30].any())  # some bank was lost

@@ -63,6 +63,24 @@ def _tracker(name, **runtime):
     return tr, src
 
 
+def _banked_tracker(name, kind, k=2):
+    """A MultiTracker (k banks on the clip's one target) or a
+    MultiStreamTracker (k copies of the clip) over CONFIGS[name], after init
+    -> (tracker, the first step's frame)."""
+    from vitparticlefiltertracker_tpu_torch.runtime import banked
+
+    cfg = TConfig.from_dict({**copy.deepcopy(CONFIGS[name]), "runtime": {"banks": k}})
+    src = open_source(cfg.io.source, cfg.io.num_frames, tuple(cfg.io.frame_size), seed=0)
+    boxes = banked.banked_bboxes(src.init_bbox, k)
+    if kind == "banked":
+        tr = banked.MultiTracker(cfg, device="cpu")
+        tr.init(src.frames[0], boxes)
+        return tr, torch.from_numpy(src.frames[1])
+    tr = banked.MultiStreamTracker(cfg, k, device="cpu")
+    tr.init(np.stack([src.frames[0]] * k), boxes)
+    return tr, torch.from_numpy(np.stack([src.frames[1]] * k))
+
+
 def _rec_array(rec) -> np.ndarray:
     return np.array([*rec["position"], *rec["box"], *rec["velocity"], rec["conf"], rec["ess"],
                      rec["resampled"], rec["lost"]], np.float32)
@@ -186,21 +204,29 @@ def _reads_index_back(index) -> bool:
     return any(isinstance(i, torch.Tensor) and i.dim() == 0 and not i.is_floating_point() for i in items)
 
 
-@pytest.mark.parametrize("name", ["dense", "crop", "robust", "crop-redetect"])
+@pytest.mark.parametrize("name", ["dense", "crop", "robust", "crop-redetect", "banked:robust", "banked:crop",
+                                  "streams:dense", "streams:crop-redetect"])
 def test_capturable_step_reads_nothing_back(name, monkeypatch):
     """A capture-safety proxy on the CPU: with torch.tensor, torch.as_tensor
     and Tensor.tolist, .item, __bool__, __int__, __float__ and indexing by a
     0-d tensor counting, the
     Tracker's step body runs every branch its config can take (dense; crop
     through K2's plain version; the head with the automatic blend, the probe
-    and the armed dense scan; the armed crop scan) and calls none of them.
-    One warm-up step runs first, as the card's capture warms up: constants
-    built once per device or frame size are made there."""
-    tr, src = _tracker(name)
-    frame = torch.from_numpy(src.frames[1])
+    and the armed dense scan; the armed crop scan) and calls none of them;
+    so do the banked bodies of MultiTracker (2 banks on one frame) and
+    MultiStreamTracker (2 streams, a frame each). One warm-up step runs
+    first, as the card's capture warms up: constants built once per device
+    or frame size are made there."""
+    kind, _, config = name.rpartition(":")
+    if kind:
+        tr, frame = _banked_tracker(config, kind)
+    else:
+        tr, src = _tracker(config)
+        frame = torch.from_numpy(src.frames[1])
     n = tr.cfg.filter.num_particles
-    noise = tpf.draw_step_noise(0, 0, n, tr.device)
-    reseed = tpf.draw_reseed_noise(0, 0, n, tr.device)
+    seeds, idx = tr._seed.tolist(), tr._frame_idx.tolist()
+    noise = tpf.draw_step_noise(seeds, idx, n, tr.device)
+    reseed = tpf.draw_reseed_noise(seeds, idx, n, tr.device)
     probes = (False, True) if tr._probe_gated else (False,)
     scans = (False, True) if tr._n_after > 0 else (False,)
     tr._body(tr.state, frame, noise, reseed, probes[-1], scans[-1])  # warm-up
@@ -224,8 +250,8 @@ def test_capturable_step_reads_nothing_back(name, monkeypatch):
     rows = [tr._body(tr.state, frame, noise, reseed, p, s)[1] for p in probes for s in scans]
     monkeypatch.undo()
     assert calls == [], calls
-    assert all(tuple(r.shape) == (12,) and bool(torch.isfinite(r).all()) for r in rows)
-    if name in ("robust", "crop-redetect"):
+    assert all(tuple(r.shape) == (12 * tr._k,) and bool(torch.isfinite(r).all()) for r in rows)
+    if config in ("robust", "crop-redetect"):
         assert len(rows) == len(probes) * 2
 
 

@@ -191,3 +191,69 @@ def test_launch_plan_refusals():
         pw.launch_plan(*_operands(1, 64, 768, patch=64))
     with pytest.raises(ValueError, match="shared memory"):
         pw.launch_plan(*_operands(1, 64, 768, torch.float32, patch=64))
+
+
+# --- K windows in one call (K filter banks) -----------------------------------
+
+def _windows(k, n, seed=0):
+    """k windows, each with its own n boxes, stacked: [K, Swin, Swin, C],
+    [K, N, 2], [K, N, 2] (numpy), and the shared weights."""
+    parts = [_setup(seed=seed + i, n=n) for i in range(k)]
+    window, centers, sizes = (np.stack([p[j] for p in parts]) for j in range(3))
+    return window, centers, sizes, parts[0][3], parts[0][4]
+
+
+@pytest.mark.parametrize("k,n", [(1, 13), (2, 5), (3, 1)])
+def test_plain_over_windows_matches_jax_vmap(k, n):
+    """K windows with their own boxes in one call == the JAX package's vmap
+    of both its paths over the windows (what its banked step makes of the
+    Pallas call), and == K calls of one window each, bit for bit."""
+    window, centers, sizes, kernel, bias = _windows(k, n)
+    t = [torch.from_numpy(x) for x in (window, centers, sizes)]
+    got = pw.window_gather_patchify_plain(*t, CROP, PATCH, torch.from_numpy(kernel), torch.from_numpy(bias))
+    assert got.shape == (k, n, (CROP // PATCH) ** 2, D)
+    each = torch.stack([pw.window_gather_patchify_plain(t[0][i], t[1][i], t[2][i], CROP, PATCH,
+                                                        torch.from_numpy(kernel), torch.from_numpy(bias))
+                        for i in range(k)])
+    assert torch.equal(got, each)
+    kb = (jnp.asarray(kernel), jnp.asarray(bias))
+    with jax.default_matmul_precision("highest"):
+        xla = jax.vmap(lambda w, c, s: window_gather_patchify_xla(w, c, s, CROP, PATCH, *kb))(
+            jnp.asarray(window), jnp.asarray(centers), jnp.asarray(sizes))
+    pallas = jax.vmap(lambda w, c, s: gather_patchify_window_pallas(w, c, s, CROP, PATCH, *kb, block_n=8,
+                                                                     interpret=True))(
+        jnp.asarray(window), jnp.asarray(centers), jnp.asarray(sizes))
+    for want in (xla, pallas):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **F32_TOL)
+
+
+@pytest.mark.parametrize("k,n,path,grid", [
+    (8, 1024, "wide", (512, 2)),  # eval4's 8 banks x 1024 particles, crop mode: one launch
+    (2, 1024, "wide", (128, 2)),
+    (2, 1, "narrow", (1, 24)),  # two banks' template calls: 8 rows in one 16-row tile
+    (8, 1, "narrow", (2, 24)),
+])
+def test_launch_plan_over_windows(k, n, path, grid):
+    """The plan counts the token rows of all K windows: K * N * g*g rows in
+    the row tiles, and the window count passed to the kernel."""
+    window = torch.zeros((k, 256, 256, C))
+    kernel = torch.zeros((PATCH * PATCH * C, 768), dtype=torch.bfloat16)
+    plan = pw.launch_plan(window, torch.zeros((k, n, 2)), torch.zeros((k, n, 2)), 32, PATCH, kernel,
+                          torch.zeros((768,), dtype=torch.bfloat16))
+    assert (plan.windows, plan.n, plan.rows, plan.swin) == (k, n, k * n * 4, 256)
+    assert (plan.path, plan.grid) == (path, grid)
+    one = pw.launch_plan(window[0], torch.zeros((n, 2)), torch.zeros((n, 2)), 32, PATCH, kernel,
+                         torch.zeros((768,), dtype=torch.bfloat16))
+    assert one.windows == 1 and one.rows == n * 4
+
+
+def test_launch_plan_over_windows_refusals():
+    kernel, bias = torch.zeros((768, 64)), torch.zeros((64,))
+    window = torch.zeros((2, 64, 64, C))
+    with pytest.raises(ValueError, match=r"\[K, N, 2\]"):
+        pw.launch_plan(window, torch.zeros((3, 4, 2)), torch.zeros((3, 4, 2)), 32, PATCH, kernel, bias)
+    with pytest.raises(ValueError, match=r"\[K, N, 2\]"):
+        pw.launch_plan(window, torch.zeros((4, 2)), torch.zeros((4, 2)), 32, PATCH, kernel, bias)
+    with pytest.raises(ValueError, match=r"\[Swin, Swin, C\]"):
+        pw.launch_plan(torch.zeros((2, 2, 64, 64, C)), torch.zeros((2, 4, 2)), torch.zeros((2, 4, 2)), 32,
+                       PATCH, kernel, bias)

@@ -187,12 +187,22 @@ def test_tracker_class_runs_and_resumes_on_cpu(tmp_path):
 
 
 def test_unported_options_raise():
-    """Banked trackers (runtime.banks > 1) are not ported: the Tracker
-    refuses them with a pointer to ROADMAP.md."""
+    """runtime.banks > 1 in the single-object Tracker: as in the JAX
+    package, the Tracker tracks one object whatever runtime.banks says (the
+    banked trackers are runtime/banked.py's): one record a frame, with the
+    records of runtime.banks 1, and the JAX Tracker's record keys. Asking
+    for CUDA without a card raises."""
     d = copy.deepcopy(BASE)
     d["runtime"] = {"banks": 2}
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ttr.Tracker(TConfig.from_dict(d), device="cpu")
+    src = t_open_source(d["io"]["source"], 4, tuple(d["io"]["frame_size"]), seed=0)
+    banked_cfg = list(ttr.Tracker(TConfig.from_dict(copy.deepcopy(d)), device="cpu").run(src))
+    single = list(ttr.Tracker(TConfig.from_dict(copy.deepcopy(BASE)), device="cpu").run(src))
+    jrecs = list(jtr.Tracker(JConfig.from_dict(copy.deepcopy(d))).run(src))
+    assert len(banked_cfg) == len(single) == len(jrecs) == 3
+    for a, b, j in zip(banked_cfg, single, jrecs):
+        assert len(a["position"]) == len(j["position"]) == 2 and not isinstance(a["position"][0], list)
+        assert {k: v for k, v in a.items() if k != "step_ms"} == {k: v for k, v in b.items() if k != "step_ms"}
+        assert set(a) == set(j)
     with pytest.raises(RuntimeError, match="cuda"):
         ttr.Tracker(TConfig.from_dict(copy.deepcopy(BASE)), device="cuda") if not torch.cuda.is_available() \
             else (_ for _ in ()).throw(RuntimeError("cuda present"))

@@ -20,11 +20,21 @@ frames again under torch.cuda.set_sync_debug_mode("warn") and prints how
 many times the host waited for the card in each step (every device-to-host
 read, stream or device synchronize and copy from pageable host memory;
 Tracker.step's one wait for its record is one), by the branch the step
-took. Imports only the port; needs a card.
+took. --banks K starts from chip_smoke.py's banked path instead
+(configs/eval4-tpu-multiobject-720p.yaml's values, 720x1280
+synthetic:multi-K, one MultiTracker of K banks, each on its own target);
+--streams K from its multi-stream path (config.yaml's values, a
+MultiStreamTracker over K moving-square clips seeded 0..K-1, step_packed and
+the row read back a step). For both it also prints the host time of a step's
+noise draws (K generators and 4 K draws, stacked and copied into the graph's
+buffers, between synchronizes) beside the step time. Imports only the port;
+needs a card.
 
 Usage: python3 tools/port_profile_step.py [--frames 20] [--warmup 10] [--top 15] [--eager]
            [--set tracker.mode=crop --set tracker.crop_impl=window-pallas]
        python3 tools/port_profile_step.py --robust --warmup 10 --frames 37 --syncs
+       python3 tools/port_profile_step.py --banks 8
+       python3 tools/port_profile_step.py --streams 4
 """
 
 from __future__ import annotations
@@ -43,9 +53,13 @@ import torch  # noqa: E402
 from torch.autograd import DeviceType  # noqa: E402
 from torch.profiler import ProfilerActivity, profile  # noqa: E402
 
+import numpy as np  # noqa: E402
+
 import chip_smoke  # noqa: E402
 from vitparticlefiltertracker_tpu_torch.config import Config  # noqa: E402
+from vitparticlefiltertracker_tpu_torch.filters.particle import draw_step_noise  # noqa: E402
 from vitparticlefiltertracker_tpu_torch.io.video import open_source  # noqa: E402
+from vitparticlefiltertracker_tpu_torch.runtime.banked import MultiStreamTracker, MultiTracker  # noqa: E402
 from vitparticlefiltertracker_tpu_torch.runtime.tracker import Tracker  # noqa: E402
 
 
@@ -58,6 +72,11 @@ def main() -> int:
     ap.add_argument("--robust", action="store_true", help="chip_smoke.py's robust path as the base config")
     ap.add_argument("--syncs", action="store_true", help="count the host's waits for the card in each step")
     ap.add_argument("--eager", action="store_true", help="run the step eagerly instead of replaying its graph")
+    group = ap.add_mutually_exclusive_group()
+    group.add_argument("--banks", type=int, default=0, metavar="K",
+                       help="chip_smoke.py's banked path (eval4) with K banks on synthetic:multi-K")
+    group.add_argument("--streams", type=int, default=0, metavar="K",
+                       help="chip_smoke.py's multi-stream path with K streams")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("needs a CUDA device", file=sys.stderr)
@@ -67,6 +86,11 @@ def main() -> int:
     if args.robust:
         d = copy.deepcopy(chip_smoke.ROBUST_CONFIG)
         d["model"]["checkpoint"] = str(chip_smoke.ROOT / chip_smoke.HEAD_CHECKPOINT)
+    elif args.banks:
+        d = copy.deepcopy(chip_smoke.BANKED_CONFIG)
+        d["model"]["checkpoint"] = str(chip_smoke.ROOT / chip_smoke.CHECKPOINT)
+        d["runtime"]["banks"] = args.banks
+        d["io"]["source"] = f"synthetic:multi-{args.banks}"
     else:
         d = copy.deepcopy(chip_smoke.SMOKE_CONFIG)
         d["model"]["checkpoint"] = str(chip_smoke.ROOT / chip_smoke.CHECKPOINT)
@@ -80,18 +104,31 @@ def main() -> int:
         except json.JSONDecodeError:
             d[section][key] = value
     cfg = Config.from_dict(d)
-    src = open_source(cfg.io.source, n_total, tuple(cfg.io.frame_size), seed=cfg.filter.seed)
     graphs = not args.eager
-    tr = Tracker(cfg, device="cuda", graphs=graphs)
-    frames = list(src)
-    tr.init(frames[0], src.init_bbox)
+    size = tuple(cfg.io.frame_size)
+    if args.streams:
+        srcs = [open_source(cfg.io.source, n_total, size, seed=cfg.filter.seed + i) for i in range(args.streams)]
+        clips = np.stack([np.stack(x.frames) for x in srcs], axis=1)  # [T, K, H, W, 3]
+        tr = MultiStreamTracker(cfg, args.streams, device="cuda", graphs=graphs)
+        tr.init(clips[0], np.stack([x.init_bbox for x in srcs]))
+        frames = list(torch.from_numpy(clips).cuda())
+
+        def step(f):
+            tr.step_packed(f).cpu()  # the row read back, as the serve command reads it
+    else:
+        src = open_source(cfg.io.source, n_total, size, seed=cfg.filter.seed)
+        tr = MultiTracker(cfg, device="cuda", graphs=graphs) if args.banks else Tracker(cfg, device="cuda",
+                                                                                       graphs=graphs)
+        frames = list(src)
+        tr.init(frames[0], src.init_bbox)
+        step = tr.step
     for f in frames[1 : 1 + args.warmup]:
-        tr.step(f)
+        step(f)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for f in frames[1 + args.warmup :]:
-            tr.step(f)
+            step(f)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     # Device-side events only (kernels, memcpy, memset): the CPU operators
@@ -119,7 +156,17 @@ def main() -> int:
               f"{100 * e.self_device_time_total / busy_us:5.1f}%  {e.key[:110]}")
     if graphs:
         print(f"device time of one locked step, its graph replayed back to back: {replay_ms(tr):.3f} ms")
-    if args.syncs:
+    if args.banks or args.streams:
+        t0 = time.perf_counter()
+        for f in frames[1 + args.warmup :]:
+            step(f)
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) * 1e3 / args.frames
+        noise = noise_ms(tr)
+        print(f"host noise draws of {tr._k} filters: {noise:.3f} ms a step ({4 * tr._k} draws and "
+              f"{tr._k} generators), against {step_ms:.3f} ms a step without the profiler: "
+              f"{100 * noise / step_ms:.1f}%")
+    if args.syncs and not (args.banks or args.streams):
         count_syncs(cfg, frames, src.init_bbox, graphs)
     return 0
 
@@ -136,6 +183,23 @@ def replay_ms(tr: Tracker, reps: int = 20) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def noise_ms(tr, reps: int = 20) -> float:
+    """Host clock of one step's noise draws, as the tracker makes them
+    before a replay: every bank's generator and 4 draws, stacked, and (with
+    graphs) copied into the graph's noise buffers; between synchronizes."""
+    sg = next(iter(tr._step_graphs.values())) if tr.graphs else None
+    seeds, idx = tr._seed.tolist(), tr._frame_idx.tolist()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        noise = draw_step_noise(seeds, idx, tr._n, tr.device)
+        if sg is not None:
+            for dst, src in zip(sg.noise, noise):
+                dst.copy_(src)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / reps
 
 
 def count_syncs(cfg: Config, frames, bbox, graphs: bool) -> None:

@@ -16,6 +16,13 @@ each --set key=value (repeatable) is passed to load_config after them. On
 synthetic:teleport only the frames from the fourth after the reappearance
 on are scored, as tools/eval_quality.py scores them.
 
+--banked runs the JAX MultiTracker instead (runtime.banks filters on one
+clip, each initialised on its own target of a multi-object source, as
+tools/eval_quality.py's run_banked): the errors of every bank and record are
+pooled into one RMSE. --streams K runs the JAX MultiStreamTracker: K clips
+of the source seeded 0..K-1, stream i with filter seed (seed + i), as the
+serve command opens them; one RMSE a stream.
+
 Usage:
   python tools/port_rmse_reference.py [--frames 60] [--seeds 0 1 2 3]
       [--set tracker.mode=crop --set tracker.crop_impl=window-pallas]
@@ -25,6 +32,12 @@ Usage:
       --set io.source=synthetic:teleport --set model.head_blend_auto=true \\
       --set filter.lost_conf_ratio=0.55 --set tracker.redetect_global_after=3 \\
       --set tracker.redetect_accept_ratio=0.35 --set tracker.redetect_accept_z=3.0
+  # the banked path (eval4: 8 banks on 48 frames of 720x1280 multi-8):
+  python tools/port_rmse_reference.py --banked \\
+      --config configs/eval4-tpu-multiobject-720p.yaml --frames 48 \\
+      --set io.source=synthetic:multi-8
+  # the multi-stream path (4 streams of config.yaml's moving-square):
+  python tools/port_rmse_reference.py --streams 4
 """
 
 from __future__ import annotations
@@ -57,6 +70,48 @@ def scored_errors(err: np.ndarray, source: str, frames: int) -> np.ndarray:
     return err
 
 
+def run_single(cfg, frames: int) -> tuple[np.ndarray, list[bool]]:
+    """Tracker.run over the clip (seed 0) -> (scored errors, lost flags)."""
+    src = open_source(cfg.io.source, cfg.io.num_frames, tuple(cfg.io.frame_size), seed=0)
+    recs = list(Tracker(cfg).run(src))
+    pos = np.array([r["position"] for r in recs])
+    err = scored_errors(np.linalg.norm(pos - src.truth[1:], axis=1), cfg.io.source, frames)
+    return err, [bool(r["lost"]) for r in recs]
+
+
+def run_banked(cfg) -> tuple[np.ndarray, np.ndarray]:
+    """MultiTracker over a multi-object clip (seed 0), bank k on target k ->
+    (errors [T-1, K], lost flags [T-1, K])."""
+    import jax.numpy as jnp
+
+    from vitparticlefiltertracker_tpu.runtime.banked import MultiTracker
+
+    src = open_source(cfg.io.source, cfg.io.num_frames, tuple(cfg.io.frame_size), seed=0)
+    arr = np.stack(list(src))
+    mt = MultiTracker(cfg)
+    mt.init(arr[0], src.init_bbox)
+    outs = mt.track_clip_device(jnp.asarray(arr[1:]))
+    err = np.linalg.norm(np.asarray(outs.position, np.float32) - src.truth[1:], axis=-1)
+    return err, np.asarray(outs.lost)
+
+
+def run_streams(cfg, k: int) -> tuple[np.ndarray, np.ndarray]:
+    """MultiStreamTracker over k clips seeded 0..k-1 (filter seeds seed + i)
+    -> (errors [T-1, K], lost flags [T-1, K])."""
+    import jax.numpy as jnp
+
+    from vitparticlefiltertracker_tpu.runtime.banked import MultiStreamTracker
+
+    srcs = [open_source(cfg.io.source, cfg.io.num_frames, tuple(cfg.io.frame_size), seed=i) for i in range(k)]
+    clips = np.stack([np.stack(list(s)) for s in srcs], axis=1)  # [T, K, H, W, 3]
+    ms = MultiStreamTracker(cfg, num_streams=k)
+    ms.init(clips[0], np.stack([s.init_bbox for s in srcs]))
+    outs = ms.track_clips_device(jnp.asarray(clips[1:]))
+    truth = np.stack([s.truth[1:] for s in srcs], axis=1)  # [T-1, K, 2]
+    err = np.linalg.norm(np.asarray(outs.position, np.float32) - truth, axis=-1)
+    return err, np.asarray(outs.lost)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--frames", type=int, default=60)
@@ -66,25 +121,40 @@ def main() -> int:
                     help="model.checkpoint, relative to the repo root")
     ap.add_argument("--set", dest="overrides", action="append", default=[], metavar="KEY=VALUE",
                     help="config override passed to load_config (repeatable)")
+    mode = ap.add_mutually_exclusive_group()
+    mode.add_argument("--banked", action="store_true",
+                      help="the JAX MultiTracker, runtime.banks targets of a multi-object source; errors pooled")
+    mode.add_argument("--streams", type=int, default=0, metavar="K",
+                      help="the JAX MultiStreamTracker over K clips; one RMSE a stream")
     args = ap.parse_args()
     root = os.path.join(os.path.dirname(__file__), "..")
-    rmses, losts = [], []
+    rmses, losts, stream_rmses = [], [], []
     for seed in args.seeds:
         cfg = load_config(
             os.path.join(root, args.config),
             [f"model.checkpoint={os.path.join(root, args.checkpoint)}",
              f"io.num_frames={args.frames}", f"filter.seed={seed}", *args.overrides],
         )
-        src = open_source(cfg.io.source, cfg.io.num_frames, tuple(cfg.io.frame_size), seed=0)
         t0 = time.perf_counter()
-        recs = list(Tracker(cfg).run(src))
-        pos = np.array([r["position"] for r in recs])
-        err = scored_errors(np.linalg.norm(pos - src.truth[1:], axis=1), cfg.io.source, args.frames)
+        extra = {}
+        if args.banked or args.streams:
+            err, lost = run_banked(cfg) if args.banked else run_streams(cfg, args.streams)
+            per = np.sqrt(np.mean(err**2, axis=0))  # [K]
+            extra = {"rmse_px_by_" + ("bank" if args.banked else "stream"): per.tolist()}
+            if args.streams:
+                stream_rmses.append(per)
+            last5 = lost[-5:].any(axis=1).tolist()
+            err, lost = err.reshape(-1), lost.reshape(-1).tolist()
+        else:
+            err, lost = run_single(cfg, args.frames)
+            last5 = lost[-5:]
         rmses.append(float(np.sqrt(np.mean(err**2))))
-        losts.append(int(sum(r["lost"] for r in recs)))
+        losts.append(int(sum(lost)))
         print(json.dumps({
             "package": "vitparticlefiltertracker_tpu (JAX, CPU)",
             "config": args.config,
+            "tracker": ("MultiTracker" if args.banked else
+                        f"MultiStreamTracker x {args.streams}" if args.streams else "Tracker"),
             "frames": args.frames,
             "overrides": args.overrides,
             "filter_seed": seed,
@@ -92,12 +162,14 @@ def main() -> int:
             "rmse_px": rmses[-1],
             "max_err_px": float(err.max()),
             "lost_frames": losts[-1],
-            "last5_lost": [bool(r["lost"]) for r in recs[-5:]],
+            "last5_lost": last5,
+            **extra,
             "seconds": time.perf_counter() - t0,
         }), flush=True)
     print(json.dumps({"config": args.config, "overrides": args.overrides, "seeds": args.seeds,
                       "rmse_px_max": max(rmses), "rmse_px_mean": float(np.mean(rmses)),
-                      "lost_frames_min": min(losts), "lost_frames_max": max(losts)}))
+                      "lost_frames_min": min(losts), "lost_frames_max": max(losts),
+                      **({"rmse_px_max_by_stream": np.max(stream_rmses, axis=0).tolist()} if stream_rmses else {})}))
     return 0
 
 

@@ -45,42 +45,61 @@ def load(args, implicit_config: bool = False) -> Config:
 
 
 def cmd_track(cfg: Config, device: str = "cuda", quiet: bool = False) -> int:
+    """Track io.source and write one JSONL record a frame; with
+    runtime.banks > 1, a MultiTracker over the source's targets (or its one
+    box, tiled) writes one record a bank a frame."""
     from vitparticlefiltertracker_tpu_torch.io.sink import JsonlSink
     from vitparticlefiltertracker_tpu_torch.io.video import open_source
-    from vitparticlefiltertracker_tpu_torch.runtime.tracker import Tracker
 
     if cfg.io.overlay:
         raise NotImplementedError("io.overlay is not ported yet; see ROADMAP.md")
+    banks = cfg.runtime.banks
+    if cfg.io.resume_state and banks > 1:
+        raise ValueError("io.resume_state supports a single tracker (runtime.banks == 1)")
     source = open_source(
         cfg.io.source,
         num_frames=cfg.io.num_frames,
         frame_size=tuple(cfg.io.frame_size),
         seed=cfg.filter.seed,
     )
-    tracker = Tracker(cfg, device=device)
     sink = JsonlSink(cfg.io.output)
     t_start = time.perf_counter()
     count = 0
     frames_iter = iter(source)
-    if cfg.io.resume_state:
-        tracker.resume(cfg.io.resume_state)
-        base = int(tracker.state.frame_idx)
-    else:
+    if not cfg.io.resume_state:
         frame0 = next(frames_iter)
         bbox = getattr(source, "init_bbox", None)
         if bbox is None:
             bbox = cfg.io.init_bbox
-        tracker.init(frame0, bbox)
-        base = 0
-    for i, frame in enumerate(frames_iter):
-        rec = tracker.step(frame)
-        rec["frame"] = base + i + 1
-        sink.write(rec)
-        count += 1
-    if cfg.io.save_state:
-        tracker.save(cfg.io.save_state)
-        if not quiet:
-            print(f"saved state to {cfg.io.save_state}", file=sys.stderr)
+    if banks > 1:
+        from vitparticlefiltertracker_tpu_torch.runtime.banked import MultiTracker, banked_bboxes
+
+        tracker = MultiTracker(cfg, device=device)
+        tracker.init(frame0, banked_bboxes(bbox, banks))
+        for i, frame in enumerate(frames_iter):
+            for rec in tracker.step(frame):
+                rec["frame"] = i + 1
+                sink.write(rec)
+            count += 1
+    else:
+        from vitparticlefiltertracker_tpu_torch.runtime.tracker import Tracker
+
+        tracker = Tracker(cfg, device=device)
+        if cfg.io.resume_state:
+            tracker.resume(cfg.io.resume_state)
+            base = int(tracker.state.frame_idx)
+        else:
+            tracker.init(frame0, bbox)
+            base = 0
+        for i, frame in enumerate(frames_iter):
+            rec = tracker.step(frame)
+            rec["frame"] = base + i + 1
+            sink.write(rec)
+            count += 1
+        if cfg.io.save_state:
+            tracker.save(cfg.io.save_state)
+            if not quiet:
+                print(f"saved state to {cfg.io.save_state}", file=sys.stderr)
     wall = time.perf_counter() - t_start
     sink.close()
     if not quiet and count:

@@ -7,6 +7,10 @@
 // search window (pixel-centred, clamp-to-edge), cuts it into g x g patch
 // tokens of p*p*C values in the canonical (py, px, c) order of
 // models/vit.py:patchify, and embeds them: tokens @ K + b -> [N, g*g, D].
+// With K windows (K filter banks, each with its own search window and N
+// boxes) one launch covers all K * N boxes: a box's token rows read the
+// window its index falls in (box / N), which is what the JAX package's vmap
+// makes of the Pallas call. The rows of all windows share the row tiles.
 //
 // Same arithmetic as the TPU kernel: samples in f32; tokens rounded to the
 // weight's type before the product; f32 accumulation; the bias added in f32;
@@ -54,9 +58,10 @@
 // the plan's grid. A block loops over both (grid-stride), sampling a row
 // tile on its first column tile; so any grid is correct.
 //
-// Layout: window [Swin, Swin, C] f32, centers and sizes [N, 2] f32, kernel
-// [p*p*C, D], bias [D] and out [N, g*g, D] in the weight's type (f32 or
-// bf16), all contiguous; the mma kernel needs kernel and out on 16 bytes.
+// Layout: window [K, Swin, Swin, C] f32, centers and sizes [K, N, 2] f32,
+// kernel [p*p*C, D], bias [D] and out [K, N, g*g, D] in the weight's type
+// (f32 or bf16), all contiguous (K = 1 for one window); the mma kernel
+// needs kernel and out on 16 bytes.
 //
 // Interface: plain C, loaded with ctypes. Returns cudaGetLastError() after
 // the launch (0 = success), -1 for arguments the kernels do not take.
@@ -78,14 +83,16 @@ enum Path { kScalar = 0, kNarrow = 1, kWide = 2 };
 enum Dtype { kF32 = 0, kBF16 = 1 };
 
 struct Problem {
-  const float* win;      // [swin, swin, c]
-  const float* centers;  // [n, 2] (x, y)
-  const float* sizes;    // [n, 2] (w, h)
+  const float* win;      // [windows, swin, swin, c]
+  const float* centers;  // [windows * n, 2] (x, y)
+  const float* sizes;    // [windows * n, 2] (w, h)
   const void* kern;      // [kdim, d]
   const void* bias;      // [d]
   void* out;             // [rows, d]
+  int n;                 // boxes a window
+  int win_elems;         // swin * swin * c: elements a window
   int swin, c, crop, patch, d;
-  int g, g2, kdim, rows;  // crop / patch, g * g, patch * patch * c, n * g2
+  int g, g2, kdim, rows;  // crop / patch, g * g, patch * patch * c, windows * n * g2
 };
 
 // ---------------------------------------------------------------------------
@@ -114,8 +121,9 @@ __device__ __forceinline__ void sample_rows_c(const Problem& p, const float* off
   const int step_py = 32 / p.patch, step_px = 32 % p.patch;
   for (int r = warp; r < nrows; r += warps) {
     const int row = row0 + r;
-    const int pid = row / p.g2;
+    const int pid = row / p.g2;  // the box, over all windows
     const int ti = row - pid * p.g2;
+    const int wbase = (pid / p.n) * p.win_elems;  // its window's first element
     const int tile_y = ti / p.g;
     const float* oy = offs + tile_y * p.patch;              // crop rows of this token
     const float* ox = offs + (ti - tile_y * p.g) * p.patch;  // crop columns
@@ -134,8 +142,8 @@ __device__ __forceinline__ void sample_rows_c(const Problem& p, const float* off
         wy[u] = __fsub_rn(ys, y0f);
         wx[u] = __fsub_rn(xs, x0f);
         const int y0 = static_cast<int>(y0f), x0 = static_cast<int>(x0f);
-        top[u] = y0 * p.swin * c;
-        bot[u] = min(y0 + 1, p.swin - 1) * p.swin * c;
+        top[u] = wbase + y0 * p.swin * c;
+        bot[u] = wbase + min(y0 + 1, p.swin - 1) * p.swin * c;
         left[u] = x0 * c;
         right[u] = min(x0 + 1, p.swin - 1) * c;
         px += step_px;  // the next pixel of this lane: 32 further on
@@ -498,22 +506,23 @@ int launch(F* kernel, int* configured, dim3 grid, int threads, int smem, cudaStr
 
 extern "C" {
 
-// dtype (of kern, bias and out): 0 = float32, 1 = bfloat16. path: 0 =
+// n boxes in each of `windows` windows. dtype (of kern, bias and out): 0 =
+// float32, 1 = bfloat16. path: 0 =
 // scalar, 1 = narrow mma, 2 = wide mma (bf16, D % 8 == 0, kern and out on
 // 16 bytes). grid_x row-tile slots, grid_y column-tile slots; the kernels
 // loop over the rest, so any grid >= 1 is correct.
 int vpt_window_patchify_fwd(const void* win, const void* centers, const void* sizes, const void* kern,
-                            const void* bias, void* out, int n, int swin, int c, int crop, int patch, int d,
-                            int dtype, int path, int grid_x, int grid_y, void* stream) {
-  if (n <= 0 || swin <= 0 || c <= 0 || patch <= 0 || crop < patch || crop % patch != 0 || d <= 0 ||
-      grid_x <= 0 || grid_y <= 0 || grid_y > 65535 || (dtype != kF32 && dtype != kBF16))
+                            const void* bias, void* out, int n, int windows, int swin, int c, int crop, int patch,
+                            int d, int dtype, int path, int grid_x, int grid_y, void* stream) {
+  if (n <= 0 || windows <= 0 || swin <= 0 || c <= 0 || patch <= 0 || crop < patch || crop % patch != 0 ||
+      d <= 0 || grid_x <= 0 || grid_y <= 0 || grid_y > 65535 || (dtype != kF32 && dtype != kBF16))
     return -1;
   const long long g = crop / patch;
-  const long long rows = static_cast<long long>(n) * g * g;
+  const long long rows = static_cast<long long>(windows) * n * g * g;
   const long long kdim = static_cast<long long>(patch) * patch * c;
   const long long smem = smem_bytes(path, kdim, crop);
   const long long win_elems = static_cast<long long>(swin) * swin * c;
-  if (rows > INT_MAX || win_elems > INT_MAX || smem < 0 || smem > kMaxSmemBytes) return -1;
+  if (rows > INT_MAX || win_elems * windows > INT_MAX || smem < 0 || smem > kMaxSmemBytes) return -1;
   if (path != kScalar && (dtype != kBF16 || d % 8 != 0 || reinterpret_cast<uintptr_t>(kern) % 16 != 0 ||
                           reinterpret_cast<uintptr_t>(out) % 16 != 0))
     return -1;
@@ -524,6 +533,8 @@ int vpt_window_patchify_fwd(const void* win, const void* centers, const void* si
   p.kern = kern;
   p.bias = bias;
   p.out = out;
+  p.n = n;
+  p.win_elems = static_cast<int>(win_elems);
   p.swin = swin;
   p.c = c;
   p.crop = crop;

@@ -8,13 +8,15 @@ so a trajectory is reproducible and a resumed run continues it exactly. A
 ``StepNoise`` (and the initial cloud) can also be injected, which is how the
 tests feed both packages the same draws.
 
-State layout: particles[..., 5] = [x, y, vx, vy, log_s].
+State layout: particles[..., 5] = [x, y, vx, vy, log_s]. Every function
+takes optional leading axes (K filter banks: particles [K, N, 5], weights
+[K, N]); each bank reduces over its own particles only.
 """
 
 from __future__ import annotations
 
 import math
-from typing import NamedTuple
+from typing import NamedTuple, Sequence
 
 import torch
 
@@ -46,17 +48,18 @@ class PFParams(NamedTuple):
 
 
 class PFState(NamedTuple):
-    particles: torch.Tensor  # [N, 5] float32
-    log_weights: torch.Tensor  # [N] float32, normalized (logsumexp == 0)
+    particles: torch.Tensor  # [..., N, 5] float32
+    log_weights: torch.Tensor  # [..., N] float32, normalized (logsumexp == 0)
 
 
 class StepNoise(NamedTuple):
-    """One frame's random draws, in the JAX package's order."""
+    """One frame's random draws, in the JAX package's order (a leading K
+    axis for K banks)."""
 
-    pos: torch.Tensor  # [N, 2] standard normal
-    vel: torch.Tensor  # [N, 2] standard normal
-    scale: torch.Tensor  # [N] standard normal
-    resample_u: torch.Tensor  # [] uniform [0, 1)
+    pos: torch.Tensor  # [..., N, 2] standard normal
+    vel: torch.Tensor  # [..., N, 2] standard normal
+    scale: torch.Tensor  # [..., N] standard normal
+    resample_u: torch.Tensor  # [...] uniform [0, 1)
 
 
 _M64 = 0xFFFFFFFFFFFFFFFF
@@ -81,10 +84,25 @@ def make_generator(seed: int, stream: int, device: torch.device) -> torch.Genera
     return g
 
 
+def _per_bank(seeds: Sequence[int], frame_idx) -> list[tuple[int, int]]:
+    """(seed, frame index) a bank: one frame index for all, or one each."""
+    idx = list(frame_idx) if isinstance(frame_idx, (list, tuple)) else [frame_idx] * len(seeds)
+    if len(idx) != len(seeds):
+        raise ValueError(f"{len(seeds)} seeds but {len(idx)} frame indices")
+    return list(zip(seeds, idx))
+
+
 def draw_step_noise(
-    seed: int, frame_idx: int, n: int, device: torch.device, dtype=torch.float32
+    seed: int | Sequence[int], frame_idx: int | Sequence[int], n: int, device: torch.device, dtype=torch.float32
 ) -> StepNoise:
-    """Fixed draw order: pos, vel, scale normals, then the resampling uniform."""
+    """Fixed draw order: pos, vel, scale normals, then the resampling uniform.
+
+    A list of seeds (and of frame indices, or one for all) gives K banks'
+    draws stacked on a leading axis: bank k's are those a single filter with
+    seed k at its frame index draws."""
+    if isinstance(seed, (list, tuple)):
+        draws = [draw_step_noise(s, i, n, device, dtype) for s, i in _per_bank(seed, frame_idx)]
+        return StepNoise(*(torch.stack(x) for x in zip(*draws)))
     g = make_generator(seed, frame_idx, device)
     return StepNoise(
         pos=torch.randn((n, 2), generator=g, device=device, dtype=dtype),
@@ -94,14 +112,19 @@ def draw_step_noise(
     )
 
 
-def draw_reseed_noise(seed: int, frame_idx: int, n: int, device: torch.device) -> torch.Tensor:
-    """[N, 2] standard normals for global re-detection's reseed at a frame."""
+def draw_reseed_noise(
+    seed: int | Sequence[int], frame_idx: int | Sequence[int], n: int, device: torch.device
+) -> torch.Tensor:
+    """[N, 2] standard normals for global re-detection's reseed at a frame
+    ([K, N, 2] for a list of seeds, as draw_step_noise)."""
+    if isinstance(seed, (list, tuple)):
+        return torch.stack([draw_reseed_noise(s, i, n, device) for s, i in _per_bank(seed, frame_idx)])
     g = make_generator(seed, RESEED_STREAM | int(frame_idx), device)
     return torch.randn((n, 2), generator=g, device=device, dtype=torch.float32)
 
 
 def init_state(
-    seed: int,
+    seed: int | Sequence[int],
     center: torch.Tensor,
     n: int,
     params: PFParams,
@@ -112,8 +135,12 @@ def init_state(
 
     cloud: optional injected [N, 5] particles (parity runs); otherwise the
     positions and velocities are drawn from the (seed, INIT_STREAM) generator.
+    A list of K seeds and centers [K, 2] give K banks' clouds stacked.
     """
     device = center.device
+    if isinstance(seed, (list, tuple)) and cloud is None:
+        states = [init_state(s, c, n, params, dtype) for s, c in zip(seed, center.unbind(0), strict=True)]
+        return PFState(*(torch.stack(x) for x in zip(*states)))
     if cloud is None:
         g = make_generator(seed, INIT_STREAM, device)
         p = torch.zeros((n, STATE_DIM), dtype=dtype, device=device)
@@ -125,38 +152,38 @@ def init_state(
         )
     else:
         p = cloud.to(device=device, dtype=dtype)
-    logw = torch.full((n,), -math.log(n), dtype=dtype, device=device)
+    logw = torch.full(p.shape[:-1], -math.log(n), dtype=dtype, device=device)
     return PFState(particles=p, log_weights=logw)
 
 
 def propagate(particles: torch.Tensor, noise: StepNoise, motion: MotionParams) -> torch.Tensor:
     """x' = x + v + sigma_pos*eps; v' = decay*v + sigma_vel*eps; log_s' += sigma_s*eps."""
-    pos = particles[:, 0:2] + particles[:, 2:4] + motion.sigma_pos * noise.pos
-    vel = motion.vel_decay * particles[:, 2:4] + motion.sigma_vel * noise.vel
-    log_s = particles[:, 4] + motion.sigma_scale * noise.scale
-    return torch.cat([pos, vel, log_s[:, None]], dim=1)
+    pos = particles[..., 0:2] + particles[..., 2:4] + motion.sigma_pos * noise.pos
+    vel = motion.vel_decay * particles[..., 2:4] + motion.sigma_vel * noise.vel
+    log_s = particles[..., 4] + motion.sigma_scale * noise.scale
+    return torch.cat([pos, vel, log_s[..., None]], dim=-1)
 
 
 def normalize_log_weights(log_weights: torch.Tensor) -> torch.Tensor:
-    return log_weights - torch.logsumexp(log_weights, dim=0)
+    return log_weights - torch.logsumexp(log_weights, dim=-1, keepdim=True)
 
 
 def effective_sample_size(log_weights: torch.Tensor) -> torch.Tensor:
     w = torch.exp(normalize_log_weights(log_weights))
-    return 1.0 / torch.sum(w * w)
+    return 1.0 / torch.sum(w * w, dim=-1)
 
 
 def estimate_state(particles: torch.Tensor, log_weights: torch.Tensor) -> torch.Tensor:
     """Posterior weighted-mean state — the per-frame tracked position."""
     w = torch.exp(normalize_log_weights(log_weights))
-    return torch.sum(w[:, None] * particles, dim=0)
+    return torch.sum(w[..., None] * particles, dim=-2)
 
 
 class StepOut(NamedTuple):
     state: PFState
-    estimate: torch.Tensor  # [5] posterior mean state
-    ess: torch.Tensor  # [] effective sample size (post-weight, pre-resample)
-    resampled: torch.Tensor  # [] bool
+    estimate: torch.Tensor  # [..., 5] posterior mean state
+    ess: torch.Tensor  # [...] effective sample size (post-weight, pre-resample)
+    resampled: torch.Tensor  # [...] bool
 
 
 def pf_update(
@@ -166,8 +193,9 @@ def pf_update(
     resample_u: torch.Tensor,
     params: PFParams,
 ) -> StepOut:
-    """Weight -> estimate -> ESS-gated resample on already-propagated particles."""
-    n = particles.shape[0]
+    """Weight -> estimate -> ESS-gated resample on already-propagated
+    particles, each bank of a leading axis on its own."""
+    n = particles.shape[-2]
     dtype = particles.dtype
 
     log_w = normalize_log_weights(log_weights + log_likelihood.to(dtype))
@@ -177,13 +205,13 @@ def pf_update(
     do_resample = ess < params.ess_threshold * n
 
     w = torch.exp(log_w)
-    w = w / torch.sum(w)
+    w = w / torch.sum(w, dim=-1, keepdim=True)
     res_idx = systematic_resample_indices(w, resample_u)
     keep = torch.arange(n, device=particles.device)
-    idx = torch.where(do_resample, res_idx, keep)
-    new_particles = particles[idx]
+    idx = torch.where(do_resample[..., None], res_idx, keep)
+    new_particles = torch.gather(particles, -2, idx[..., None].expand(particles.shape))
     uniform = torch.full((n,), -math.log(n), dtype=dtype, device=particles.device)
-    new_log_w = torch.where(do_resample, uniform, log_w)
+    new_log_w = torch.where(do_resample[..., None], uniform, log_w)
 
     return StepOut(
         state=PFState(particles=new_particles, log_weights=new_log_w),

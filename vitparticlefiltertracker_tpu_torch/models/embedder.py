@@ -6,7 +6,9 @@ then reads its appearance from the token grid (ROI pooling), so all N
 particles share that one forward. With the residual head the token features
 are concat(trunk, head), and a score blends the two halves' cosines, each
 half centered and normalized on its own. ``tiled_window_embed`` is global
-re-detection's batch of tile windows through one forward.
+re-detection's batch of tile windows through one forward. Centers, sides and
+boxes take a leading bank axis (K filters, one window each): the K windows
+go through one ViT forward at B = K.
 """
 
 from __future__ import annotations
@@ -75,23 +77,28 @@ def normalize_window(window_raw: torch.Tensor) -> torch.Tensor:
 
 def make_dense_embedder(
     prm: dict,
-    frame_f32,  # [H, W, 3] float (0..255 scale) or FrameView
-    center: torch.Tensor,  # [2] (x, y) search-window center, frame px
-    side: torch.Tensor,  # [] window side, frame px
+    frame_f32,  # [H, W, 3] float (0..255 scale), [K, H, W, 3] (a frame a bank), or FrameView
+    center: torch.Tensor,  # [..., 2] (x, y) search-window center, frame px
+    side: torch.Tensor,  # [...] window side, frame px
     es: DenseEmbedSpec,
 ) -> Callable:
-    """One ViT forward on the search window; the returned pool() ROI-pools
-    any number of box sets from the token grid, and pool.score() scores
-    boxes against a template without forming their embeddings.
+    """One ViT forward on the search window (on the K windows of centers
+    [K, 2], at B = K); the returned pool() ROI-pools any number of box sets
+    from the token grid, and pool.score() scores boxes against a template
+    without forming their embeddings.
 
-    pool(boxes_xy [M, 2], boxes_wh [M, 2]) -> (emb [M, D] or [M, K*K, D], in_window [M])
+    pool(boxes_xy [..., M, 2], boxes_wh [..., M, 2])
+        -> (emb [..., M, D] or [..., M, R*R, D], in_window [..., M])
     """
     spec = es.vit
     grid = es.s_img // es.patch
+    lead = center.shape[:-1]
     window = normalize_window(view_extract_window_mxu(_as_view(frame_f32), center, side, es.s_img))
-    feat = vit_forward_tokens(prm, window[None], spec)[0]
-    feat = feat.reshape(grid, grid, spec.out_dim)
-    mean_emb = feat.reshape(-1, spec.out_dim).mean(dim=0)
+    feat = vit_forward_tokens(prm, window.reshape(-1, *window.shape[-3:]), spec)
+    feat = feat.reshape(*lead, grid, grid, spec.out_dim)
+    mean_emb = feat.reshape(*lead, -1, spec.out_dim).mean(dim=-2)
+    # Each window's center and side against its own boxes [..., M, 2].
+    center, side = center[..., None, :], side[..., None, None]
 
     def pool(boxes_xy: torch.Tensor, boxes_wh: torch.Tensor):
         return pool_from_feat(feat, mean_emb, center, side, es, boxes_xy, boxes_wh)
@@ -148,8 +155,8 @@ def _half_cosines(feat, mean_emb, es: DenseEmbedSpec, tmpl, gxy, gwh):
     centered and normalized on its own -> (cos_trunk [M], cos_head [M])."""
     fused = roi_cells_cos_mxu if es.appearance == "cells" else roi_pool_cos_mxu
     d, _ = es.split
-    mean_f = mean_emb[:d] if es.center_features else None
-    mean_h = mean_emb[d:] if es.center_features else None
+    mean_f = mean_emb[..., :d] if es.center_features else None
+    mean_h = mean_emb[..., d:] if es.center_features else None
     cos_f = fused(feat[..., :d], mean_f, tmpl[..., :d], gxy, gwh, es.roi_grid)
     cos_h = fused(feat[..., d:], mean_h, tmpl[..., d:], gxy, gwh, es.roi_grid)
     return cos_f, cos_h
@@ -197,22 +204,25 @@ def score_halves_from_feat(
 
 def tiled_window_embed(
     prm: dict,
-    frame_f32,  # [H, W, 3] float frame or FrameView
-    tile_ctrs: torch.Tensor,  # [G, 2] tile window centers, frame px
-    tile_side: torch.Tensor,  # [] tile window side, frame px
+    frame_f32,  # [H, W, 3] float frame ([K, H, W, 3]: a frame a bank) or FrameView
+    tile_ctrs: torch.Tensor,  # [..., G, 2] tile window centers, frame px
+    tile_side: torch.Tensor,  # [...] tile window side, frame px
     es: DenseEmbedSpec,
-    cand_xy: torch.Tensor,  # [G, C, 2] candidate box centers per tile, frame px
-    cand_wh: torch.Tensor,  # [2] candidate box size, frame px
+    cand_xy: torch.Tensor,  # [..., G, C, 2] candidate box centers per tile, frame px
+    cand_wh: torch.Tensor,  # [..., 2] candidate box size, frame px
 ):
     """Embed C candidate boxes in each of G tile windows with one batched
-    ViT forward (global re-detection): each tile is a window at about the
-    local search's scale, so candidates are scored at the resolution the
-    appearance model tracks at. -> (emb [G, C, ...], valid [G, C])."""
+    ViT forward (global re-detection; K banks' tiles in one forward at
+    B = K*G): each tile is a window at about the local search's scale, so
+    candidates are scored at the resolution the appearance model tracks at.
+    -> (emb [..., G, C, ...], valid [..., G, C])."""
     spec = es.vit
     grid = es.s_img // es.patch
+    lead = tile_ctrs.shape[:-1]
     windows = normalize_window(view_extract_window_mxu(_as_view(frame_f32), tile_ctrs, tile_side, es.s_img))
-    feats = vit_forward_tokens(prm, windows, spec)  # [G, T, out_dim]
-    feats = feats.reshape(feats.shape[0], grid, grid, spec.out_dim)
-    mean_embs = feats.mean(dim=(1, 2))  # [G, out_dim]
-    wh = cand_wh.expand(cand_xy.shape)
-    return pool_from_feat(feats, mean_embs, tile_ctrs[:, None, :], tile_side, es, cand_xy, wh)
+    feats = vit_forward_tokens(prm, windows.reshape(-1, *windows.shape[-3:]), spec)  # [K*G, T, out_dim]
+    feats = feats.reshape(*lead, grid, grid, spec.out_dim)
+    mean_embs = feats.mean(dim=(-3, -2))  # [..., G, out_dim]
+    wh = cand_wh[..., None, None, :].expand(cand_xy.shape)
+    side = tile_side.reshape(*tile_side.shape, 1, 1, 1)
+    return pool_from_feat(feats, mean_embs, tile_ctrs[..., None, :], side, es, cand_xy, wh)

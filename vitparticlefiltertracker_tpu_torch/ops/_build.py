@@ -144,7 +144,7 @@ def window_patchify_library() -> ctypes.CDLL:
         p, i = ctypes.c_void_p, ctypes.c_int
         # window, centers, sizes, kernel, bias, out, n, swin, c, crop, patch,
         # d, dtype, path, grid_x, grid_y, stream
-        fn.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, i, p]
+        fn.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, i, i, p]
         fn.restype = ctypes.c_int
         lib.vpt_window_patchify_smem_bytes.argtypes = [i, i, i, i]
         lib.vpt_window_patchify_smem_bytes.restype = ctypes.c_int

@@ -6,7 +6,9 @@ Arbitrary float window positions and sizes are handled by resampling onto a
 fixed grid. ``bilinear_sample`` gathers 4 taps per point; the ``*_mxu``
 functions write the same interpolation as a dense "hat weight" matrix,
 W[i, r] = max(0, 1 - |t_i - r|), so a resample is two matrix products and
-ROI pooling is a weighted sum over the token grid.
+ROI pooling is a weighted sum over the token grid. Windows, boxes and
+feature grids take optional leading axes (K filter banks, each with its own
+window; with a frame of its own in multi-stream tracking).
 """
 
 from __future__ import annotations
@@ -42,8 +44,11 @@ def bilinear_sample(img: torch.Tensor, ys: torch.Tensor, xs: torch.Tensor) -> to
     Coordinates are pixel-centred: (0, 0) is the centre of the top-left
     pixel. Returns [..., C]: 4 taps at floor(t) and min(floor(t) + 1, size - 1)
     per axis, then the lerp, in the JAX package's order of operations.
+    Images [*F, H, W, C] with coords [*F, ...] sample each image at its own
+    coords.
     """
-    h, w = img.shape[0], img.shape[1]
+    h, w = img.shape[-3], img.shape[-2]
+    lead = img.shape[:-3]
     ys = torch.clamp(ys, 0.0, h - 1.0)
     xs = torch.clamp(xs, 0.0, w - 1.0)
     y0f = torch.floor(ys)
@@ -54,7 +59,11 @@ def bilinear_sample(img: torch.Tensor, ys: torch.Tensor, xs: torch.Tensor) -> to
     x0 = x0f.to(torch.int64)
     y1 = torch.clamp(y0 + 1, max=h - 1)
     x1 = torch.clamp(x0 + 1, max=w - 1)
-    flat = img.reshape(h * w, -1)
+    flat = img.reshape(-1, img.shape[-1])
+    if lead:
+        # Row offset of each image in `flat`, broadcast over its coords.
+        base = torch.arange(flat.shape[0] // (h * w), device=img.device).reshape(*lead, *[1] * (ys.dim() - len(lead)))
+        y0, y1 = y0 + base * h, y1 + base * h
 
     def take(yi, xi):
         return flat[yi * w + xi]
@@ -85,15 +94,21 @@ def _offsets(out_size: int, device) -> torch.Tensor:
 def extract_window_mxu(
     img: torch.Tensor, center: torch.Tensor, side: torch.Tensor, out_size: int
 ) -> torch.Tensor:
-    """Separable bilinear resample of square windows of one side:
-    [H, W, C] -> [..., out, out, C] for centers [..., 2] (one window for a
-    [2] center, G of them in one batched product for [G, 2])."""
-    h, w, c = img.shape
+    """Separable bilinear resample of square windows: [H, W, C] ->
+    [..., out, out, C] for centers [..., 2] (one window for a [2] center, G
+    of them in one batched product for [G, 2]). `side` is a scalar or has
+    leading axes of the centers' (one side a bank of windows: [K] for
+    centers [K, 2] or [K, G, 2]). Images [*F, H, W, C] give each leading
+    index of the centers its own image (centers [*F, ..., 2])."""
+    h, w, c = img.shape[-3:]
+    frames = img.shape[:-3]
     lead = center.shape[:-1]
     t = _offsets(out_size, img.device)
+    side = side.reshape(*side.shape, *[1] * (len(lead) - side.dim() + 1))
     wy = hat_weights(center[..., 1:2] + side * t, h)  # [..., out, H]
     wx = hat_weights(center[..., 0:1] + side * t, w)  # [..., out, W]
-    a = wy @ img.reshape(h, w * c)  # [..., out, W*C]
+    # Every window's rows of one image in one product: [*F, rows, H] @ [*F, H, W*C].
+    a = wy.reshape(*frames, -1, h) @ img.reshape(*frames, h, w * c)
     a = a.reshape(*lead, out_size, w, c).transpose(-1, -2).reshape(*lead, out_size * c, w)
     b = a @ wx.transpose(-1, -2)  # [..., out*C, out]
     return b.reshape(*lead, out_size, c, out_size).transpose(-1, -2)
@@ -180,14 +195,15 @@ def roi_cells_mxu(
 
 
 def roi_cells_cos_mxu(
-    feat: torch.Tensor,  # [Gh, Gw, D] window token features
-    mean_emb: torch.Tensor | None,  # [D] window-mean embedding (None = no centering)
-    tmpl: torch.Tensor,  # [K*K, D] per-cell L2-normalized template rows
-    centers: torch.Tensor,  # [N, 2] grid coords (x, y)
-    sizes: torch.Tensor,  # [N, 2] grid units (w, h)
+    feat: torch.Tensor,  # [..., Gh, Gw, D] window token features
+    mean_emb: torch.Tensor | None,  # [..., D] window-mean embedding (None = no centering)
+    tmpl: torch.Tensor,  # [..., K*K, D] per-cell L2-normalized template rows
+    centers: torch.Tensor,  # [..., N, 2] grid coords (x, y)
+    sizes: torch.Tensor,  # [..., N, 2] grid units (w, h)
     grid: int,
 ) -> torch.Tensor:
-    """Fused structured-template cosine scores -> [N] (mean per-cell cosine).
+    """Fused structured-template cosine scores -> [..., N] (mean per-cell
+    cosine); leading axes batch windows, each with its own template and boxes.
 
     Equal (up to sum order) to pooling the cells with roi_cells_mxu,
     centering, L2-normalizing and taking the dot with the template, but the
@@ -196,52 +212,55 @@ def roi_cells_cos_mxu(
     into the per-frame maps G = F'·tmplᵀ [P, C] and H = F'·F'ᵀ [P, P].
     Centering commutes into F' because every hat-weight row sums to 1.
     """
-    gh, gw, d = feat.shape
-    n = centers.shape[0]
+    gh, gw, d = feat.shape[-3:]
+    lead = feat.shape[:-3]
+    n = centers.shape[-2]
     c = grid * grid
     p = gh * gw
-    f = feat.float().reshape(p, d)
+    f = feat.float().reshape(*lead, p, d)
     if mean_emb is not None:
-        f = f - mean_emb.float()[None, :]
-    g = f @ tmpl.float().reshape(c, d).T  # [P, C]
-    gram = f @ f.T  # [P, P]
+        f = f - mean_emb.float()[..., None, :]
+    g = f @ tmpl.float().reshape(*lead, c, d).transpose(-1, -2)  # [..., P, C]
+    gram = f @ f.transpose(-1, -2)  # [..., P, P]
 
     ys, xs = _cell_coords(centers, sizes, grid)
-    wy = hat_weights(ys, gh)  # [N, K, Gh]
-    wx = hat_weights(xs, gw)  # [N, K, Gw]
-    w2 = torch.einsum("nkr,njc->nkjrc", wy, wx).reshape(n, c, p)  # [N, C, P]
-    dot = torch.einsum("ncp,pc->nc", w2, g)  # [N, C]
-    u = torch.matmul(w2, gram)  # [N, C, P]
-    nrm2 = torch.sum(u * w2, dim=-1)  # [N, C]
+    wy = hat_weights(ys, gh)  # [..., N, K, Gh]
+    wx = hat_weights(xs, gw)  # [..., N, K, Gw]
+    w2 = torch.einsum("...nkr,...njc->...nkjrc", wy, wx).reshape(*lead, n, c, p)  # [..., N, C, P]
+    dot = torch.einsum("...ncp,...pc->...nc", w2, g)  # [..., N, C]
+    u = torch.matmul(w2.reshape(*lead, n * c, p), gram).reshape(*lead, n, c, p)  # [..., N, C, P]
+    nrm2 = torch.sum(u * w2, dim=-1)  # [..., N, C]
     # eps placement matches l2_normalize: v / (|v| + 1e-8).
     cos_c = dot / (torch.sqrt(torch.clamp(nrm2, min=0.0)) + 1e-8)
     return cos_c.mean(dim=-1)
 
 
 def roi_pool_cos_mxu(
-    feat: torch.Tensor,  # [Gh, Gw, D]
-    mean_emb: torch.Tensor | None,  # [D]
-    tmpl: torch.Tensor,  # [D] L2-normalized pooled template
-    centers: torch.Tensor,  # [N, 2]
-    sizes: torch.Tensor,  # [N, 2]
+    feat: torch.Tensor,  # [..., Gh, Gw, D]
+    mean_emb: torch.Tensor | None,  # [..., D]
+    tmpl: torch.Tensor,  # [..., D] L2-normalized pooled template
+    centers: torch.Tensor,  # [..., N, 2]
+    sizes: torch.Tensor,  # [..., N, 2]
     grid: int,
 ) -> torch.Tensor:
-    """Fused pooled-template cosine scores -> [N] (same Gram trick, one cell)."""
-    gh, gw, d = feat.shape
-    n = centers.shape[0]
+    """Fused pooled-template cosine scores -> [..., N] (same Gram trick, one
+    cell)."""
+    gh, gw, d = feat.shape[-3:]
+    lead = feat.shape[:-3]
+    n = centers.shape[-2]
     p = gh * gw
-    f = feat.float().reshape(p, d)
+    f = feat.float().reshape(*lead, p, d)
     if mean_emb is not None:
-        f = f - mean_emb.float()[None, :]
-    g = f @ tmpl.float()  # [P]
-    gram = f @ f.T  # [P, P]
+        f = f - mean_emb.float()[..., None, :]
+    g = f @ tmpl.float()[..., None]  # [..., P, 1]
+    gram = f @ f.transpose(-1, -2)  # [..., P, P]
 
     ys, xs = _cell_coords(centers, sizes, grid)
-    ay = hat_weights(ys, gh).mean(dim=1)  # [N, Gh]
-    ax = hat_weights(xs, gw).mean(dim=1)  # [N, Gw]
-    w = torch.einsum("nr,nc->nrc", ay, ax).reshape(n, p)  # [N, P]
-    dot = w @ g  # [N]
-    u = w @ gram  # [N, P]
+    ay = hat_weights(ys, gh).mean(dim=-2)  # [..., N, Gh]
+    ax = hat_weights(xs, gw).mean(dim=-2)  # [..., N, Gw]
+    w = torch.einsum("...nr,...nc->...nrc", ay, ax).reshape(*lead, n, p)  # [..., N, P]
+    dot = (w @ g)[..., 0]  # [..., N]
+    u = w @ gram  # [..., N, P]
     nrm2 = torch.sum(u * w, dim=-1)
     return dot / (torch.sqrt(torch.clamp(nrm2, min=0.0)) + 1e-8)
 

@@ -6,7 +6,9 @@ window: kernel K2 and its plain version — the port of the JAX package's
 For each particle box (center, size) in window pixels: a crop_size x
 crop_size bilinear crop of the [Swin, Swin, C] window (clamp-to-edge), cut
 into g x g patch tokens in the canonical (py, px, c) order, embedded as
-tokens @ K + b -> [N, g*g, D].
+tokens @ K + b -> [N, g*g, D]. K windows [K, Swin, Swin, C], each with its
+own N boxes [K, N, 2], give [K, N, g*g, D] in one launch (K filter banks;
+the port of what the JAX package's vmap does to the Pallas call).
 
 ``gather_patchify_window`` wraps K2 (csrc/window_patchify.cu).
 ``window_gather_patchify_plain`` is the plain PyTorch version of the same
@@ -45,8 +47,8 @@ _MAX_GRID_X, _MAX_GRID_Y = 2**31 - 1, 65535
 
 
 def window_gather_patchify_plain(
-    window: torch.Tensor,  # [Swin, Swin, C]
-    centers: torch.Tensor,  # [N, 2] (x, y) in window px
+    window: torch.Tensor,  # [Swin, Swin, C], or [K, Swin, Swin, C]
+    centers: torch.Tensor,  # [N, 2] (x, y) in window px ([K, N, 2]: each window's own)
     sizes: torch.Tensor,  # [N, 2] (w, h) in window px
     crop_size: int,
     patch_size: int,
@@ -57,22 +59,24 @@ def window_gather_patchify_plain(
     weight's dtype, one product, then the bias added in that dtype (so in
     bf16 it rounds after the product and again after the bias, where the
     kernel rounds once)."""
-    crops = extract_crops(window.to(torch.float32), centers, sizes, crop_size)
-    toks = patchify(crops, patch_size)  # [N, g*g, p*p*C]
-    return toks.to(kernel.dtype) @ kernel + bias.to(kernel.dtype)
+    crops = extract_crops(window.to(torch.float32), centers, sizes, crop_size)  # [..., N, s, s, C]
+    toks = patchify(crops.reshape(-1, *crops.shape[-3:]), patch_size)  # [*N, g*g, p*p*C]
+    toks = toks.to(kernel.dtype) @ kernel + bias.to(kernel.dtype)
+    return toks.reshape(*centers.shape[:-1], *toks.shape[-2:])
 
 
 class LaunchPlan(NamedTuple):
     path: str  # "wide" or "narrow" (bf16 on tensor cores), "scalar" (f32 FMAs)
-    rows: int  # N * g*g token rows
+    rows: int  # windows * N * g*g token rows
     row_tiles: int
     col_tiles: int
     grid: tuple[int, int]  # (row-tile slots, column-tile slots): a block a tile
     smem: int  # dynamic shared memory a block, bytes
-    n: int
+    n: int  # boxes a window
     swin: int
     c: int
     d: int
+    windows: int = 1
 
 
 def smem_bytes(path: str, patch: int, c: int, crop: int) -> int:
@@ -105,13 +109,15 @@ def launch_plan(window: torch.Tensor, centers: torch.Tensor, sizes: torch.Tensor
         raise ValueError("window, centers, sizes, kernel and bias must be on one device")
     if not all(x.is_contiguous() for x in tensors):
         raise ValueError("gather_patchify_window needs contiguous tensors")
-    if window.dim() != 3 or window.shape[0] != window.shape[1]:
-        raise ValueError(f"window must be [Swin, Swin, C], got {tuple(window.shape)}")
-    swin, _, c = window.shape
-    n = centers.shape[0]
-    if centers.shape != (n, 2) or sizes.shape != (n, 2) or n < 1:
-        raise ValueError(f"centers and sizes must be [N, 2] with N >= 1, got "
-                         f"{tuple(centers.shape)}, {tuple(sizes.shape)}")
+    if window.dim() not in (3, 4) or window.shape[-3] != window.shape[-2]:
+        raise ValueError(f"window must be [Swin, Swin, C] or [K, Swin, Swin, C], got {tuple(window.shape)}")
+    swin, _, c = window.shape[-3:]
+    windows = window.shape[0] if window.dim() == 4 else 1
+    lead = window.shape[:-3]
+    n = centers.shape[-2] if centers.dim() >= 2 else 0
+    if centers.shape != (*lead, n, 2) or sizes.shape != centers.shape or n < 1 or windows < 1:
+        raise ValueError(f"centers and sizes must be [N, 2] ([K, N, 2] for K windows) with N >= 1, got "
+                         f"{tuple(centers.shape)}, {tuple(sizes.shape)} for window {tuple(window.shape)}")
     if not (window.dtype == centers.dtype == sizes.dtype == torch.float32):
         raise ValueError("window, centers and sizes must be float32")
     if kernel.dtype != bias.dtype or kernel.dtype not in _DTYPE_CODES:
@@ -124,7 +130,9 @@ def launch_plan(window: torch.Tensor, centers: torch.Tensor, sizes: torch.Tensor
     if kernel.shape != (p * p * c, d) or bias.shape != (d,) or d < 1:
         raise ValueError(f"kernel must be [{p * p * c}, D] and bias [D], got "
                          f"{tuple(kernel.shape)}, {tuple(bias.shape)}")
-    rows = n * (crop_size // p) ** 2
+    rows = windows * n * (crop_size // p) ** 2
+    if windows * swin * swin * c > 2**31 - 1:
+        raise ValueError(f"{windows} windows of {swin} x {swin} x {c} is more than the kernel indexes")
     if rows > 2**31 - 1:
         raise ValueError(f"{rows} token rows is more than the kernel indexes")
     if kernel.dtype == torch.bfloat16 and d % 8 == 0:
@@ -148,7 +156,7 @@ def launch_plan(window: torch.Tensor, centers: torch.Tensor, sizes: torch.Tensor
         raise ValueError(f"patch {p} with {c} channels needs more shared memory than a block has")
     path, smem, row_tiles, col_tiles = plan
     grid = (min(row_tiles, _MAX_GRID_X), min(col_tiles, _MAX_GRID_Y))
-    return LaunchPlan(path, rows, row_tiles, col_tiles, grid, smem, n, swin, c, d)
+    return LaunchPlan(path, rows, row_tiles, col_tiles, grid, smem, n, swin, c, d, windows)
 
 
 def launch(plan: LaunchPlan, window, centers, sizes, crop_size: int, patch_size: int, kernel, bias,
@@ -162,7 +170,7 @@ def launch(plan: LaunchPlan, window, centers, sizes, crop_size: int, patch_size:
         stream = torch.cuda.current_stream(window.device).cuda_stream
         rc = lib.vpt_window_patchify_fwd(
             window.data_ptr(), centers.data_ptr(), sizes.data_ptr(), kernel.data_ptr(), bias.data_ptr(),
-            out.data_ptr(), plan.n, plan.swin, plan.c, crop_size, patch_size, plan.d,
+            out.data_ptr(), plan.n, plan.windows, plan.swin, plan.c, crop_size, patch_size, plan.d,
             _DTYPE_CODES[kernel.dtype], _PATH_CODES[plan.path], *plan.grid, stream,
         )
     if rc != 0:
@@ -182,10 +190,13 @@ def gather_patchify_window(
     """Kernel K2 on the card. window: contiguous CUDA [Swin, Swin, C] f32;
     centers, sizes: contiguous [N, 2] f32; kernel [p*p*C, D] and bias [D]:
     contiguous, both float32 or both bfloat16 -> [N, g*g, D] in their dtype.
+    K windows [K, Swin, Swin, C] with boxes [K, N, 2] -> [K, N, g*g, D], one
+    launch.
 
     Adds one to ``gather_patchify_window.launches`` (and to
-    ``gather_patchify_window.sizes[N]``) per launch, so a run can show that
-    its patch embedding went through the kernel, and for how many boxes.
+    ``gather_patchify_window.sizes[N]``, or ``sizes[(K, N)]`` for K windows)
+    per launch, so a run can show that its patch embedding went through the
+    kernel, and for how many boxes.
     """
     if not all(x.is_cuda for x in (window, centers, sizes, kernel, bias)):
         raise ValueError(
@@ -194,10 +205,10 @@ def gather_patchify_window(
     dev = window.device
     plan = launch_plan(window, centers, sizes, crop_size, patch_size, kernel, bias, sm_count(dev))
     g = crop_size // patch_size
-    out = torch.empty((plan.n, g * g, plan.d), dtype=kernel.dtype, device=dev)
+    out = torch.empty((*window.shape[:-3], plan.n, g * g, plan.d), dtype=kernel.dtype, device=dev)
     launch(plan, window, centers, sizes, crop_size, patch_size, kernel, bias, out)
     gather_patchify_window.launches += 1
-    gather_patchify_window.sizes[plan.n] += 1
+    gather_patchify_window.sizes[plan.n if window.dim() == 3 else (plan.windows, plan.n)] += 1
     return out
 
 

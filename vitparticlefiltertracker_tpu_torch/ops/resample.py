@@ -11,7 +11,8 @@ import torch
 
 
 def ranks_in_sorted(keys: torch.Tensor, queries: torch.Tensor) -> torch.Tensor:
-    """rank[i] = #{j : keys[j] < queries[i]} for ascending keys -> [M] int64.
+    """rank[i] = #{j : keys[j] < queries[i]} for ascending keys -> [..., M]
+    int64 (leading axes: one sorted row of keys each).
 
     For sorted keys this is searchsorted(side='left'), which counts exactly.
     """
@@ -19,17 +20,18 @@ def ranks_in_sorted(keys: torch.Tensor, queries: torch.Tensor) -> torch.Tensor:
 
 
 def systematic_resample_indices(weights: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
-    """Ancestor indices [N] int64, ascending by construction.
+    """Ancestor indices [..., N] int64, ascending by construction.
 
-    weights: [N] normalized probabilities; u: scalar U[0, 1) draw.
+    weights: [..., N] normalized probabilities; u: [...] U[0, 1) draws, one a
+    row of weights.
     """
-    n = weights.shape[0]
+    n = weights.shape[-1]
     dtype = weights.dtype
-    positions = (u.to(dtype) + torch.arange(n, dtype=dtype, device=weights.device)) / n
-    cumsum = torch.cumsum(weights, dim=0)
+    positions = (u.to(dtype)[..., None] + torch.arange(n, dtype=dtype, device=weights.device)) / n
+    cumsum = torch.cumsum(weights, dim=-1)
     # Guard against cumsum[-1] < 1 from float undersum (the oracle does the same).
-    last = torch.clamp(cumsum[-1:], min=1.0)
-    cumsum = torch.cat([cumsum[:-1], last])
+    last = torch.clamp(cumsum[..., -1:], min=1.0)
+    cumsum = torch.cat([cumsum[..., :-1], last], dim=-1)
     idx = ranks_in_sorted(cumsum, positions)
     return torch.clamp(idx, 0, n - 1)
 

@@ -2,7 +2,9 @@
 of the JAX package's one jitted, state-donating step executable.
 
 ``StepGraphs`` holds, for one frame shape and dtype, the static buffers a
-step reads (the frame, the step noise, the re-detection reseed normals) and
+step reads (the frame, the step noise, the re-detection reseed normals; with
+a leading K axis for K banks: frame [H, W, 3] shared or [K, H, W, 3], noise
+[K, N, ...], reseed [K, N, 2]) and
 one graph for each branch key (probe, scan) that the config can take. Every
 graph reads the tracker state from the same static buffers and writes the
 new state back into them as its last operations, so replaying a graph
@@ -73,25 +75,26 @@ def copy_state_(dst, src) -> None:
             d.copy_(s)
 
 
-# body(state, frame, noise, reseed, probe, scan) -> (new state, [12] f32 row)
+# body(state, frame, noise, reseed, probe, scan) -> (new state, [12 K] f32 row)
 StepBody = Callable[..., tuple[object, torch.Tensor]]
 
 
 class StepGraphs:
     """The graphs of one frame shape and dtype over the static `state`.
 
-    body: the step; it returns the new state and a [12] f32 row (the packed
-    TrackOutput, then the new state's lost flag and lost count), and must be
-    capturable: no host read and no copy from host memory.
+    body: the step; it returns the new state and a [12 K] f32 row (the
+    packed TrackOutput of the K filters, then their lost flags and lost
+    counts; K = 1 without banks), and must be capturable: no host read and
+    no copy from host memory. lead: the state's leading axes, () or (K,).
     """
 
     def __init__(self, body: StepBody, state, frame_shape, frame_dtype: torch.dtype, n: int,
-                 keys: Iterable[tuple[bool, bool]], pool):
+                 keys: Iterable[tuple[bool, bool]], pool, lead: tuple[int, ...] = ()):
         dev = state.center.device
         self.frame = torch.zeros(frame_shape, dtype=frame_dtype, device=dev)
-        self.noise = StepNoise(pos=torch.zeros((n, 2), device=dev), vel=torch.zeros((n, 2), device=dev),
-                               scale=torch.zeros((n,), device=dev), resample_u=torch.zeros((), device=dev))
-        self.reseed = torch.zeros((n, 2), device=dev)
+        self.noise = StepNoise(pos=torch.zeros((*lead, n, 2), device=dev), vel=torch.zeros((*lead, n, 2), device=dev),
+                               scale=torch.zeros((*lead, n), device=dev), resample_u=torch.zeros(lead, device=dev))
+        self.reseed = torch.zeros((*lead, n, 2), device=dev)
         self.graphs: dict[tuple[bool, bool], torch.cuda.CUDAGraph] = {}
         self.rows: dict[tuple[bool, bool], torch.Tensor] = {}
         self.counts: dict[tuple[bool, bool], list] = {}
@@ -119,7 +122,7 @@ class StepGraphs:
             self.rows[key] = row
 
     def replay(self, key: tuple[bool, bool]) -> torch.Tensor:
-        """Run the step of branch `key` on the current stream -> its [12]
+        """Run the step of branch `key` on the current stream -> its [12 K]
         row, a buffer the next replay of that graph overwrites."""
         self.graphs[key].replay()
         add_counts(self.counts[key])

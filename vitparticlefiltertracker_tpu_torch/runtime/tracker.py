@@ -17,6 +17,11 @@ anchor, coasting, the residual head's blend (static, or automatic for the
 likelihood), global re-detection (the tiled scan in dense mode, one flat
 grid of crops in crop mode) with its reseed, the Tracker class and the
 name-keyed state npz shared with the JAX package.
+
+The step takes an optional leading bank axis on every state leaf (K
+independent filters, each with its own seed, in one batched step: one ViT
+forward at B = K), which is how ``runtime/banked.py`` gets the JAX
+package's ``vmap`` of this same step.
 """
 
 from __future__ import annotations
@@ -71,7 +76,8 @@ from vitparticlefiltertracker_tpu_torch.utils.platform import resolve_device
 
 
 class TrackerState(NamedTuple):
-    """Tracker state; every leaf is a tensor on the tracker's device."""
+    """Tracker state; every leaf is a tensor on the tracker's device (with a
+    leading K axis for K banks)."""
 
     pf: PFState
     template: torch.Tensor  # [C, D] f32, L2-normalized adaptive template (EMA)
@@ -104,23 +110,28 @@ class TrackOutput(NamedTuple):
 
 
 def pack_track_output(out: TrackOutput) -> torch.Tensor:
-    """Flatten a TrackOutput into one f32 vector [10]: the fields in order,
-    each raveled and cast to f32 (the JAX package's layout)."""
+    """Flatten a TrackOutput into one f32 vector [10] ([10 K] for K banks):
+    the fields in order, each raveled and cast to f32 (the JAX package's
+    layout: all K positions, then all K boxes, and so on)."""
     return torch.cat([x.reshape(-1).to(torch.float32) for x in out])
 
 
-def unpack_track_output(packed: torch.Tensor) -> TrackOutput:
+_FIELD_WIDTHS = (2, 2, 2, 1, 1, 1, 1)  # TrackOutput's fields, values a bank
+
+
+def unpack_track_output(packed: torch.Tensor, banks: int | None = None) -> TrackOutput:
     """pack_track_output's inverse on rows [..., 10] -> TrackOutput with the
-    leading axes (views of `packed`; the two flags compared to 0)."""
-    return TrackOutput(
-        position=packed[..., 0:2],
-        box=packed[..., 2:4],
-        velocity=packed[..., 4:6],
-        conf=packed[..., 6],
-        ess=packed[..., 7],
-        resampled=packed[..., 8] != 0,
-        lost=packed[..., 9] != 0,
-    )
+    leading axes (views of `packed`; the two flags compared to 0). With
+    `banks` K, rows [..., 10 K] -> fields with [..., K] leading axes."""
+    k = 1 if banks is None else banks
+    lead = packed.shape[:-1] if banks is None else (*packed.shape[:-1], k)
+    fields, i = [], 0
+    for width in _FIELD_WIDTHS:
+        x = packed[..., i:i + width * k]
+        fields.append(x.reshape(*lead, width) if width > 1 else x.reshape(lead))
+        i += width * k
+    *values, resampled, lost = fields
+    return TrackOutput(*values, resampled=resampled != 0, lost=lost != 0)
 
 
 def _pf_params(cfg: Config) -> PFParams:
@@ -139,7 +150,12 @@ def _pf_params(cfg: Config) -> PFParams:
 
 
 def _window_side(box_wh: torch.Tensor, scale, search_scale: float) -> torch.Tensor:
-    return search_scale * torch.sqrt(box_wh[0] * box_wh[1]) * scale
+    return search_scale * torch.sqrt(box_wh[..., 0] * box_wh[..., 1]) * scale
+
+
+def _flag_like(flag: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """A per-bank flag [...] with trailing axes of 1 to broadcast against `like`."""
+    return flag.reshape(*flag.shape, *[1] * (like.dim() - flag.dim()))
 
 
 def _norm_folded_embed_weights(prm: dict, spec: VitSpec) -> tuple[torch.Tensor, torch.Tensor]:
@@ -157,15 +173,17 @@ def _norm_folded_embed_weights(prm: dict, spec: VitSpec) -> tuple[torch.Tensor, 
     return kern_scaled.to(spec.dtype), bias.to(spec.dtype)
 
 
-def seed_key(seed: int, device) -> torch.Tensor:
-    """[2] int64 (hi, lo) 32-bit words of a seed."""
-    s = int(seed) & 0xFFFFFFFFFFFFFFFF
-    return torch.tensor([s >> 32, s & 0xFFFFFFFF], dtype=torch.int64, device=device)
+def seed_key(seed, device) -> torch.Tensor:
+    """[2] int64 (hi, lo) 32-bit words of a seed ([K, 2] for a list of K)."""
+    seeds = [int(x) & 0xFFFFFFFFFFFFFFFF for x in (seed if isinstance(seed, (list, tuple)) else [seed])]
+    words = torch.tensor([[s >> 32, s & 0xFFFFFFFF] for s in seeds], dtype=torch.int64, device=device)
+    return words if isinstance(seed, (list, tuple)) else words[0]
 
 
-def key_seed(key: torch.Tensor) -> int:
-    hi, lo = (int(x) for x in key.tolist())
-    return (hi << 32) | lo
+def key_seed(key: torch.Tensor):
+    """seed_key's inverse: an int for [2], a list of K ints for [K, 2]."""
+    seeds = [(hi << 32) | lo for hi, lo in key.reshape(-1, 2).tolist()]
+    return seeds if key.dim() > 1 else seeds[0]
 
 
 class _Fns(NamedTuple):
@@ -190,12 +208,18 @@ def build_tracker_fns(cfg: Config) -> _Fns:
     step(params, state, frame, noise=None, reseed=None, probe=None, scan=None)
         -> (TrackerState, TrackOutput)
     track_clip(params, state, frames, noises=None, reseeds=None)
-        -> (TrackerState, TrackOutput with a leading K axis)
+        -> (TrackerState, TrackOutput with a leading T axis)
 
     frame: [H, W, 3] tensor (uint8 or float, 0..255) on the run's device.
     cloud / noise / reseed: optional injected initial particles, step draws
     and [N, 2] re-detection reseed normals (parity runs); by default they are
     drawn from generators keyed on (seed, frame).
+
+    K banks: init with bboxes [K, 4] and K seeds gives a state with a leading
+    K on every leaf, and the same step advances all K in one batched step
+    (frame [H, W, 3] shared by the banks, or [K, H, W, 3], one each; noise
+    and reseed with a leading K; outputs [K, ...]). Bank k's draws are those
+    of a single filter with its seed at its own frame index.
 
     probe / scan choose the step's two lost-only branches (``lax.cond`` in
     the JAX package). Left None, the step reads the flag it needs back from
@@ -203,10 +227,12 @@ def build_tracker_fns(cfg: Config) -> _Fns:
     scan. Given, the step is capturable in a CUDA graph, provided noise and,
     when scan is True, reseed are given too: no host read and no copy from
     host memory runs in it. probe=True probes (a no-op unless the config
-    gates on confidence in dense mode); scan=True ("armed") runs the scan and
-    applies its effects where the step's own lost count reaches
-    redetect_global_after and the match is accepted, so an armed step whose
-    trigger stays low gives what an unarmed one gives.
+    gates on confidence in dense mode) where the state is lost; scan=True
+    ("armed") runs the scan and applies its effects where the step's own lost
+    count reaches redetect_global_after and the match is accepted, so an
+    armed step whose trigger stays low gives what an unarmed one gives. With
+    banks each flag is per bank: a branch runs for all banks when any needs
+    it, and each bank takes its effects only where its own flag says so.
     """
     t = cfg.tracker
     m = cfg.model
@@ -259,7 +285,9 @@ def build_tracker_fns(cfg: Config) -> _Fns:
 
     def crop_embeddings(prm, view: FrameView, center, side, boxes_xy, boxes_wh):
         """Gather + patchify + embed every box's crop, then one batched ViT
-        forward -> ([N, D] pooled embeddings, [N] all-True validity)."""
+        forward -> ([..., N, D] pooled embeddings, [..., N] all-True
+        validity); leading axes: a search window (center [..., 2], side
+        [...]) a bank, all banks' crops in one forward."""
         kern, bias = _norm_folded_embed_weights(prm, spec)
         if t.crop_impl == "frame":
             # Sample in the view's pixel coordinates.
@@ -269,117 +297,141 @@ def build_tracker_fns(cfg: Config) -> _Fns:
                 t.crop_size, m.patch_size, kern, bias, region=t.crop_region,
             )
         else:
-            # Two stages: resample one search window, then every particle's
-            # crop from it (K2 on the card for window-pallas).
+            # Two stages: resample one search window a bank, then every
+            # particle's crop from it (K2 on the card for window-pallas, one
+            # launch for all banks).
             swin = t.window_size
             window = view_extract_window_mxu(view, center, side, swin)
+            center, side = center[..., None, :], side[..., None, None]
             ctr_win = frame_to_window_coords(boxes_xy, center, side, swin)
             wh_win = boxes_wh * (swin / side)
             embed = window_gather_patchify if t.crop_impl == "window-pallas" else window_gather_patchify_plain
             tokens = embed(window, ctr_win, wh_win, t.crop_size, m.patch_size, kern, bias)
-        feats = encode_tokens(prm, tokens, spec)
-        ok = torch.ones(boxes_xy.shape[0], dtype=torch.bool, device=boxes_xy.device)
-        return pool_tokens(feats, spec), ok
+        lead = boxes_xy.shape[:-1]
+        feats = encode_tokens(prm, tokens.reshape(-1, *tokens.shape[-2:]), spec)
+        ok = torch.ones(lead, dtype=torch.bool, device=boxes_xy.device)
+        return pool_tokens(feats, spec).reshape(*lead, -1), ok
 
     def make_embedder(prm, view: FrameView, center, side):
         if mode == "dense":
             return make_dense_embedder(prm, view, center, side, es)
         return lambda bxy, bwh: crop_embeddings(prm, view, center, side, bxy, bwh)
 
-    def init_fn(prm, frame, bbox: torch.Tensor, seed: int, cloud=None) -> TrackerState:
-        """bbox: [4] (x, y, w, h) frame px. Template and cloud init."""
+    def init_fn(prm, frame, bbox: torch.Tensor, seed, cloud=None) -> TrackerState:
+        """bbox: [4] (x, y, w, h) frame px and one seed; or [K, 4] and K
+        seeds for K banks, every state leaf then with a leading K (frame
+        [H, W, 3] shared, or [K, H, W, 3], a frame a bank). Template and
+        cloud init."""
         dev = bbox.device
+        lead = bbox.shape[:-1]
+        if lead:
+            seed = [int(s) for s in seed]
+            if len(seed) != lead[0]:
+                raise ValueError(f"{lead[0]} boxes but {len(seed)} seeds")
         view = full_view(frame.to(torch.float32))
-        center = bbox[:2] + bbox[2:] / 2.0
-        box_wh = bbox[2:]
+        center = bbox[..., :2] + bbox[..., 2:] / 2.0
+        box_wh = bbox[..., 2:]
         side = _window_side(box_wh, 1.0, t.search_scale)
-        emb, _ = make_embedder(prm, view, center, side)(center[None], box_wh[None])
-        template = l2_normalize_split(emb[0].float(), split)
+        emb, _ = make_embedder(prm, view, center, side)(center[..., None, :], box_wh[..., None, :])
+        template = l2_normalize_split(emb.select(len(lead), 0).float(), split)
         pf = init_state(seed, center, n, pfp, cloud=cloud)
+
+        def full(value, dtype=torch.float32):
+            return torch.full(lead, value, dtype=dtype, device=dev)
+
         return TrackerState(
             pf=pf,
             template=template,
             anchor=template,
             box_wh=box_wh,
             center=center,
-            prev_scale=f32(1.0, dev),
+            prev_scale=full(1.0),
             key=seed_key(seed, dev),
-            frame_idx=torch.tensor(0, dtype=torch.int32, device=dev),
-            conf=f32(1.0, dev),
-            lost=torch.tensor(False, device=dev),
-            lost_count=torch.tensor(0, dtype=torch.int32, device=dev),
-            conf_ema=f32(-1.0, dev),
+            frame_idx=full(0, torch.int32),
+            conf=full(1.0),
+            lost=full(False, torch.bool),
+            lost_count=full(0, torch.int32),
+            conf_ema=full(-1.0),
             coast_xy=center,
-            coast_vel=torch.zeros(2, dtype=torch.float32, device=dev),
-            coast_acc=torch.zeros(2, dtype=torch.float32, device=dev),
-            blend=f32(-1.0, dev),
+            coast_vel=torch.zeros((*lead, 2), dtype=torch.float32, device=dev),
+            coast_acc=torch.zeros((*lead, 2), dtype=torch.float32, device=dev),
+            blend=full(-1.0),
         )
 
     g = t.redetect_global_grid
     c_sub = 3  # candidate sub-grid per tile (dense tiled scan)
 
     def global_scan(prm, view: FrameView, tmpl, side, cand_wh):
-        """Score a grid of candidate boxes of size cand_wh over the whole frame
-        against the template -> (best_xy [2], best_cos [], best_z []), z being
-        the winner's margin over the valid candidates in standard deviations.
+        """Score a grid of candidate boxes of size cand_wh [..., 2] over the
+        whole frame against the template -> (best_xy [..., 2], best_cos
+        [...], best_z [...]), z being the winner's margin over the valid
+        candidates in standard deviations; each bank of a leading axis scans
+        with its own template, window side and box.
 
         Dense mode tiles the frame with G*G windows at about the local
-        search's scale (one batched ViT forward) and C*C candidates a tile;
-        crop mode embeds the G*G tile centres as crops of one whole-frame
-        window. A function of tensors only, so a captured step can hold it."""
+        search's scale (one batched ViT forward for all banks) and C*C
+        candidates a tile; crop mode embeds the G*G tile centres as crops of
+        one whole-frame window. A function of tensors only, so a captured
+        step can hold it."""
         dev = cand_wh.device
-        h_px, w_px = int(view.pixels.shape[0]), int(view.pixels.shape[1])
+        lead = cand_wh.shape[:-1]
+        h_px, w_px = int(view.pixels.shape[-3]), int(view.pixels.shape[-2])
         fc = frame_consts(h_px, w_px, dev)
         gxs = (torch.arange(g, dtype=torch.float32, device=dev) + 0.5) * (w_px / g)
         gys = (torch.arange(g, dtype=torch.float32, device=dev) + 0.5) * (h_px / g)
         # Row-major [G*G, 2]; expand + reshape repeats each y without the
         # host read of repeat_interleave.
         tile_ctrs = torch.stack([gxs.repeat(g), gys[:, None].expand(g, g).reshape(-1)], dim=-1)
+        tile_ctrs = tile_ctrs.expand(*lead, g * g, 2)
         frame_side = fc["frame_side"]
         if mode == "dense":
             tile_side = torch.maximum(1.25 * frame_side / g, side)
             oxs = (torch.arange(c_sub, dtype=torch.float32, device=dev) - (c_sub - 1) / 2) * (w_px / (g * c_sub))
             oys = (torch.arange(c_sub, dtype=torch.float32, device=dev) - (c_sub - 1) / 2) * (h_px / (g * c_sub))
             offs = torch.stack([oxs.repeat(c_sub), oys[:, None].expand(c_sub, c_sub).reshape(-1)], dim=-1)  # [C*C, 2]
-            cand = tile_ctrs[:, None, :] + offs[None, :, :]  # [G*G, C*C, 2]
+            cand = tile_ctrs[..., :, None, :] + offs  # [..., G*G, C*C, 2]
             emb, valid = tiled_window_embed(prm, view, tile_ctrs, tile_side, es, cand, cand_wh)
-            emb = emb.reshape(g * g * c_sub * c_sub, *emb.shape[2:])
-            valid = valid.reshape(-1)
-            cand = cand.reshape(-1, 2)
+            emb = emb.reshape(*lead, g * g * c_sub * c_sub, *emb.shape[len(lead) + 2:])
+            valid = valid.reshape(*lead, -1)
+            cand = cand.reshape(*lead, -1, 2)
         else:
             cand = tile_ctrs
-            emb, valid = crop_embeddings(prm, view, fc["frame_center"], frame_side, cand, cand_wh.expand(cand.shape))
-        _, cos = cosine_log_likelihood(emb, tmpl, 1.0, split=split)
+            emb, valid = crop_embeddings(prm, view, fc["frame_center"].expand(*lead, 2), frame_side.expand(lead),
+                                         cand, cand_wh[..., None, :].expand(cand.shape))
+        _, cos = cosine_log_likelihood(emb, tmpl, 1.0, split=split, batch_dims=len(lead))
         cos = torch.where(valid, cos, -2.0)
-        # A [1] index, not a 0-d one: indexing with a 0-d tensor reads it
-        # back to the host.
-        b = torch.argmax(cos, dim=0, keepdim=True)
-        nv = torch.clamp(valid.sum(), min=1)
-        mu = torch.sum(torch.where(valid, cos, 0.0)) / nv
-        var = torch.sum(torch.where(valid, (cos - mu) ** 2, 0.0)) / nv
-        best_cos = cos[b][0]
+        # A [..., 1] index taken with gather, not a 0-d one: indexing with a
+        # 0-d tensor reads it back to the host.
+        b = torch.argmax(cos, dim=-1, keepdim=True)
+        nv = torch.clamp(valid.sum(dim=-1), min=1)
+        mu = torch.sum(torch.where(valid, cos, 0.0), dim=-1) / nv
+        var = torch.sum(torch.where(valid, (cos - mu[..., None]) ** 2, 0.0), dim=-1) / nv
+        best_cos = torch.gather(cos, -1, b)[..., 0]
         z = (best_cos - mu) * torch.rsqrt(var + 1e-8)
-        return cand[b][0], best_cos, z
+        best_xy = torch.gather(cand, -2, b[..., None].expand(*lead, 1, 2))[..., 0, :]
+        return best_xy, best_cos, z
 
     def step_fn(prm, state: TrackerState, frame, noise: StepNoise | None = None,
                 reseed: torch.Tensor | None = None, probe: bool | None = None, scan: bool | None = None):
         dev = state.center.device
+        lead = state.center.shape[:-1]  # () for one filter, (K,) for K banks
+        nb = len(lead)
         view = full_view(frame.to(torch.float32))
-        fh, fw = int(frame.shape[0]), int(frame.shape[1])
+        fh, fw = int(frame.shape[-3]), int(frame.shape[-2])
         fc = frame_consts(fh, fw, dev)
         if noise is None:
-            noise = draw_step_noise(key_seed(state.key), int(state.frame_idx), n, dev)
-        probe = probe_gated and (bool(state.lost) if probe is None else probe)
+            noise = draw_step_noise(key_seed(state.key), state.frame_idx.tolist(), n, dev)
+        probe = probe_gated and (bool(state.lost.any()) if probe is None else probe)
         # While lost, sweep a wider area: inflate position diffusion and the
         # search window until re-lock.
         noise_boost = torch.where(state.lost, t.redetect_noise_boost, 1.0)
-        noise = noise._replace(pos=noise.pos * noise_boost)
+        noise = noise._replace(pos=noise.pos * noise_boost[..., None, None])
         particles = propagate(state.pf.particles, noise, pfp.motion)
 
         side = _window_side(state.box_wh, state.prev_scale, t.search_scale)
         side = side * torch.where(state.lost, t.redetect_window_boost, 1.0)
-        boxes_xy = particles[:, 0:2]
-        boxes_wh = state.box_wh[None, :] * torch.exp(particles[:, 4:5])
+        boxes_xy = particles[..., 0:2]
+        boxes_wh = state.box_wh[..., None, :] * torch.exp(particles[..., 4:5])
         pool = make_embedder(prm, view, state.center, side)
         # Matching template: adaptive EMA blended with the immutable anchor.
         if anchor_mix > 0.0 and ema > 0.0:
@@ -399,10 +451,10 @@ def build_tracker_fns(cfg: Config) -> _Fns:
             # Confusion: the spatial spread of the trunk landscape's top slice,
             # in box diagonals.
             spread = landscape_spread(cos_f, boxes_xy, m.head_blend_top_frac, mask=in_win)
-            box_diag = torch.linalg.vector_norm(state.box_wh) * state.prev_scale
+            box_diag = torch.linalg.vector_norm(state.box_wh, dim=-1) * state.prev_scale
             b_tgt = auto_blend_target(spread, box_diag, m.head_blend_spread_lo, m.head_blend_spread_hi,
                                       m.head_blend_min, m.head_blend_max)
-            b_use = torch.where(state.lost, b_static, torch.maximum(b_run, b_tgt))
+            b_use = torch.where(state.lost, b_static, torch.maximum(b_run, b_tgt))[..., None]
             cos_loc = (1.0 - b_use) * cos_f + b_use * cos_h
             loglik = znormed_logits_from_cos(cos_loc, zscale, mask=in_win) if use_znorm else temp * cos_loc
         elif mode == "dense":
@@ -416,30 +468,34 @@ def build_tracker_fns(cfg: Config) -> _Fns:
         else:
             emb, in_win = pool(boxes_xy, boxes_wh)
             if use_znorm:
-                loglik, cos = znormed_log_likelihood(emb, tmpl, zscale, mask=in_win, split=split)
+                loglik, cos = znormed_log_likelihood(emb, tmpl, zscale, mask=in_win, split=split, batch_dims=nb)
             else:
-                loglik, cos = cosine_log_likelihood(emb, tmpl, temp, split=split)
+                loglik, cos = cosine_log_likelihood(emb, tmpl, temp, split=split, batch_dims=nb)
         loglik = torch.where(in_win, loglik, loglik - 1e4)
 
         out = pf_update(particles, state.pf.log_weights, loglik, noise.resample_u, pfp)
         if t.estimate == "mode":
-            est = particles[torch.argmax(state.pf.log_weights + loglik, dim=0, keepdim=True)][0]
+            best = torch.argmax(state.pf.log_weights + loglik, dim=-1, keepdim=True)
+            est = torch.gather(particles, -2, best[..., None].expand(*lead, 1, particles.shape[-1]))[..., 0, :]
         else:
             est = out.estimate
-        est_xy = est[0:2]
-        est_scale = torch.exp(est[4])
+        est_xy = est[..., 0:2]
+        est_scale = torch.exp(est[..., 4])
+        est_box = (state.box_wh * est_scale[..., None])[..., None, :]  # [..., 1, 2]
         # Confidence = best valid cosine; all-out-of-window gives -1.
-        conf = torch.max(torch.where(in_win, cos, -1.0))
+        conf = torch.amax(torch.where(in_win, cos, -1.0), dim=-1)
         if probe:
             # While lost the window is boosted, which depresses every cosine;
             # probe the estimate through an unboosted window instead (one
             # extra ViT forward, on lost frames only). Crop mode embeds at
-            # the box's own scale already and has no probe.
+            # the box's own scale already and has no probe. With banks the
+            # probe runs for all while any is lost, and each takes its result
+            # where it was lost (what JAX's vmap makes of the lax.cond).
             side0 = _window_side(state.box_wh, state.prev_scale, t.search_scale)
             pool_p = make_dense_embedder(prm, view, est_xy, side0, es)
-            emb_p, ok_p = pool_p(est_xy[None], (state.box_wh * est_scale)[None])
-            _, cos_p = cosine_log_likelihood(emb_p, tmpl, 1.0, split=split)
-            conf_gate = torch.where(ok_p[0], cos_p[0], -1.0)
+            emb_p, ok_p = pool_p(est_xy[..., None, :], est_box)
+            _, cos_p = cosine_log_likelihood(emb_p, tmpl, 1.0, split=split, batch_dims=nb)
+            conf_gate = torch.where(state.lost, torch.where(ok_p[..., 0], cos_p[..., 0], -1.0), conf)
         else:
             conf_gate = conf
         lost = conf_gate < lost_thresh
@@ -458,19 +514,19 @@ def build_tracker_fns(cfg: Config) -> _Fns:
 
         # Template EMA at the estimated box, gated on confidence.
         if ema > 0.0:
-            est_emb, _ = pool(est_xy[None], (state.box_wh * est_scale)[None])
+            est_emb, _ = pool(est_xy[..., None, :], est_box)
             cand = l2_normalize_split(
                 (1.0 - ema) * state.template
-                + ema * l2_normalize_split(est_emb[0].float(), split),
+                + ema * l2_normalize_split(est_emb.select(nb, 0).float(), split),
                 split,
             )
             do_upd = (conf > upd_conf) & ~lost & ~state.lost
-            template = torch.where(do_upd, cand, state.template)
+            template = torch.where(_flag_like(do_upd, cand), cand, state.template)
         else:
             template = state.template
 
         # When lost, freeze the search window instead of chasing noise.
-        new_center = torch.where(lost, state.center, est_xy)
+        new_center = torch.where(lost[..., None], state.center, est_xy)
         lost_count = torch.where(lost, state.lost_count + 1, torch.zeros_like(state.lost_count))
         new_pf = out.state
         scale_frozen = lost  # prev_scale keeps the pre-reseed lost flag
@@ -481,11 +537,12 @@ def build_tracker_fns(cfg: Config) -> _Fns:
         # row, scan a grid over the whole frame against the template and, on
         # an accepted match, reseed the cloud there (a branch chosen on the
         # host where the JAX package has lax.cond; its effects are gated on
-        # the trigger, so an armed step that does not trigger changes nothing).
+        # each bank's trigger, so an armed step that does not trigger changes
+        # nothing, and banks scan together while any may trigger).
         if scan is None:
-            scan = n_after > 0 and bool(lost_count >= n_after)
+            scan = n_after > 0 and bool((lost_count >= n_after).any())
         if scan and n_after > 0:
-            cand_wh = state.box_wh * state.prev_scale
+            cand_wh = state.box_wh * state.prev_scale[..., None]
             best_xy, best_cos, best_z = global_scan(prm, view, tmpl, side, cand_wh)
             accept = (lost_count >= n_after) & (best_cos >= t.redetect_accept_conf) & (best_z >= t.redetect_accept_z)
             if t.redetect_accept_ratio > 0:
@@ -493,16 +550,16 @@ def build_tracker_fns(cfg: Config) -> _Fns:
                 # unseeded.
                 accept = accept & ((state.conf_ema <= 0) | (best_cos >= t.redetect_accept_ratio * state.conf_ema))
             if reseed is None:
-                reseed = draw_reseed_noise(key_seed(state.key), int(state.frame_idx), n, dev)
+                reseed = draw_reseed_noise(key_seed(state.key), state.frame_idx.tolist(), n, dev)
             # A fresh cloud spread over the winning grid cell, zero velocity,
             # uniform weights.
-            reseeded = torch.cat([best_xy[None, :] + fc["cell_sigma"] * reseed,
-                                  torch.zeros((n, 2), dtype=torch.float32, device=dev),
-                                  new_pf.particles[:, 4:]], dim=1)
+            reseeded = torch.cat([best_xy[..., None, :] + fc["cell_sigma"] * reseed,
+                                  torch.zeros((*lead, n, 2), dtype=torch.float32, device=dev),
+                                  new_pf.particles[..., 4:]], dim=-1)
             uniform_w = torch.full((n,), -math.log(n), dtype=torch.float32, device=dev)
-            new_pf = PFState(particles=torch.where(accept, reseeded, new_pf.particles),
-                             log_weights=torch.where(accept, uniform_w, new_pf.log_weights))
-            new_center = torch.where(accept, best_xy, new_center)
+            new_pf = PFState(particles=torch.where(accept[..., None, None], reseeded, new_pf.particles),
+                             log_weights=torch.where(accept[..., None], uniform_w, new_pf.log_weights))
+            new_center = torch.where(accept[..., None], best_xy, new_center)
             lost_count = torch.where(accept, torch.zeros_like(lost_count), lost_count)
             # An accepted match is the re-acquisition and clears `lost`, unless
             # re-lock hysteresis is on: then the next step's unboosted probe
@@ -510,7 +567,7 @@ def build_tracker_fns(cfg: Config) -> _Fns:
             if relock_ratio <= 0.0:
                 lost = lost & ~accept
             accepted = accept
-            est_out = torch.where(accept, best_xy, est_xy)
+            est_out = torch.where(accept[..., None], best_xy, est_xy)
 
         # Lost-aware output: while lost the reported trajectory coasts on the
         # last-locked position and velocity (plus the clipped acceleration
@@ -518,7 +575,7 @@ def build_tracker_fns(cfg: Config) -> _Fns:
         # accepted global match snaps the output to the match and resets the
         # coast.
         frame_max = fc["frame_max"]
-        est_vel = est[2:4]
+        est_vel = est[..., 2:4]
         zero2 = torch.zeros_like(est_vel)
         a_ema = t.coast_accel_ema
         acc_upd = torch.clamp(
@@ -526,12 +583,13 @@ def build_tracker_fns(cfg: Config) -> _Fns:
             -t.coast_accel_clip,
             t.coast_accel_clip,
         )
-        coast_acc = torch.where(lost, state.coast_acc, torch.where(accepted, zero2, acc_upd))
+        lost2, accepted2 = lost[..., None], accepted[..., None]
+        coast_acc = torch.where(lost2, state.coast_acc, torch.where(accepted2, zero2, acc_upd))
         vel_lost = state.coast_vel + state.coast_acc
         coast_xy = torch.where(
-            lost, torch.clamp(state.coast_xy + vel_lost, min=torch.zeros_like(frame_max), max=frame_max), est_out
+            lost2, torch.clamp(state.coast_xy + vel_lost, min=torch.zeros_like(frame_max), max=frame_max), est_out
         )
-        coast_vel = torch.where(lost, vel_lost, torch.where(accepted, zero2, est_vel))
+        coast_vel = torch.where(lost2, vel_lost, torch.where(accepted2, zero2, est_vel))
         if auto_blend:
             # Frozen while lost; otherwise attack at once and release along
             # the EMA.
@@ -560,7 +618,7 @@ def build_tracker_fns(cfg: Config) -> _Fns:
         )
         track_out = TrackOutput(
             position=coast_xy,
-            box=state.box_wh * torch.where(lost, state.prev_scale, est_scale),
+            box=state.box_wh * torch.where(lost, state.prev_scale, est_scale)[..., None],
             velocity=coast_vel,
             conf=conf_gate,
             ess=out.ess,
@@ -570,8 +628,9 @@ def build_tracker_fns(cfg: Config) -> _Fns:
         return new_state, track_out
 
     def track_clip_fn(prm, state: TrackerState, frames, noises=None, reseeds=None):
-        """K sequential steps over frames [K, H, W, 3] -> (state, TrackOutput
-        with a leading K axis); noises / reseeds: optional per-frame draws."""
+        """T sequential steps over frames [T, ...] (a frame, or K frames, a
+        step) -> (state, TrackOutput with a leading T axis); noises /
+        reseeds: optional per-frame draws."""
         outs = []
         for i in range(frames.shape[0]):
             state, out = step_fn(prm, state, frames[i], None if noises is None else noises[i],
@@ -682,11 +741,11 @@ def load_tracker_state(path: str, device="cpu") -> TrackerState:
     )
 
 
-class Tracker:
-    """User-facing API: Tracker(cfg).init(frame, bbox); .step(frame); .run(source);
-    the device-side steps .step_device, .step_packed and .track_clip_device.
-
-    device: "cuda" (default) or "cpu". Asking for CUDA without a card raises.
+class _GraphStepper:
+    """The machinery shared by Tracker and the banked trackers
+    (runtime/banked.py): the device-side steps .step_device, .step_packed and
+    .track_clip_device over state with leading axes `lead` (() for one
+    filter, (K,) for K banks).
 
     On the card each step is one replay of a CUDA graph, captured once per
     frame shape and dtype (at init, or at the first step of a new shape): the
@@ -699,30 +758,22 @@ class Tracker:
     CPU the step runs eagerly.
 
     The step's noise is drawn on the host's call, keyed on (seed, frame
-    index), both kept on the host, so no step reads them back. Its two
-    lost-only branches are chosen on the host from the previous step's
-    `lost` flag and lost count: the probe graph while lost, and the "armed"
-    graph, which holds the global re-detection scan, once a trigger is
-    possible (lost_count >= redetect_global_after - 1). The JAX package
-    chooses both on the device (``lax.cond``), so it never waits; here a
-    config with either gate reads those two numbers back after every step:
-    one wait a step in step_device, step_packed and track_clip_device (a
-    config without gates waits for nothing there). ``step`` waits once a
-    step in any config, for its record.
+    index) of each bank, both kept on the host, so no step reads them back.
+    Its two lost-only branches are chosen on the host from the previous
+    step's `lost` flags and lost counts: the probe graph while any bank is
+    lost, and the "armed" graph, which holds the global re-detection scan,
+    once a bank's trigger is possible (lost_count >= redetect_global_after -
+    1); each bank takes a branch's effects only where its own flags say so.
+    The JAX package chooses both on the device (``lax.cond``, a select under
+    ``vmap``), so it never waits; here a config with either gate reads those
+    numbers back after every step: one wait a step in step_device,
+    step_packed and track_clip_device (a config without gates waits for
+    nothing there).
     """
 
-    def __init__(self, cfg: Config, vit_params=None, device="cuda", graphs: bool = True):
+    def _setup(self, cfg: Config, vit_params, device, graphs: bool, lead: tuple[int, ...]) -> None:
         from vitparticlefiltertracker_tpu_torch.models.params import resolve_vit_params
 
-        cfg.resolve()
-        r = cfg.runtime
-        if r.banks > 1:
-            raise NotImplementedError("runtime.banks > 1 (banked trackers) is not ported yet; see ROADMAP.md")
-        if r.mesh_particles * r.mesh_model > 1:
-            raise NotImplementedError(
-                f"runtime.mesh_particles {r.mesh_particles} x mesh_model {r.mesh_model} (multi-GPU) "
-                "is not ported yet; see ROADMAP.md (open items §1, Multi-GPU)"
-            )
         self.cfg = cfg
         self.device = resolve_device(device)
         spec = VitSpec.from_config(cfg.model)
@@ -732,38 +783,40 @@ class Tracker:
         self._fns = build_tracker_fns(cfg)
         self.vit_params = resolve_vit_params(cfg, vit_params, self.device)
         self.graphs = graphs and self.device.type == "cuda"
-        self._donate = bool(r.donate_state)
+        self._donate = bool(cfg.runtime.donate_state)
         self._probe_gated, self._n_after = step_branches(cfg)
         self._n = cfg.filter.num_particles
+        self._lead = lead
+        self._k = int(np.prod(lead, dtype=np.int64))  # filters a step
         self._state: TrackerState | None = None
         self._static: TrackerState | None = None  # the graphs' state buffers
         self._step_graphs: dict = {}  # (frame shape, dtype) -> StepGraphs
         self._pool = None
         self._pinned: dict = {}  # (shape, dtype) -> pinned host frame buffer (CUDA)
         self._row_buf: torch.Tensor | None = None  # pinned host copy of a step's row (CUDA)
-        # Host copies of what the next step needs: the noise key and frame
-        # index, and the previous step's lost flag and lost count.
-        self._seed = 0
-        self._frame_idx = 0
-        self._lost = False
-        self._lost_count = 0
+        # Host copies of what the next step needs, one a bank (arrays of
+        # shape `lead`): the noise seed and frame index, and the previous
+        # step's lost flag and lost count.
+        self._seed = np.zeros(lead, np.int64)
+        self._frame_idx = np.zeros(lead, np.int64)
+        self._lost = np.zeros(lead, np.bool_)
+        self._lost_count = np.zeros(lead, np.int64)
 
     # -- state ---------------------------------------------------------------
     @property
     def state(self) -> TrackerState | None:
         return self._state
 
-    @state.setter
-    def state(self, value: TrackerState) -> None:
-        """Install a state (read back once for the host's copies)."""
-        self._adopt(value, key_seed(value.key), int(value.frame_idx), bool(value.lost), int(value.lost_count))
-
-    def _adopt(self, state: TrackerState, seed: int, frame_idx: int, lost: bool, lost_count: int) -> None:
+    def _adopt(self, state: TrackerState, seed, frame_idx, lost, lost_count) -> None:
         """Take `state` (on any device) and the host's copies of its noise
-        key, frame index, lost flag and lost count."""
+        seeds, frame indices, lost flags and lost counts."""
         state = TrackerState(*(x.to(self.device) if isinstance(x, torch.Tensor)
                                else PFState(*(y.to(self.device) for y in x)) for x in state))
-        self._seed, self._frame_idx, self._lost, self._lost_count = seed, frame_idx, lost, lost_count
+        def host(x, dtype):
+            return np.broadcast_to(np.asarray(x, dtype), self._lead).copy()
+
+        self._seed, self._frame_idx = host(seed, np.int64), host(frame_idx, np.int64)
+        self._lost, self._lost_count = host(lost, np.bool_), host(lost_count, np.int64)
         if not self.graphs:
             self._state = state
             return
@@ -773,46 +826,36 @@ class Tracker:
             copy_state_(self._static, state)
         self._state = self._static if self._donate else clone_state(self._static)
 
-    # -- lifecycle -----------------------------------------------------------
     def _frame(self, frame) -> torch.Tensor:
         if isinstance(frame, torch.Tensor):
             return frame.to(self.device)
         return torch.from_numpy(np.ascontiguousarray(frame)).to(self.device)
 
-    def init(self, frame, bbox) -> None:
-        """Template and cloud from the first frame; on the card, also every
-        graph this config can need at this frame shape (captured now, so no
-        capture lands inside a run)."""
-        seed = int(self.cfg.filter.seed)
-        bbox_t = torch.as_tensor(np.asarray(bbox, np.float32), device=self.device)
+    def _start(self, frame, bboxes, seeds) -> None:
+        """Template and cloud from the first frame (a frame, or one a bank)
+        and boxes; on the card, also every graph this config can need at
+        this frame shape (captured now, so no capture lands inside a run)."""
+        bbox_t = torch.as_tensor(np.asarray(bboxes, np.float32), device=self.device)
         frame_t = self._frame(frame)
-        self._adopt(self._fns.init(self.vit_params, frame_t, bbox_t, seed), seed, 0, False, 0)
+        self._adopt(self._fns.init(self.vit_params, frame_t, bbox_t, seeds), seeds, 0, False, 0)
         if self.graphs:
             self._graphs_for(frame_t)
 
-    def save(self, path: str) -> None:
-        if self._state is None:
-            raise RuntimeError("nothing to save before init()")
-        save_tracker_state(path, self._state)
-
-    def resume(self, path: str) -> None:
-        """Restore a saved state; later steps continue its trajectory. The seed,
-        frame index and flags are read from the file on the host."""
-        self.state = load_tracker_state(path, "cpu")
-
     # -- the step --------------------------------------------------------------
     def _branch(self) -> tuple[bool, bool]:
-        """(probe, scan) for the next step, from the host's copies."""
-        return (self._probe_gated and self._lost,
-                self._n_after > 0 and self._lost_count >= self._n_after - 1)
+        """(probe, scan) for the next step, from the host's copies: each
+        runs when any bank needs it."""
+        return (self._probe_gated and bool(self._lost.any()),
+                self._n_after > 0 and bool((self._lost_count >= self._n_after - 1).any()))
 
     def _body(self, state, frame, noise, reseed, probe: bool, scan: bool):
-        """One step, capturable -> (new state, [12] f32 row: the packed
-        TrackOutput, then the new lost flag and lost count)."""
+        """One step, capturable -> (new state, [12 K] f32 row: the packed
+        TrackOutput (pack_track_output's layout), then the new lost flags
+        and lost counts)."""
         new, out = self._fns.step(self.vit_params, state, frame, noise=noise, reseed=reseed if scan else None,
                                   probe=probe, scan=scan)
-        row = torch.cat([pack_track_output(out), new.lost.reshape(1).to(torch.float32),
-                         new.lost_count.reshape(1).to(torch.float32)])
+        row = torch.cat([pack_track_output(out), new.lost.reshape(-1).to(torch.float32),
+                         new.lost_count.reshape(-1).to(torch.float32)])
         return new, row
 
     def _graphs_for(self, frame: torch.Tensor):
@@ -824,19 +867,21 @@ class Tracker:
             probes = (False, True) if self._probe_gated else (False,)
             scans = (False, True) if self._n_after > 0 else (False,)
             self._step_graphs[key] = StepGraphs(self._body, self._static, frame.shape, frame.dtype, self._n,
-                                                [(p, s) for p in probes for s in scans], self._pool)
+                                                [(p, s) for p in probes for s in scans], self._pool, self._lead)
         return self._step_graphs[key]
 
     def _advance(self, frame: torch.Tensor) -> torch.Tensor:
         """One step on `frame` (a tensor on the device, or in pinned host
-        memory) -> its [12] row on the device, enqueued, not waited for. On the
-        card with graphs the row is the graph's buffer, valid until the next step."""
+        memory) -> its [12 K] row on the device, enqueued, not waited for. On
+        the card with graphs the row is the graph's buffer, valid until the
+        next step."""
         if self._state is None:
             raise RuntimeError("call init() or resume() first")
         dev = self.device
         probe, scan = self._branch()
-        noise = draw_step_noise(self._seed, self._frame_idx, self._n, dev)
-        reseed = draw_reseed_noise(self._seed, self._frame_idx, self._n, dev) if scan else None
+        seeds, idx = self._seed.tolist(), self._frame_idx.tolist()
+        noise = draw_step_noise(seeds, idx, self._n, dev)
+        reseed = draw_reseed_noise(seeds, idx, self._n, dev) if scan else None
         if self.graphs:
             sg = self._graphs_for(frame)
             sg.frame.copy_(frame, non_blocking=True)
@@ -849,13 +894,13 @@ class Tracker:
                 self._state = clone_state(self._static)
         else:
             self._state, row = self._body(self._state, frame.to(dev, non_blocking=True), noise, reseed, probe, scan)
-        self._frame_idx += 1
+        self._frame_idx = self._frame_idx + 1
         return row
 
     def _read(self, row: torch.Tensor) -> np.ndarray:
         """The row on the host (on the card: one copy into pinned memory and
         one wait, a stream synchronize, which torch's sync debug mode counts),
-        and the host's copies of the lost flag and count from it."""
+        and the host's copies of the lost flags and counts from it."""
         if self.device.type == "cuda":
             if self._row_buf is None:
                 self._row_buf = torch.empty(row.shape, dtype=torch.float32).pin_memory()
@@ -864,11 +909,13 @@ class Tracker:
             v = self._row_buf.numpy().copy()
         else:
             v = row.numpy().copy()
-        self._lost, self._lost_count = bool(v[10]), int(v[11])
+        k = self._k
+        self._lost = (v[10 * k:11 * k] != 0).reshape(self._lead)
+        self._lost_count = v[11 * k:12 * k].astype(np.int64).reshape(self._lead)
         return v
 
     def _sync_flags(self, row: torch.Tensor) -> None:
-        """Read the lost flag and count back where the next step's branch needs them."""
+        """Read the lost flags and counts back where the next step's branch needs them."""
         if self._probe_gated or self._n_after > 0:
             self._read(row)
 
@@ -887,36 +934,86 @@ class Tracker:
         buf.copy_(frame)
         return buf
 
+    def _banks(self) -> int | None:
+        return self._lead[0] if self._lead else None
+
+    def step_device(self, frame_dev: torch.Tensor) -> TrackOutput:
+        """Track one frame already on the device -> TrackOutput on the device
+        (a copy of the step's output; [K, ...] for K banks). No wait on a
+        config without gates."""
+        return unpack_track_output(self.step_packed(frame_dev), self._banks())
+
+    def step_packed(self, frame_dev: torch.Tensor) -> torch.Tensor:
+        """step_device with the output packed on the device into one f32
+        row, [10] ([10 K] for K banks, pack_track_output's layout), packed
+        inside the same graph."""
+        row = self._advance(frame_dev)
+        packed = row[:10 * self._k].clone()
+        self._sync_flags(row)
+        return packed
+
+    def track_clip_device(self, frames_dev: torch.Tensor) -> TrackOutput:
+        """Track a staged clip [T, ...] (a frame, or K frames, a step) on the
+        device -> TrackOutput with a leading T axis, the same as T sequential
+        steps: T replays, each row copied into a [T, 10 K] buffer on the
+        device."""
+        k = self._k
+        rows = torch.empty((frames_dev.shape[0], 10 * k), dtype=torch.float32, device=self.device)
+        for i in range(frames_dev.shape[0]):
+            row = self._advance(frames_dev[i])
+            rows[i].copy_(row[:10 * k])
+            self._sync_flags(row)
+        return unpack_track_output(rows, self._banks())
+
+
+class Tracker(_GraphStepper):
+    """User-facing API: Tracker(cfg).init(frame, bbox); .step(frame); .run(source);
+    the device-side steps .step_device, .step_packed and .track_clip_device.
+
+    device: "cuda" (default) or "cpu". Asking for CUDA without a card raises.
+    One object, whatever runtime.banks says (as in the JAX package:
+    runtime/banked.py's MultiTracker tracks K). Each step is a graph replay
+    on the card (see _GraphStepper); ``step`` waits once a step in any
+    config, for its record.
+    """
+
+    def __init__(self, cfg: Config, vit_params=None, device="cuda", graphs: bool = True):
+        cfg.resolve()
+        r = cfg.runtime
+        if r.mesh_particles * r.mesh_model > 1:
+            raise NotImplementedError(
+                f"runtime.mesh_particles {r.mesh_particles} x mesh_model {r.mesh_model} (multi-GPU) "
+                "is not ported yet; see ROADMAP.md (open items §1, Multi-GPU)"
+            )
+        self._setup(cfg, vit_params, device, graphs, ())
+
+    @_GraphStepper.state.setter
+    def state(self, value: TrackerState) -> None:
+        """Install a state (read back once for the host's copies)."""
+        self._adopt(value, key_seed(value.key), int(value.frame_idx), bool(value.lost), int(value.lost_count))
+
+    def init(self, frame, bbox) -> None:
+        """Template and cloud from the first frame; on the card, also every
+        graph this config can need at this frame shape (captured now, so no
+        capture lands inside a run)."""
+        self._start(frame, bbox, int(self.cfg.filter.seed))
+
+    def save(self, path: str) -> None:
+        if self._state is None:
+            raise RuntimeError("nothing to save before init()")
+        save_tracker_state(path, self._state)
+
+    def resume(self, path: str) -> None:
+        """Restore a saved state; later steps continue its trajectory. The seed,
+        frame index and flags are read from the file on the host."""
+        self.state = load_tracker_state(path, "cpu")
+
     def step(self, frame) -> dict[str, Any]:
         """Track one frame; returns a host-side record (one wait for the card)."""
         t0 = time.perf_counter()
         rec = self._to_record(self._read(self._advance(self._stage(frame))))
         rec["step_ms"] = (time.perf_counter() - t0) * 1e3
         return rec
-
-    def step_device(self, frame_dev: torch.Tensor) -> TrackOutput:
-        """Track one frame already on the device -> TrackOutput on the device
-        (a copy of the step's output). No wait on a config without gates."""
-        return unpack_track_output(self.step_packed(frame_dev))
-
-    def step_packed(self, frame_dev: torch.Tensor) -> torch.Tensor:
-        """step_device with the output packed on the device into one [10] f32
-        row (pack_track_output's layout), packed inside the same graph."""
-        row = self._advance(frame_dev)
-        packed = row[:10].clone()
-        self._sync_flags(row)
-        return packed
-
-    def track_clip_device(self, frames_dev: torch.Tensor) -> TrackOutput:
-        """Track a staged clip [K, H, W, 3] on the device -> TrackOutput with a
-        leading K axis, the same as K sequential steps: K replays, each row
-        copied into a [K, 10] buffer on the device."""
-        rows = torch.empty((frames_dev.shape[0], 10), dtype=torch.float32, device=self.device)
-        for i in range(frames_dev.shape[0]):
-            row = self._advance(frames_dev[i])
-            rows[i].copy_(row[:10])
-            self._sync_flags(row)
-        return unpack_track_output(rows)
 
     @staticmethod
     def _to_record(v: np.ndarray) -> dict[str, Any]:
