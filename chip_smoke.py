@@ -8,7 +8,8 @@ Run from the root of a checkout, with one NVIDIA Hopper card:
 Phases, each timed and printed:
   1. device   — card name and power limit; TF32 off for f32 matmuls.
   2. build    — nvcc builds kernels K1 (csrc/flash_attn.cu) and K2
-                (csrc/window_patchify.cu) into ctypes .so files, both
+                (csrc/window_patchify.cu) and the IF-node helper of the
+                step's graph (csrc/graph_if.cu) into ctypes .so files, the
                 compiles started together (a cached library comes with its
                 saved ptxas report); prints the ptxas reports, checks that
                 no K2 kernel spills and, with cuobjdump -sass, that K2's
@@ -19,7 +20,8 @@ Phases, each timed and printed:
                 paths' shapes and beyond; K1 both on views of a fused qkv
                 activation (as the ViT passes them) and on contiguous
                 tensors; K2 also over 1, 2 and 8 windows of 1024 boxes and
-                2 windows of 1 box in one launch.
+                2 windows of 1 box in one launch; a graph's IF node (a body
+                with an f32 product and K1) against the host's branch.
   4. tracker  — tiny dense and crop configs on the card against the same
                 runs on the CPU (and two with global re-detection: dense with
                 the residual head and its automatic blend, crop through K2),
@@ -35,15 +37,16 @@ Phases, each timed and printed:
                 head-only checkpoints/vit_b16_head.npz with its trunk
                 regenerated on the card (timed, and leaves held to the CPU's),
                 global re-detection's 49-window scan (K1 at B 49), launches by
-                shape against the probes and armed steps the run's states
-                show, the RMSE after the reappearance and the last records'
-                lost flags. Each main
+                shape against the probes and scans the run's states show
+                (each an IF node of the graph, run only where its predicate
+                holds), the RMSE after the reappearance and the last
+                records' lost flags. Each main
                 path runs four times in turns, eagerly and with every step a
                 replay of its captured CUDA graph (eager, graph, graph,
                 eager): records equal, launches by shape counted per replay,
                 both step medians and their ratio, the host's waits (at most
-                1 a Tracker.step; none inside track_clip_device on dense and
-                crop); dense also runs its 59 steps in one track_clip_device
+                1 a Tracker.step; none inside track_clip_device on any
+                path); dense also runs its 59 steps in one track_clip_device
                 call, whose records equal Tracker.run's. Banked trackers
                 (runtime/banked.py): tiny banked dense (3 banks, lost gate and
                 re-detection), banked crop through K2 over 2 windows and
@@ -58,7 +61,16 @@ Phases, each timed and printed:
                 MultiStreamTracker over 4 clips of 480x640 moving-square with
                 config.yaml's values (K1 launches, each stream's RMSE, the
                 aggregate frames/s beside the dense path's).
-  5. times    — K1, its plain version and torch's scaled_dot_product_attention
+  5. stream   — stream_track (runtime/streaming.py) over the dense and
+                robust paths' clips with a fresh graph Tracker: records
+                bitwise equal to Tracker.run's graph records, K1 launches
+                equal, no host wait on the submitting thread between init
+                and the final completion, the drainer's waits, frames/s and
+                the stage times; then the serve command through cli.main
+                (4 streams of the dense clip, seeds 0-3, a JSON config
+                file): 4 x 59 records, each stream complete and ordered,
+                positions equal to the multistream path's graph rows.
+  6. times    — K1, its plain version and torch's scaled_dot_product_attention
                 (a yardstick the port never calls) on fused-qkv views at the
                 dense, crop (B 1024 and B 1), re-detection, banked (B 8) and
                 multi-stream (B 4) shapes; K2, its
@@ -74,14 +86,18 @@ It imports no JAX and no YAML parser; without a card it exits non-zero.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import importlib.util
+import io
 import itertools
 import json
 import re
 import statistics
 import subprocess
 import sys
+import tempfile
+import threading
 import time
 import traceback
 import warnings
@@ -101,7 +117,9 @@ from vitparticlefiltertracker_tpu_torch.models.vit import VitSpec
 from vitparticlefiltertracker_tpu_torch.ops import _build, attention
 from vitparticlefiltertracker_tpu_torch.ops import patchify_window as pw
 from vitparticlefiltertracker_tpu_torch.ops.patchify import crop_sample_coords
-from vitparticlefiltertracker_tpu_torch.runtime import banked
+from vitparticlefiltertracker_tpu_torch import cli
+from vitparticlefiltertracker_tpu_torch.runtime import banked, step_graph
+from vitparticlefiltertracker_tpu_torch.runtime.streaming import stream_track
 from vitparticlefiltertracker_tpu_torch.runtime.tracker import Tracker, build_tracker_fns
 
 ROOT = Path(__file__).resolve().parent
@@ -596,7 +614,9 @@ def check_banked_small(cfg_dict: dict, kind: str, k: int, label: str) -> None:
 
 
 def reset_counts() -> None:
-    """Every kernel wrapper's launch counts to 0."""
+    """Every kernel wrapper's launch counts to 0 (after the launches of the
+    graphs' branch bodies so far are added, so that none lands later)."""
+    step_graph.settle_counts()
     attention.flash_attention.launches = 0
     attention.flash_attention.shapes = Counter()
     pw.gather_patchify_window.launches = 0
@@ -604,6 +624,9 @@ def reset_counts() -> None:
 
 
 def read_counts() -> dict:
+    """The launch counts, with those of the graphs' branch bodies that ran
+    (one wait, to read the graphs' counters)."""
+    step_graph.settle_counts()
     return {"launches": attention.flash_attention.launches, "k1_shapes": dict(attention.flash_attention.shapes),
             "k2_launches": pw.gather_patchify_window.launches, "k2_sizes": dict(pw.gather_patchify_window.sizes)}
 
@@ -617,18 +640,23 @@ GRAPH_POS_TOL_PX = 0.01
 WAIT_STEPS = 5  # steps over which the host's waits are counted
 
 
-def count_waits(fn, stacks: list | None = None) -> int:
+def count_waits(fn, stacks: list | None = None, thread: int | None = None, others: list | None = None) -> int:
     """The host's waits for the card while fn runs: every device-to-host
     read, stream or device synchronize and copy from pageable memory, as
     torch.cuda.set_sync_debug_mode("warn") reports them. `stacks` gets the
-    Python stack of each."""
+    Python stack of each. With `thread` (an ident), only that thread's waits
+    count; `others` gets the stacks of the other threads' waits."""
     waits = []
 
     def seen(message, *args, **kwargs):
         # Not the one-time note that the mode itself prints ("...does not yet
         # detect all synchronizing operations").
         if "synchronizing CUDA operation" in str(message):
-            waits.append("".join(f for f in traceback.format_stack(limit=14)[:-1] if "warnings.py" not in f))
+            stack = "".join(f for f in traceback.format_stack()[:-1] if "warnings.py" not in f)
+            if thread is None or threading.get_ident() == thread:
+                waits.append(stack)
+            elif others is not None:
+                others.append(stack)
 
     with warnings.catch_warnings():
         warnings.simplefilter("always")
@@ -647,19 +675,17 @@ def run_turns(cfg: Config, prm: dict, src, n_after: int = 0) -> list[dict]:
     """Tracker.run over the source on the card in turns, eager, graph, graph,
     eager (Tracker(graphs=False/True)), same weights. The launch counts are
     set to 0 just before each run and read just after it. With global
-    re-detection, each step's armed flag (the state before it at
-    lost_count >= n_after - 1) and (scanned, accepted) are read from the
-    states the run leaves."""
+    re-detection, each step's (scanned, accepted) is read from the state it
+    leaves."""
     runs = []
     for graphs in (False, True, True, False):
         tracker = Tracker(cfg, vit_params=prm, device="cuda", graphs=graphs)
         reset_counts()
-        recs, steps, prev_count = [], [], 0
+        recs, steps = [], []
         for rec in tracker.run(src):
             recs.append(rec)
             if n_after > 0:
-                steps.append((prev_count >= n_after - 1, *scan_accepted(tracker.state, n_after)))
-                prev_count = int(tracker.state.lost_count)
+                steps.append(scan_accepted(tracker.state, n_after))
         runs.append({"graphs": graphs, "recs": recs, "steps": steps, "tracker": tracker, **read_counts()})
     return runs
 
@@ -699,10 +725,10 @@ def check_turns(runs: list[dict], label: str) -> dict:
             "turn_medians_ms": [med[i] for i in range(len(runs))]}
 
 
-def check_waits(tracker: Tracker, frames, clip_waits_max: int | None, label: str) -> dict:
+def check_waits(tracker: Tracker, frames, clip_waits_max: int, label: str) -> dict:
     """Host waits on the graph path: each of WAIT_STEPS Tracker.step calls
     (at most 1), and track_clip_device over WAIT_STEPS frames already on the
-    card (at most clip_waits_max in all; None: printed only)."""
+    card (at most clip_waits_max in all)."""
     stacks = []
     per_step = [count_waits(lambda f=f: tracker.step(f), stacks) for f in frames[:WAIT_STEPS]]
     clip = torch.from_numpy(np.stack(frames[:WAIT_STEPS])).cuda()
@@ -711,12 +737,11 @@ def check_waits(tracker: Tracker, frames, clip_waits_max: int | None, label: str
     torch.cuda.synchronize()
     print(f"  {label}: host waits a Tracker.step {per_step}; in track_clip_device over {WAIT_STEPS} frames "
           f"{in_clip}", flush=True)
-    if max(per_step) > 1 or (clip_waits_max is not None and in_clip > clip_waits_max):
+    if max(per_step) > 1 or in_clip > clip_waits_max:
         for stack in stacks:
             print(f"  a wait, at:\n{stack}", flush=True)
     check(max(per_step) <= 1, f"{label}: at most 1 host wait a Tracker.step ({per_step})")
-    if clip_waits_max is not None:
-        check(in_clip <= clip_waits_max, f"{label}: {in_clip} host waits in track_clip_device (max {clip_waits_max})")
+    check(in_clip <= clip_waits_max, f"{label}: {in_clip} host waits in track_clip_device (max {clip_waits_max})")
     return {"waits_per_step": max(per_step), "waits_in_clip": in_clip}
 
 
@@ -851,8 +876,9 @@ def check_trunk_regeneration(tracker: Tracker, cfg: Config) -> float:
 def run_robust_path() -> dict:
     """The robust main path (ROBUST_CONFIG) through Tracker.run on the card,
     in turns eagerly and through the captured graphs (run_turns): the
-    launch counts of each run by shape, against its probes and armed steps;
-    the scans and accepted matches read from the states each step leaves."""
+    launch counts of each run by shape, against its probes and scans (the
+    graph's IF nodes run each branch only on the steps that need it); the
+    scans and accepted matches read from the states each step leaves."""
     cfg_dict = copy.deepcopy(ROBUST_CONFIG)
     cfg_dict["model"]["checkpoint"] = str(ROOT / HEAD_CHECKPOINT)
     cfg = Config.from_dict(cfg_dict)
@@ -872,17 +898,17 @@ def run_robust_path() -> dict:
     g2 = cfg.tracker.redetect_global_grid ** 2
     for run in runs:
         recs = run["recs"]
-        armed, scans, accepts = (sum(s[k] for s in run["steps"]) for k in range(3))
+        scans, accepts = (sum(s[k] for s in run["steps"]) for k in range(2))
         probes = sum(r["lost"] for r in recs[:-1])  # a step probes when the state was lost
-        # Every armed step runs the scan's forward; it takes effect on the
-        # steps that trigger (scans) and accept.
+        # The scan's forward runs on the steps that trigger it, and takes
+        # effect on those that accept.
         k1_expected = {(1, heads, t): depth * (1 + len(recs) + probes)}
-        if armed:
-            k1_expected[(g2, heads, t)] = depth * armed
+        if scans:
+            k1_expected[(g2, heads, t)] = depth * scans
         kind = "graph" if run["graphs"] else "eager"
-        print(f"  robust path, {kind} run: {len(recs)} steps, {probes} probes, {armed} armed steps, {scans} scans "
-              f"triggered, {accepts} accepted matches; K1 launches by (B, H, T) {run['k1_shapes']} (expected "
-              f"{k1_expected}); K2 {run['k2_launches']} (expected 0)", flush=True)
+        print(f"  robust path, {kind} run: {len(recs)} steps, {probes} probes, {scans} scans triggered, {accepts} "
+              f"accepted matches; K1 launches by (B, H, T) {run['k1_shapes']} (expected {k1_expected}); K2 "
+              f"{run['k2_launches']} (expected 0)", flush=True)
         check(scans >= 1 and accepts >= 1, f"at least one scan ({scans}) and one accepted match ({accepts})")
         check(run["k1_shapes"] == k1_expected, f"K1 launches by shape {run['k1_shapes']} == {k1_expected}")
         check(run["k2_launches"] == 0, "no K2 launch on the dense robust path")
@@ -896,20 +922,21 @@ def run_robust_path() -> dict:
         # From the fourth record after the reappearance on, as tools/eval_quality.py.
         err = np.linalg.norm(pos - src.truth[1:], axis=1)[teleport_times(frames)[1] + 3:]
         run["rmse"] = float(np.sqrt(np.mean(err**2)))
-        run["counts"] = (armed, scans, accepts, probes)
+        run["counts"] = (scans, accepts, probes)
         check(run["rmse"] <= ROBUST_RMSE_BOUND_PX, f"RMSE {run['rmse']} px within {ROBUST_RMSE_BOUND_PX} px")
     g = runs[1]
-    armed, scans, accepts, probes = g["counts"]
+    scans, accepts, probes = g["counts"]
     print(f"  lost records: {g['lost']} of {len(g['recs'])} (JAX package: {ROBUST_LOST_RANGE[0]}-"
           f"{ROBUST_LOST_RANGE[1]}); last 5: {[r['lost'] for r in g['recs'][-5:]]}", flush=True)
     print(f"  RMSE after the reappearance {g['rmse']:.3f} px on the graph runs, {runs[0]['rmse']:.3f} px on the eager "
           f"ones (bound {ROBUST_RMSE_BOUND_PX:.2f} px; JAX package {ROBUST_RMSE_RANGE[0]}-{ROBUST_RMSE_RANGE[1]})",
           flush=True)
     summary = check_turns(runs, "robust path")
-    waits = check_waits(runs[2]["tracker"], list(src)[1:], None, "robust path")
+    waits = check_waits(runs[2]["tracker"], list(src)[1:], 0, "robust path")
     return {"launches": g["launches"], "k1_shapes": g["k1_shapes"], "k2_launches": g["k2_launches"],
             "k2_sizes": g["k2_sizes"], "rmse_px": g["rmse"], "lost": g["lost"], "scans": scans, "accepts": accepts,
-            "armed": armed, "probes": probes, "trunk_regen_s": regen_s, **summary, **waits}
+            "probes": probes, "trunk_regen_s": regen_s, **summary, **waits, "cfg": cfg, "prm": tracker.vit_params,
+            "src": src, "recs": g["recs"]}
 
 
 def merge_banks(recs: list[dict]) -> dict:
@@ -1049,7 +1076,156 @@ def run_multistream_path(dense: dict) -> dict:
           f"eager {e_ms:.3f} ms", flush=True)
     return {"launches": runs[1]["launches"], "k1_shapes": runs[1]["k1_shapes"], "step_ms_median": g_ms,
             "eager_step_ms_median": e_ms, "aggregate_frames_per_s": fps, "dense_frames_per_s": dense_fps,
-            "rmse_px_by_stream": rmse.tolist()}
+            "rmse_px_by_stream": rmse.tolist(), "rows": runs[1]["rows"]}
+
+
+STREAM_KEYS = ("frame", "position", "box", "velocity", "conf", "ess", "lost")
+STAGE_KEYS = ("fps", "wall_s", "init_s", "ingest_wait_s", "submit_s", "readback_s", "drain_s", "drain_windows",
+              "staging_waits")
+
+
+def run_stream(path: dict, label: str) -> dict:
+    """stream_track over a main path's clip on the card (a fresh graph
+    Tracker with the path's weights, readback window 4, pump depth
+    runtime.prefetch_frames): its records bitwise equal to the path's
+    Tracker.run graph records; K1 launches by shape equal to that run's
+    (init included in both); the submitting thread's host waits, by where
+    they fall (init and capture, the loop, the final completion), none in
+    the loop; the drainer's; the stage times."""
+    cfg, src = path["cfg"], path["src"]
+    tracker = Tracker(cfg, vit_params=path["prm"], device="cuda")
+    recs, stats, stacks, drainer_stacks = [], {}, [], []
+
+    def go():
+        stats.update(stream_track(tracker, src.frames, src.init_bbox, on_record=recs.append, readback_window=4,
+                                  pump_depth=cfg.runtime.prefetch_frames))
+
+    reset_counts()
+    count_waits(go, stacks, thread=threading.get_ident(), others=drainer_stacks)
+    counts = read_counts()
+    where = Counter("init" if "tracker.init(frame0" in x else "final" if "_complete(tracker)" in x else "loop"
+                    for x in stacks)
+    if where["loop"]:
+        for stack in stacks:
+            print(f"  a wait, at:\n{stack}", flush=True)
+    want = [{k: r[k] for k in STREAM_KEYS} for r in path["recs"]]
+    check(len(recs) == len(want) and all({k: r[k] for k in STREAM_KEYS} == w for r, w in zip(recs, want)),
+          f"{label}: stream records == Tracker.run's graph records, bitwise ({len(recs)} records)")
+    check(counts["k1_shapes"] == path["k1_shapes"],
+          f"{label}: K1 launches {counts['k1_shapes']} == Tracker.run's {path['k1_shapes']}")
+    check(where["loop"] == 0 and where["final"] == 1,
+          f"{label}: submitting thread's host waits {dict(where)} (none in the loop, one final completion)")
+    print(f"  {label}: {len(recs)} records == Tracker.run's graph records (bitwise); K1 launches "
+          f"{counts['k1_shapes']}; submitting thread's host waits: {where['loop']} in the loop, {where['init']} in "
+          f"init and capture, {where['final']} final completion; drainer: {len(drainer_stacks)} waits over "
+          f"{stats['drain_windows']} windows; staging slot waits {stats['staging_waits']}", flush=True)
+    after_init = stats["frames"] / (stats["wall_s"] - stats["init_s"])
+    print(f"  {label}: {stats['fps']:.1f} frames/s end to end ({stats['frames']} frames in {stats['wall_s']:.3f} s, "
+          f"init and capture {stats['init_s']:.3f} s of it; {after_init:.1f} frames/s after init); ingest_wait_s "
+          f"{stats['ingest_wait_s']}, submit_s {stats['submit_s']}, readback_s {stats['readback_s']}, drain_s "
+          f"{stats['drain_s']}", flush=True)
+    return {**{k: stats[k] for k in STAGE_KEYS}, "frames_per_s_after_init": after_init,
+            "submit_thread_loop_waits": where["loop"],
+            "submit_thread_init_waits": where["init"], "drainer_waits": len(drainer_stacks)}
+
+
+def run_serve(dense: dict, streams: dict) -> dict:
+    """The serve command through cli.main on the card: STREAMS streams of
+    the dense path's clip (seeds 0-3), config.yaml's values from a JSON
+    config file: STREAMS x (FRAMES - 1) records, each stream complete and in
+    order, positions equal to the multi-stream path's graph rows; the
+    aggregate frames/s beside the multi-stream path's step rate."""
+    cfg_dict = copy.deepcopy(SMOKE_CONFIG)
+    cfg_dict["model"]["checkpoint"] = str(ROOT / CHECKPOINT)
+    with tempfile.TemporaryDirectory() as tmp:
+        out = str(Path(tmp) / "serve.jsonl")
+        cfg_dict["io"].update(num_frames=FRAMES, output=out)
+        cfg_dict["runtime"]["streams"] = STREAMS
+        cfg_path = Path(tmp) / "serve.json"
+        cfg_path.write_text(json.dumps(cfg_dict))
+        reset_counts()
+        t0 = time.perf_counter()
+        summary = io.StringIO()
+        with contextlib.redirect_stderr(summary):
+            rc = cli.main(["serve", "--config", str(cfg_path)])
+        seconds = time.perf_counter() - t0
+        counts = read_counts()
+        recs = [json.loads(line) for line in open(out)]
+    check(rc == 0, f"serve exit code {rc}")
+    check(len(recs) == STREAMS * (FRAMES - 1), f"serve wrote {len(recs)} records ({STREAMS} x {FRAMES - 1})")
+    rows = streams["rows"]
+    for i in range(STREAMS):
+        mine = [r for r in recs if r["stream"] == i]
+        check([r["frame"] for r in mine] == list(range(1, FRAMES)), f"serve stream {i}: frames complete and ordered")
+        pos = np.array([r["position"] for r in mine], np.float32)
+        want = rows[:, :2 * STREAMS].reshape(-1, STREAMS, 2)[:, i]
+        check(np.array_equal(pos, want), f"serve stream {i}: positions == the multi-stream path's graph rows")
+    heads, t, depth = dense["cfg"].model.heads, VitSpec.from_config(dense["cfg"].model).seq_len, dense["cfg"].model.depth
+    k1_want = {(STREAMS, heads, t): depth * FRAMES}
+    check(counts["k1_shapes"] == k1_want, f"serve K1 launches {counts['k1_shapes']} == {k1_want}")
+    m = re.search(r"\(([\d.]+) fps aggregate", summary.getvalue())
+    check(m is not None, f"serve's summary line: {summary.getvalue()!r}")
+    fps = float(m.group(1))
+    print(f"  serve ({STREAMS} streams x {FRAMES - 1} frames through cli.main): {len(recs)} records, each stream "
+          f"complete and ordered, positions == the multi-stream path's graph rows (bitwise); K1 launches "
+          f"{counts['k1_shapes']}; its summary: {summary.getvalue().strip()!r}; {fps:.1f} frames/s aggregate "
+          f"(stream_track's wall, init and capture included; the whole command {seconds:.3f} s with the weights' "
+          f"load), against the multi-stream path's graph step {streams['aggregate_frames_per_s']:.1f} frames/s",
+          flush=True)
+    return {"frames_per_s": fps, "command_s": seconds, "records": len(recs),
+            "multistream_frames_per_s": streams["aggregate_frames_per_s"]}
+
+
+def check_if_node() -> dict:
+    """The IF-node helper (csrc/graph_if.cu, step_graph.capture_if) against
+    its plain version, the host's branch (step_graph.run_if_host): a
+    captured graph with one IF node on a predicate computed in the graph,
+    whose body runs an f32 product and K1 at the re-detection scan's shape
+    into buffers that hold the not-taken values before it, replayed with
+    the predicate false, true, false, true; after each replay its outputs
+    equal the plain version's on the same inputs (K1's bit for bit, the
+    product within 1e-6)."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device="cuda").manual_seed(5)
+    a = torch.randn((64, 64), generator=g, device=dev)
+    q, k, v = qkv(REDETECT_SHAPE, torch.bfloat16, seed=11, layout="fused")
+    flag = torch.zeros((), dtype=torch.bool, device=dev)
+
+    def step(run_if):
+        prod = torch.zeros_like(a)
+        att = torch.zeros(REDETECT_SHAPE, dtype=torch.bfloat16, device=dev)
+
+        def body():
+            prod.copy_(a @ a + 1.0)
+            att.copy_(attention.flash_attention(q, k, v))
+
+        run_if(flag & (a.abs().sum() >= 0), body)
+        return prod, att
+
+    saved = step_graph.read_counts()
+    body_stream, body_pool, stream = torch.cuda.Stream(dev), torch.cuda.graph_pool_handle(), torch.cuda.Stream(dev)
+    with torch.cuda.stream(body_stream):  # warm-up, on the bodies' stream
+        step(step_graph.run_if_always)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream):
+        out = step(lambda p, b: step_graph.capture_if(p, b, body_stream, body_pool))
+    taken = []
+    for value in (False, True, False, True):
+        flag.fill_(value)
+        graph.replay()
+        want = step(step_graph.run_if_host)
+        torch.cuda.synchronize()
+        check(torch.allclose(out[0], want[0], rtol=1e-6, atol=1e-6) and torch.equal(out[1], want[1]),
+              f"IF node with predicate {value}: outputs == the host branch's")
+        taken.append(bool(out[1].abs().sum() > 0))
+    check(taken == [False, True, False, True], f"the IF node's body ran where the predicate held ({taken})")
+    del graph, out
+    torch._C._cuda_releasePool(torch.cuda.current_device(), body_pool)
+    step_graph.restore_counts(saved)
+    print("  IF node (csrc/graph_if.cu): a captured graph's body ran on replays 2 and 4 of 4, where its predicate "
+          "held; its outputs == the host branch's after every replay", flush=True)
+    return {"taken": taken}
 
 
 def time_kernels() -> dict:
@@ -1171,7 +1347,7 @@ def main() -> int:
     phase("device", t0)
 
     t0 = time.perf_counter()
-    built = _build.build_libraries(["flash_attn.cu", "window_patchify.cu"])
+    built = _build.build_libraries(["flash_attn.cu", "window_patchify.cu", "graph_if.cu"])
     for source, (_, rec) in built.items():
         print(f"  nvcc build of {source}: {rec['seconds']:.2f} s (built={rec['built']}) -> {rec['so']}")
         for line in rec["ptxas"].splitlines():
@@ -1190,6 +1366,7 @@ def main() -> int:
     errs = check_kernel()
     k2_errs = check_window_patchify()
     k2_window_errs = check_window_patchify_windows()
+    check_if_node()
     phase("kernel", t0)
 
     t0 = time.perf_counter()
@@ -1208,6 +1385,15 @@ def main() -> int:
     banked_path.update(check_reinit_bank(banked_path))
     streams_path = run_multistream_path(main_path)
     phase("tracker", t0)
+
+    t0 = time.perf_counter()
+    stream_dense = run_stream(main_path, "stream, dense")
+    stream_dense["track_clip_device_frames_per_s"] = main_path["clip_frames_per_s"]
+    print(f"  stream, dense: {stream_dense['frames_per_s_after_init']:.1f} frames/s after init, against this call's "
+          f"dense track_clip_device {main_path['clip_frames_per_s']:.1f} frames/s", flush=True)
+    stream_robust = run_stream(robust_path, "stream, robust")
+    serve = run_serve(main_path, streams_path)
+    phase("stream", t0)
 
     t0 = time.perf_counter()
     times = time_kernels()
@@ -1244,7 +1430,7 @@ def main() -> int:
     print(json.dumps({"shape_49x12x196x64_bf16": times[REDETECT_SHAPE],
                       "dense": {k: main_path[k] for k in path_keys + ("clip_frames_per_s", "clip_ms")},
                       "crop": {k: crop_path[k] for k in path_keys},
-                      "robust": {k: robust_path[k] for k in path_keys + ("lost", "armed", "scans", "accepts",
+                      "robust": {k: robust_path[k] for k in path_keys + ("lost", "scans", "accepts",
                                                                          "probes", "trunk_regen_s")},
                       "robust_k1_shapes": {str(k): v for k, v in robust_path["k1_shapes"].items()},
                       "banked": {k: banked_path[k] for k in path_keys + ("rmse_px_by_bank",
@@ -1252,6 +1438,7 @@ def main() -> int:
                       "multistream": {k: streams_path[k] for k in ("step_ms_median", "eager_step_ms_median",
                                                                    "aggregate_frames_per_s", "dense_frames_per_s",
                                                                    "rmse_px_by_stream")},
+                      "stream_dense": stream_dense, "stream_robust": stream_robust, "serve": serve,
                       "k2_8_windows_x_1024": {**k2_window_times,
                                               "max_abs_err": k2_window_errs[(8, 1024, torch.bfloat16)]}}))
     print(f"[phase] total: {time.perf_counter() - t_start:.2f} s", flush=True)

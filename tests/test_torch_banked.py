@@ -22,7 +22,7 @@ import numpy as np
 import pytest
 import torch
 from test_torch_redetect import CASES as REDETECT_CASES
-from test_torch_tracker_e2e import BASE
+from test_torch_tracker_e2e import BASE, branch_runner
 
 from vitparticlefiltertracker_tpu.config import Config as JConfig
 from vitparticlefiltertracker_tpu.filters import particle as jpf
@@ -74,17 +74,17 @@ def _to_port(jstate) -> ttr.TrackerState:
 
 
 def _run_both(cfg_dict, k: int, kind: str = "banked", frames: int = FRAMES, host_branches=None,
-              forced: bool = False):
+              forced: bool = False, preds=None):
     """The JAX package's vmapped fns and the port's banked fns over the same
     clip(s) -> (JAX outputs, port outputs, JAX states, port states), one a
     step, each with a leading K.
 
-    host_branches: None, the port's step reads its branches itself; "host",
-    they are given from the previous port state as the banked trackers give
-    them (the probe while any bank is lost, the scan armed while any bank's
-    lost count reaches redetect_global_after - 1); "every-step", the scan
-    armed on every step. forced: each port step starts from the JAX state
-    before it (so each frame compares one step, from equal states)."""
+    host_branches: how the port's step runs its probe and scan branches
+    (test_torch_tracker_e2e.branch_runner: None, the step's own; "host", the
+    card's IF-node rule, a body for all banks where any bank's predicate
+    holds; "every-step", every body on every step). forced: each port step
+    starts from the JAX state before it (so each frame compares one step,
+    from equal states). preds: a list for "host"'s log of the predicates."""
     cfg_dict = _with(cfg_dict, runtime={"banks": k})
     jcfg, tcfg = JConfig.from_dict(copy.deepcopy(cfg_dict)), TConfig.from_dict(copy.deepcopy(cfg_dict))
     first, steps, bboxes, _ = _clips(tcfg, kind, k, frames)
@@ -113,7 +113,6 @@ def _run_both(cfg_dict, k: int, kind: str = "banked", frames: int = FRAMES, host
                            for fk in fkeys])
         return noise, torch.from_numpy(reseed)
 
-    n_after = tcfg.tracker.redetect_global_after
     with jax.default_matmul_precision("highest"):
         jstate = jax.jit(jinit)(jp, jnp.asarray(first), jnp.asarray(bboxes), jnp.asarray(seeds))
         jstep = jax.jit(jstep)
@@ -126,11 +125,8 @@ def _run_both(cfg_dict, k: int, kind: str = "banked", frames: int = FRAMES, host
             if forced:
                 tstate = _to_port(jstate)
             jstate, jo = jstep(jp, jstate, jnp.asarray(frame))
-            branches = {}
-            if host_branches:
-                armed = host_branches == "every-step" or bool((tstate.lost_count >= n_after - 1).any())
-                branches = {"probe": bool(tstate.lost.any()), "scan": n_after > 0 and armed}
-            tstate, to = tf.step(tp, tstate, torch.from_numpy(frame), noise=noise, reseed=reseed, **branches)
+            tstate, to = tf.step(tp, tstate, torch.from_numpy(frame), noise=noise, reseed=reseed,
+                                 run_if=branch_runner(host_branches, preds))
             jouts.append(jax.tree.map(np.asarray, jo))
             touts.append(to)
             jstates.append(jstate)
@@ -145,6 +141,21 @@ def _compare(jouts, touts, k):
         np.testing.assert_array_equal(to.resampled.numpy(), jo.resampled, err_msg=f"frame {i + 1}")
         np.testing.assert_array_equal(to.lost.numpy(), jo.lost, err_msg=f"frame {i + 1}")
         np.testing.assert_allclose(to.conf.numpy(), jo.conf, atol=1e-3, err_msg=f"frame {i + 1}")
+
+
+def _branch_log(jstates, n_after, probe: bool) -> list:
+    """The (branch, predicate) log a step with the JAX package's lax.cond
+    conditions gives, over banks: the probe where any bank's previous state
+    was lost, the scan where any bank's trigger (lost count after the
+    update, before an accepted match resets it) reached n_after."""
+    log, prev_lost = [], False
+    for s in jstates:
+        if probe:
+            log.append(("probe", prev_lost))
+        accepted = (np.asarray(s.pf.particles)[..., 2:4] == 0).all(axis=(-2, -1))
+        log.append(("scan", bool((accepted | (np.asarray(s.lost_count) >= n_after)).any())))
+        prev_lost = bool(np.asarray(s.lost).any())
+    return log
 
 
 def _scans_and_accepts(states, n_after) -> np.ndarray:
@@ -171,15 +182,20 @@ def test_banked_dense_matches_jax():
 @pytest.mark.parametrize("case", ["dense", "dense-head"])
 def test_banked_redetect_matches_jax(case, arming):
     """Two banks on the teleport clip (both on its one target, seeds 0 and 1)
-    with the lost gate, the probe and global re-detection: branches read by
-    the step itself, given from the host as MultiTracker gives them, or the
-    scan armed on every step. JAX's vmap runs both sides of each lax.cond
+    with the lost gate, the probe and global re-detection: branches by the
+    step's own host reads, by the card's IF-node rule on the predicates the
+    step computes (which must be JAX's lax.cond conditions, over banks), or
+    every body on every step. JAX's vmap runs both sides of each lax.cond
     and selects per bank; the port runs a branch for all banks when any
     needs it and gates each bank's effects on its own flags. The same
     records, lost counts, scans and accepted matches a bank as JAX."""
-    jouts, touts, jstates, tstates = _run_both(REDETECT_CASES[case], 2, frames=12, host_branches=arming)
+    preds = []
+    jouts, touts, jstates, tstates = _run_both(REDETECT_CASES[case], 2, frames=12, host_branches=arming,
+                                               preds=preds)
     _compare(jouts, touts, 2)
     n_after = REDETECT_CASES[case]["tracker"]["redetect_global_after"]
+    if arming == "host":
+        assert preds == _branch_log(jstates, n_after, probe=True)
     want, got = _scans_and_accepts(jstates, n_after), _scans_and_accepts(tstates, n_after)
     np.testing.assert_array_equal(got, want)
     assert got[:, 0].sum() >= 1 and got[:, 1].sum() >= 1, got
@@ -191,8 +207,9 @@ def test_banked_redetect_matches_jax(case, arming):
 def test_banked_robust_step_matches_jax():
     """The robust config's stack through the bank axis (the head with its
     automatic blend, relative acceptance with a z margin, re-lock
-    hysteresis), two banks on the teleport clip, the scan armed on every
-    step: each frame one step of both packages from the same (JAX) state.
+    hysteresis), two banks on the teleport clip, every branch body run on
+    every step: each frame one step of both packages from the same (JAX)
+    state.
     Run free, this pair forks: the two programs round differently by a few
     ulps, and a particle on the window's edge flips in or out on one side
     (the JAX package's own vmapped step departs from its single-object step

@@ -3,6 +3,7 @@ JAX package's: the same files give the same resolved config, and
 chip_smoke.py's built-in dict is config.yaml plus its one override."""
 
 import glob
+import json
 import os
 
 import pytest
@@ -77,3 +78,15 @@ def test_chip_smoke_banked_config_is_eval4_plus_overrides():
     assert tconfig.Config.from_dict(chip_smoke.BANKED_CONFIG).to_dict() == want
     assert want["runtime"]["banks"] == 8 and want["filter"]["num_particles"] == 1024
     assert tuple(want["io"]["frame_size"]) == (720, 1280)
+
+
+@pytest.mark.parametrize("name", ["config.yaml", "configs/robust-head.yaml"])
+def test_json_config_reads_as_its_yaml(name, tmp_path):
+    """The same sections as a .json file load without a YAML parser (as
+    chip_smoke.py's serve check writes its config) into the same config."""
+    path = os.path.join(ROOT, name)
+    with open(path) as f:
+        raw = yaml.safe_load(f)
+    json_path = tmp_path / "config.json"
+    json_path.write_text(json.dumps(raw))
+    assert tconfig.load_config(str(json_path)).to_dict() == tconfig.load_config(path).to_dict()

@@ -271,8 +271,7 @@ def test_graph_tracker_never_steps_eagerly(cuda_device, monkeypatch):
     src = open_source(cfg.io.source, cfg.io.num_frames, tuple(cfg.io.frame_size))
     tr = Tracker(copy.deepcopy(cfg), device="cuda")
     tr.init(src.frames[0], src.init_bbox)
-    assert sorted(next(iter(tr._step_graphs.values())).graphs) == [(False, False), (False, True), (True, False),
-                                                                  (True, True)]
+    assert len(tr._step_graphs) == 1 and len(next(iter(tr._step_graphs.values())).branch_counts) == 2
 
     def boom(*a, **k):
         raise AssertionError("an eager step ran")
@@ -363,8 +362,8 @@ def test_banked_tracker_on_card_matches_cpu(cuda_device, name, kind, k):
 
 @pytest.mark.parametrize("kind", ["banked", "streams"])
 def test_banked_graph_step_matches_eager_step(cuda_device, kind):
-    """MultiTracker (3 banks with the lost gate and re-detection: four
-    graphs) and MultiStreamTracker (3 streams) through their captured graphs
+    """MultiTracker (3 banks with the lost gate and re-detection: one graph
+    with two IF nodes) and MultiStreamTracker (3 streams) through their captured graphs
     against the same steps eagerly: every packed row equal, launch counts by
     shape equal, K1 at B 3."""
     import chip_smoke
@@ -396,5 +395,36 @@ def test_banked_graph_step_matches_eager_step(cuda_device, kind):
     assert out[True][1] == out[False][1] and out[True][1]["k1_shapes"].get((3, 2, 16), 0) > 0
     assert out[True][2].graphs and not out[False][2].graphs
     if kind == "banked":
-        assert len(next(iter(out[True][2]._step_graphs.values())).graphs) == 4
+        graphs = out[True][2]._step_graphs
+        assert len(graphs) == 1 and len(next(iter(graphs.values())).branch_counts) == 2
         assert bool(out[True][0][:, 27:30].any())  # some bank was lost
+
+
+def test_robust_track_clip_device_waits_for_nothing(cuda_device):
+    """F1: with the lost gate and global re-detection (tiny dense tracker
+    with the head, its automatic blend and re-detection), the branches are
+    chosen on the card: track_clip_device over the teleport clip's lost and
+    scanning frames makes no host wait, and its records equal the eager
+    Tracker.run's."""
+    import chip_smoke
+    from vitparticlefiltertracker_tpu_torch.io.video import open_source
+    from vitparticlefiltertracker_tpu_torch.runtime.tracker import Tracker
+
+    cfg = Config.from_dict(copy.deepcopy(chip_smoke.TINY_HEAD_REDETECT))
+    src = open_source(cfg.io.source, cfg.io.num_frames, tuple(cfg.io.frame_size))
+    prm = Tracker(copy.deepcopy(cfg), device="cpu").vit_params
+    eager = list(Tracker(copy.deepcopy(cfg), vit_params=prm, device="cuda", graphs=False).run(src))
+    tr = Tracker(copy.deepcopy(cfg), vit_params=prm, device="cuda")
+    tr.init(src.frames[0], src.init_bbox)
+    clip = torch.from_numpy(np.stack(src.frames[1:])).cuda()
+    torch.cuda.synchronize()
+    stacks = []
+    outs = []
+    waits = chip_smoke.count_waits(lambda: outs.append(tr.track_clip_device(clip)), stacks)
+    assert waits == 0, stacks
+    got = chip_smoke.pack_rows(outs[0])
+    want = [[*r["position"], *r["box"], *r["velocity"], r["conf"], r["ess"], r["resampled"], r["lost"]]
+            for r in eager]
+    assert np.array_equal(got, np.array(want, np.float64))
+    assert got[:, 9].any()  # the lost branch ran
+

@@ -3,11 +3,11 @@ runtime/tracker.py: Tracker.step_device, step_packed, track_clip_device,
 _Fns.track_clip, pack_track_output) and the capturable step behind it.
 
 On the CPU the Tracker runs the same step body that the card captures in a
-CUDA graph, eagerly, with the same host-side bookkeeping: the noise key and
-frame index, and the probe and scan branches chosen from the previous
-step's lost flag and count. So these tests hold that bookkeeping; the graph
-itself is held to the eager step on the card (tests/test_torch_cuda.py,
-chip_smoke.py). The sequential-step comparisons require equality: both
+CUDA graph, eagerly, with the same host-side bookkeeping (the noise key and
+frame index); its two lost-only branches run where the predicates the step
+computes hold, which the card's IF nodes decide without the host. So these
+tests hold that bookkeeping and the predicates; the graph itself is held to
+the eager step on the card (tests/test_torch_cuda.py, chip_smoke.py). The sequential-step comparisons require equality: both
 sides run one body on the same inputs on the CPU. Parity with the JAX
 package uses the tolerances of tests/test_torch_tracker_e2e.py:_compare.
 """
@@ -33,7 +33,7 @@ from vitparticlefiltertracker_tpu_torch.filters import particle as tpf
 from vitparticlefiltertracker_tpu_torch.io.video import open_source
 from vitparticlefiltertracker_tpu_torch.models.vit import VitSpec
 from vitparticlefiltertracker_tpu_torch.runtime import tracker as ttr
-from vitparticlefiltertracker_tpu_torch.runtime.step_graph import state_leaves
+from vitparticlefiltertracker_tpu_torch.runtime.step_graph import run_if_always, state_leaves
 
 
 def _crop(impl="window-pallas"):
@@ -145,18 +145,25 @@ def test_pack_track_output_matches_jax():
 @pytest.mark.parametrize("arming", ["host", "every-step"])
 @pytest.mark.parametrize("case", ["dense", "dense-head-auto-relock", "crop-window-pallas"])
 def test_capturable_step_matches_jax(case, arming):
-    """The step with its branches chosen by the caller, the JAX noise and
+    """The step with its branches run by a given run_if, the JAX noise and
     reseed injected, against the JAX step frame by frame through the lost,
     scan and accepted frames: the same records, scans and accepted matches as
-    JAX. "host": as the Tracker chooses them (the probe from the previous
-    state's lost flag; the armed scan from its lost count reaching
-    redetect_global_after - 1). "every-step": the scan armed on every step,
-    so most armed steps do not trigger and their gated effects must change
-    nothing."""
-    jouts, touts, jstates, tstates = _run_both(REDETECT_CASES[case], frames=12, host_branches=arming)
+    JAX. "host": the card's IF-node rule, each body where the predicate the
+    step computed holds; the predicates are JAX's lax.cond conditions (the
+    probe on the previous state's lost flag, the scan on the trigger).
+    "every-step": every body on every step, so most bodies run where their
+    predicate is false and their gated effects must change nothing."""
+    preds = []
+    jouts, touts, jstates, tstates = _run_both(REDETECT_CASES[case], frames=12, host_branches=arming, preds=preds)
     _compare(jouts, touts)
     want, got = scans_and_accepts(jstates), scans_and_accepts(tstates)
     assert got == want and got[0] >= 1 and got[1] >= 1, (got, want)
+    if arming == "host":
+        probe = REDETECT_CASES[case]["tracker"].get("mode", "dense") == "dense"
+        lost = [False] + [bool(js.lost) for js in jstates[:-1]]
+        scans = [scans_and_accepts([js])[0] == 1 for js in jstates]
+        assert [v for b, v in preds if b == "probe"] == (lost if probe else [])
+        assert [v for b, v in preds if b == "scan"] == scans
     for js, ts in zip(jstates, tstates):
         assert int(ts.lost_count) == int(js.lost_count)
         np.testing.assert_allclose(ts.center.numpy(), np.asarray(js.center), atol=0.5)
@@ -210,10 +217,11 @@ def test_capturable_step_reads_nothing_back(name, monkeypatch):
     """A capture-safety proxy on the CPU: with torch.tensor, torch.as_tensor
     and Tensor.tolist, .item, __bool__, __int__, __float__ and indexing by a
     0-d tensor counting, the
-    Tracker's step body runs every branch its config can take (dense; crop
-    through K2's plain version; the head with the automatic blend, the probe
-    and the armed dense scan; the armed crop scan) and calls none of them;
-    so do the banked bodies of MultiTracker (2 banks on one frame) and
+    Tracker's one step body, with a run_if that runs every branch body it is
+    given (dense; crop through K2's plain version; the head with the
+    automatic blend, the probe and the dense scan; the crop scan), computes
+    both predicates and runs both bodies and calls none of them; so do the
+    banked bodies of MultiTracker (2 banks on one frame) and
     MultiStreamTracker (2 streams, a frame each). One warm-up step runs
     first, as the card's capture warms up: constants built once per device
     or frame size are made there."""
@@ -227,9 +235,14 @@ def test_capturable_step_reads_nothing_back(name, monkeypatch):
     seeds, idx = tr._seed.tolist(), tr._frame_idx.tolist()
     noise = tpf.draw_step_noise(seeds, idx, n, tr.device)
     reseed = tpf.draw_reseed_noise(seeds, idx, n, tr.device)
-    probes = (False, True) if tr._probe_gated else (False,)
-    scans = (False, True) if tr._n_after > 0 else (False,)
-    tr._body(tr.state, frame, noise, reseed, probes[-1], scans[-1])  # warm-up
+    tr._body(tr.state, frame, noise, reseed, run_if_always)  # warm-up
+    branches = []
+
+    def run_if(pred, body):
+        assert pred.dtype == torch.bool and pred.dim() == 0
+        branches.append(body.__name__)
+        body()
+
     calls = []
     for owner, attr in _FORBIDDEN:
         orig = getattr(owner, attr)
@@ -247,36 +260,45 @@ def test_capturable_step_reads_nothing_back(name, monkeypatch):
         return getitem(self, index)
 
     monkeypatch.setattr(torch.Tensor, "__getitem__", indexing)
-    rows = [tr._body(tr.state, frame, noise, reseed, p, s)[1] for p in probes for s in scans]
+    row = tr._body(tr.state, frame, noise, reseed, run_if)[1]
     monkeypatch.undo()
     assert calls == [], calls
-    assert all(tuple(r.shape) == (12 * tr._k,) and bool(torch.isfinite(r).all()) for r in rows)
+    assert tuple(row.shape) == (10 * tr._k,) and bool(torch.isfinite(row).all())
+    probe, scan = ttr.step_branches(tr.cfg)
+    assert branches == ["probe"] * probe + ["scan"] * (scan > 0)
     if config in ("robust", "crop-redetect"):
-        assert len(rows) == len(probes) * 2
+        assert "scan" in branches
 
 
 @pytest.mark.parametrize("cut, branch", [(1, (False, False)), (2, (True, True)), (3, (True, False))],
                          ids=["locked", "armed-probe", "probe"])
 def test_resume_continues_device_api_bitwise(tmp_path, cut, branch):
     """A state saved mid-run (after `cut` steps of the tiny teleport clip:
-    locked; lost with a trigger possible; lost after an accepted match) and
-    resumed in a new Tracker continues step_packed bitwise: the host's frame
-    counter, seed and lost flag and count are restored from the file, so the
-    next step takes the same branch."""
+    locked; lost with a trigger possible on the next step; lost after an
+    accepted match) and resumed in a new Tracker continues step_packed
+    bitwise: the host's frame counter and seed are restored from the file,
+    and the lost flag and count, which the next step's branch predicates
+    read, with the state."""
     tr_a, src = _tracker("robust")
     frames = [torch.from_numpy(f) for f in src.frames[1:]]
     for f in frames[:cut]:
         tr_a.step_packed(f)
     path = str(tmp_path / "s.npz")
     tr_a.save(path)
-    host = (tr_a._frame_idx, tr_a._seed, tr_a._lost, tr_a._lost_count)
-    assert tr_a._branch() == branch
+    n_after = tr_a.cfg.tracker.redetect_global_after
+
+    def flags(tr):
+        return bool(tr.state.lost), int(tr.state.lost_count) >= n_after - 1
+
+    host = (tr_a._frame_idx, tr_a._seed)
+    saved = (bool(tr_a.state.lost), int(tr_a.state.lost_count))
+    assert flags(tr_a) == branch
     want = torch.stack([tr_a.step_packed(f) for f in frames[cut:]])
     cfg = TConfig.from_dict(copy.deepcopy(CONFIGS["robust"]))
     tr_b = ttr.Tracker(cfg, device="cpu")
     tr_b.resume(path)
-    assert (tr_b._frame_idx, tr_b._seed, tr_b._lost, tr_b._lost_count) == host and host[0] == cut
-    assert tr_b._branch() == branch
+    assert (tr_b._frame_idx, tr_b._seed) == host and host[0] == cut
+    assert (bool(tr_b.state.lost), int(tr_b.state.lost_count)) == saved and flags(tr_b) == branch
     got = torch.stack([tr_b.step_packed(f) for f in frames[cut:]])
     assert torch.equal(got, want)
 

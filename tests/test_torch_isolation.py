@@ -57,3 +57,39 @@ def test_chip_smoke_refuses_to_run_without_a_card():
                           text=True, timeout=300, env=dict(os.environ, PYTHONPATH=ROOT))
     assert proc.returncode != 0
     assert '"ok"' not in proc.stdout
+
+
+PUBLIC = ("Config", "load_config", "Tracker", "MultiTracker", "MultiStreamTracker", "stream_track", "open_source")
+
+
+def _fresh(code: str) -> subprocess.CompletedProcess:
+    """`code` in a new interpreter at the repo's root (no test module loaded)."""
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    return subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env, capture_output=True, text=True,
+                          timeout=300)
+
+
+def test_package_exports_the_public_names():
+    """The JAX package's seven public names, on the port's package; the
+    heavier five resolve lazily to the port's own objects."""
+    import vitparticlefiltertracker_tpu_torch as pkg
+    from vitparticlefiltertracker_tpu_torch.runtime.streaming import stream_track
+
+    assert all(hasattr(pkg, name) for name in PUBLIC)
+    assert pkg.stream_track is stream_track and pkg.Tracker.__module__.startswith(pkg.__name__)
+    assert set(PUBLIC) <= set(pkg.__all__)
+
+
+def test_package_import_loads_neither_yaml_nor_jax():
+    proc = _fresh("import sys\nimport vitparticlefiltertracker_tpu_torch as p\ncfg = p.Config()\n"
+                  "print(sorted(m for m in ('yaml', 'jax', 'vitparticlefiltertracker_tpu') if m in sys.modules))")
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert proc.stdout.strip() == "[]"
+
+
+def test_streaming_imports_nothing_of_the_jax_package():
+    proc = _fresh("import sys\nimport vitparticlefiltertracker_tpu_torch.runtime.streaming\n"
+                  "print(sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.') or m == 'yaml'\n"
+                  "             or m.split('.')[0] == 'vitparticlefiltertracker_tpu'))")
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert proc.stdout.strip() == "[]"

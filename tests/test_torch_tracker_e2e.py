@@ -29,6 +29,7 @@ from vitparticlefiltertracker_tpu_torch.filters import particle as tpf
 from vitparticlefiltertracker_tpu_torch.io.video import open_source as t_open_source
 from vitparticlefiltertracker_tpu_torch.models.vit import VitSpec
 from vitparticlefiltertracker_tpu_torch.runtime import tracker as ttr
+from vitparticlefiltertracker_tpu_torch.runtime.step_graph import run_if_always
 
 # The suite runs in several worker processes on one host, and every worker
 # imports this module (the shared parity helper of the tracker tests) while
@@ -57,14 +58,35 @@ def _crop(impl):
     return d
 
 
-def _run_both(cfg_dict, frames=FRAMES, host_branches=None):
+def branch_runner(kind, log=None):
+    """The run_if of a port step under test. None: the step's own (the host
+    reads each predicate). "host": the rule of the card's IF nodes, each
+    body run where the predicate the step computed holds, read here because
+    the CPU has no IF node, and logged as (branch, value) to `log`.
+    "every-step": every body on every step (as the capture's warm-up runs
+    them), which the merges after the branches must make harmless."""
+    if kind is None:
+        return None
+    if kind == "every-step":
+        return run_if_always
+
+    def run_if(pred, body):
+        value = bool(pred)
+        if log is not None:
+            log.append((body.__name__, value))
+        if value:
+            body()
+
+    return run_if
+
+
+def _run_both(cfg_dict, frames=FRAMES, host_branches=None, preds=None):
     """Both packages over `frames` frames of the config's source -> (JAX
     outputs, port outputs, JAX states, port states), one a step.
 
-    host_branches: None, the port's step reads its probe and scan branches
-    itself; "host", they are given from the previous port state's lost flag
-    and lost count, as the Tracker gives them (the capturable step);
-    "every-step", the same probe, and the scan armed on every step."""
+    host_branches: how the port's step runs its probe and scan branches
+    (branch_runner: None, "host" or "every-step"); preds: a list for
+    "host"'s log of the predicates, one entry a branch a step."""
     jcfg = JConfig.from_dict(copy.deepcopy(cfg_dict))
     tcfg = TConfig.from_dict(copy.deepcopy(cfg_dict))
     size = tuple(jcfg.io.frame_size)
@@ -101,12 +123,8 @@ def _run_both(cfg_dict, frames=FRAMES, host_branches=None):
             # The JAX step's reseed draw (runtime/tracker.py, fold constant 0x5EED1).
             reseed = t_(jax.random.normal(jax.random.fold_in(fkey, 0x5EED1), (n, 2), jnp.float32))
             jstate, jo = jstep(jp, jstate, jnp.asarray(clip[i]))
-            branches = {}
-            if host_branches:
-                n_after = tcfg.tracker.redetect_global_after
-                armed = host_branches == "every-step" or int(tstate.lost_count) >= n_after - 1
-                branches = {"probe": bool(tstate.lost), "scan": n_after > 0 and armed}
-            tstate, to = tf.step(tp, tstate, torch.from_numpy(clip[i]), noise=noise, reseed=reseed, **branches)
+            tstate, to = tf.step(tp, tstate, torch.from_numpy(clip[i]), noise=noise, reseed=reseed,
+                                 run_if=branch_runner(host_branches, preds))
             jouts.append(jax.tree.map(np.asarray, jo))
             touts.append(to)
             jstates.append(jstate)

@@ -7,8 +7,9 @@ Runs the main path of chip_smoke.py (config.yaml, the B/16 checkpoint,
 the device-busy share (summed kernel time over the window's wall time), and
 the kernels with the most device time. Each step is a replay of the
 tracker's captured CUDA graph, as Tracker.step runs it on the card; the
-device time of one step is also timed by replaying the locked step's graph
-back to back between CUDA events. --eager profiles the same step run
+device time of one step is also timed by replaying the step's graph back
+to back between CUDA events (after the warm-up frames; a lost state takes
+its branches on every replay). --eager profiles the same step run
 eagerly (Tracker(graphs=False)). Each --set section.key=value
 (repeatable; the value read as JSON, else as a string) overrides the
 config, so the crop main path is one option away. --robust starts from
@@ -19,15 +20,16 @@ holds the lost frames, the probes and the re-detection scans, so use
 frames again under torch.cuda.set_sync_debug_mode("warn") and prints how
 many times the host waited for the card in each step (every device-to-host
 read, stream or device synchronize and copy from pageable host memory;
-Tracker.step's one wait for its record is one), by the branch the step
-took. --banks K starts from chip_smoke.py's banked path instead
+Tracker.step's one wait for its record is one), by the branches the step
+ran on the card. --banks K starts from chip_smoke.py's banked path instead
 (configs/eval4-tpu-multiobject-720p.yaml's values, 720x1280
 synthetic:multi-K, one MultiTracker of K banks, each on its own target);
 --streams K from its multi-stream path (config.yaml's values, a
 MultiStreamTracker over K moving-square clips seeded 0..K-1, step_packed and
-the row read back a step). For both it also prints the host time of a step's
-noise draws (K generators and 4 K draws, stacked and copied into the graph's
-buffers, between synchronizes) beside the step time. Imports only the port;
+the row read back a step). For these and --robust it also prints the host
+time of a step's noise draws (K generators and 4 K draws, stacked and
+copied into the graph's buffers, between synchronizes; with re-detection
+configured, also the reseed draw every step makes) beside the step time. Imports only the port;
 needs a card.
 
 Usage: python3 tools/port_profile_step.py [--frames 20] [--warmup 10] [--top 15] [--eager]
@@ -57,7 +59,7 @@ import numpy as np  # noqa: E402
 
 import chip_smoke  # noqa: E402
 from vitparticlefiltertracker_tpu_torch.config import Config  # noqa: E402
-from vitparticlefiltertracker_tpu_torch.filters.particle import draw_step_noise  # noqa: E402
+from vitparticlefiltertracker_tpu_torch.filters.particle import draw_reseed_noise, draw_step_noise  # noqa: E402
 from vitparticlefiltertracker_tpu_torch.io.video import open_source  # noqa: E402
 from vitparticlefiltertracker_tpu_torch.runtime.banked import MultiStreamTracker, MultiTracker  # noqa: E402
 from vitparticlefiltertracker_tpu_torch.runtime.tracker import Tracker  # noqa: E402
@@ -155,26 +157,29 @@ def main() -> int:
         print(f"  {e.self_device_time_total / args.frames:9.1f} us/step  {e.count / args.frames:6.1f}/step  "
               f"{100 * e.self_device_time_total / busy_us:5.1f}%  {e.key[:110]}")
     if graphs:
-        print(f"device time of one locked step, its graph replayed back to back: {replay_ms(tr):.3f} ms")
-    if args.banks or args.streams:
+        print(f"device time of one step, its graph replayed back to back: {replay_ms(tr):.3f} ms")
+    if args.banks or args.streams or args.robust:
         t0 = time.perf_counter()
         for f in frames[1 + args.warmup :]:
             step(f)
         torch.cuda.synchronize()
         step_ms = (time.perf_counter() - t0) * 1e3 / args.frames
-        noise = noise_ms(tr)
+        noise, reseed = noise_ms(tr), noise_ms(tr, reseed=True)
         print(f"host noise draws of {tr._k} filters: {noise:.3f} ms a step ({4 * tr._k} draws and "
               f"{tr._k} generators), against {step_ms:.3f} ms a step without the profiler: "
               f"{100 * noise / step_ms:.1f}%")
+        if tr._n_after > 0:
+            print(f"  with the reseed draw every step: {reseed:.3f} ms ({100 * reseed / step_ms:.1f}%; the reseed "
+                  f"alone {reseed - noise:.3f} ms)")
     if args.syncs and not (args.banks or args.streams):
         count_syncs(cfg, frames, src.init_bbox, graphs)
     return 0
 
 
 def replay_ms(tr: Tracker, reps: int = 20) -> float:
-    """Device time of one step: the locked step's graph replayed `reps`
-    times between CUDA events (the tracker state advances; use last)."""
-    graph = next(iter(tr._step_graphs.values())).graphs[(False, False)]
+    """Device time of one step: the step's graph replayed `reps` times
+    between CUDA events (the tracker state advances; use last)."""
+    graph = next(iter(tr._step_graphs.values())).graph
     graph.replay()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
@@ -185,10 +190,11 @@ def replay_ms(tr: Tracker, reps: int = 20) -> float:
     return start.elapsed_time(end) / reps
 
 
-def noise_ms(tr, reps: int = 20) -> float:
+def noise_ms(tr, reps: int = 20, reseed: bool = False) -> float:
     """Host clock of one step's noise draws, as the tracker makes them
     before a replay: every bank's generator and 4 draws, stacked, and (with
-    graphs) copied into the graph's noise buffers; between synchronizes."""
+    graphs) copied into the graph's noise buffers; with `reseed`, also the
+    reseed normals; between synchronizes."""
     sg = next(iter(tr._step_graphs.values())) if tr.graphs else None
     seeds, idx = tr._seed.tolist(), tr._frame_idx.tolist()
     torch.cuda.synchronize()
@@ -198,6 +204,10 @@ def noise_ms(tr, reps: int = 20) -> float:
         if sg is not None:
             for dst, src in zip(sg.noise, noise):
                 dst.copy_(src)
+        if reseed:
+            normals = draw_reseed_noise(seeds, idx, tr._n, tr.device)
+            if sg is not None:
+                sg.reseed.copy_(normals)
     torch.cuda.synchronize()
     return (time.perf_counter() - t0) * 1e3 / reps
 
@@ -205,8 +215,8 @@ def noise_ms(tr, reps: int = 20) -> float:
 def count_syncs(cfg: Config, frames, bbox, graphs: bool) -> None:
     """Each step of a fresh tracker over `frames` under the sync debug mode
     (chip_smoke.count_waits): the host's waits for the card a step, by the
-    branch it took (probe while lost, armed for the scan, both, neither),
-    and how many of the armed steps triggered a scan."""
+    branches it ran (the probe where the state before it was lost, the scan
+    where it triggered, both, neither), read from the states afterwards."""
     tr = Tracker(cfg, device="cuda", graphs=graphs)
     tr.init(frames[0], bbox)
     n_after = cfg.tracker.redetect_global_after
@@ -214,11 +224,12 @@ def count_syncs(cfg: Config, frames, bbox, graphs: bool) -> None:
     triggered = 0
     shown = 0
     for f in frames[1:]:
-        probe, scan = tr._branch()
+        probe = bool(tr.state.lost)
         stacks = []
         waits = chip_smoke.count_waits(lambda f=f: tr.step(f), stacks)
-        by_kind[("probe " if probe else "") + ("armed" if scan else "") or "locked"].append(waits)
-        triggered += n_after > 0 and chip_smoke.scan_accepted(tr.state, n_after)[0]
+        scan = n_after > 0 and chip_smoke.scan_accepted(tr.state, n_after)[0]
+        by_kind[("probe " if probe else "") + ("scan" if scan else "") or "locked"].append(waits)
+        triggered += scan
         if waits > 1 and shown < 2:  # where the waits beyond the record's are
             shown += 1
             for stack in stacks:

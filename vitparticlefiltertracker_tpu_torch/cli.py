@@ -1,7 +1,9 @@
 """Command line: ``python -m vitparticlefiltertracker_tpu_torch track --config config.yaml``.
 
-Writes the same JSONL records as the JAX package's ``python main.py track``.
-Runs on the card unless ``--device cpu`` is given.
+Subcommands: track (default), stream (the decode -> track pipeline with
+trailing readback) and serve (K videos batched in one step). Each writes
+the same JSONL records as the JAX package's command of that name. Runs on
+the card unless ``--device cpu`` is given.
 """
 
 from __future__ import annotations
@@ -11,6 +13,8 @@ import os
 import sys
 import time
 
+import numpy as np
+
 from vitparticlefiltertracker_tpu_torch.config import Config, apply_override, load_config
 
 
@@ -18,7 +22,7 @@ def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="vpt-torch", description="ViT + particle-filter tracker (PyTorch / CUDA port)"
     )
-    p.add_argument("command", nargs="?", default="track", choices=["track"])
+    p.add_argument("command", nargs="?", default="track", choices=["track", "stream", "serve"])
     p.add_argument("--config", "-c", default="", help="path to config.yaml")
     p.add_argument(
         "--set",
@@ -49,19 +53,13 @@ def cmd_track(cfg: Config, device: str = "cuda", quiet: bool = False) -> int:
     runtime.banks > 1, a MultiTracker over the source's targets (or its one
     box, tiled) writes one record a bank a frame."""
     from vitparticlefiltertracker_tpu_torch.io.sink import JsonlSink
-    from vitparticlefiltertracker_tpu_torch.io.video import open_source
 
     if cfg.io.overlay:
         raise NotImplementedError("io.overlay is not ported yet; see ROADMAP.md")
     banks = cfg.runtime.banks
     if cfg.io.resume_state and banks > 1:
         raise ValueError("io.resume_state supports a single tracker (runtime.banks == 1)")
-    source = open_source(
-        cfg.io.source,
-        num_frames=cfg.io.num_frames,
-        frame_size=tuple(cfg.io.frame_size),
-        seed=cfg.filter.seed,
-    )
+    source = _open(cfg, cfg.io.source, cfg.filter.seed)
     sink = JsonlSink(cfg.io.output)
     t_start = time.perf_counter()
     count = 0
@@ -107,10 +105,103 @@ def cmd_track(cfg: Config, device: str = "cuda", quiet: bool = False) -> int:
     return 0
 
 
+def _open(cfg: Config, spec: str, seed: int):
+    from vitparticlefiltertracker_tpu_torch.io.video import open_source
+
+    return open_source(spec, num_frames=cfg.io.num_frames, frame_size=tuple(cfg.io.frame_size), seed=seed)
+
+
+def cmd_stream(cfg: Config, device: str = "cuda", quiet: bool = False) -> int:
+    """The decode -> track pipeline (runtime/streaming.py): a producer
+    thread, pinned staging, one graph replay a frame and trailing readback;
+    a MultiTracker with one record a bank when runtime.banks > 1."""
+    from vitparticlefiltertracker_tpu_torch.io.sink import JsonlSink
+    from vitparticlefiltertracker_tpu_torch.runtime.streaming import stream_track
+
+    source = _open(cfg, cfg.io.source, cfg.filter.seed)
+    init_bbox = getattr(source, "init_bbox", None)
+    if init_bbox is None:
+        init_bbox = cfg.io.init_bbox
+    rt = cfg.runtime
+    if rt.banks > 1:
+        from vitparticlefiltertracker_tpu_torch.runtime.banked import MultiTracker, banked_bboxes
+
+        tracker = MultiTracker(cfg, device=device)
+        init_bbox = banked_bboxes(init_bbox, rt.banks)
+    else:
+        from vitparticlefiltertracker_tpu_torch.runtime.tracker import Tracker
+
+        tracker = Tracker(cfg, device=device)
+    sink = JsonlSink(cfg.io.output)
+    stats = stream_track(
+        tracker, source, init_bbox, on_record=sink.write,
+        pump_depth=rt.prefetch_frames,
+        readback_window=rt.stream_readback,
+        roi_px=rt.stream_roi if rt.banks == 1 else 0,
+        chunk=rt.stream_chunk if rt.banks == 1 and rt.stream_roi > 0 else 1,
+    )
+    sink.close()
+    if not quiet:
+        print(f"streamed {stats['frames']} frames in {stats['wall_s']:.2f}s ({stats['fps']:.1f} fps)",
+              file=sys.stderr)
+    return 0
+
+
+def cmd_serve(cfg: Config, device: str = "cuda", quiet: bool = False) -> int:
+    """Multi-stream serving: K independent videos batched in one step a
+    frame batch (MultiStreamTracker). Sources: io.source as a comma-separated
+    list, or one spec replicated runtime.streams times with seeds
+    filter.seed + i. One FramePump a source, read in lockstep into
+    stream_track's pipeline; one JSONL record a stream a frame, with a
+    "stream" field."""
+    from vitparticlefiltertracker_tpu_torch.io.sink import JsonlSink
+    from vitparticlefiltertracker_tpu_torch.runtime.banked import MultiStreamTracker
+    from vitparticlefiltertracker_tpu_torch.runtime.streaming import FramePump, stream_track
+
+    specs = [s.strip() for s in cfg.io.source.split(",") if s.strip()]
+    if len(specs) == 1:
+        specs = specs * cfg.runtime.streams
+    k = len(specs)
+    sources = [_open(cfg, spec, cfg.filter.seed + i) for i, spec in enumerate(specs)]
+    pumps = [iter(FramePump(s, depth=cfg.runtime.prefetch_frames)) for s in sources]
+    bboxes = np.stack([np.asarray(s.init_bbox if getattr(s, "init_bbox", None) is not None else cfg.io.init_bbox,
+                                  np.float32) for s in sources])
+
+    def lockstep():
+        """The K pumps as one [K, H, W, 3] frame stream, to the shortest."""
+        while True:
+            frames = [next(p, None) for p in pumps]
+            if any(f is None for f in frames):
+                return
+            shapes = {f.shape for f in frames}
+            if len(shapes) > 1:
+                raise ValueError(f"serve needs equal frame sizes across streams, got {shapes}")
+            yield np.stack(frames)
+
+    ms = MultiStreamTracker(cfg, num_streams=k, device=device)
+    sink = JsonlSink(cfg.io.output)
+
+    def on_record(rec):
+        # One record a frame batch with K-vector fields: one a stream.
+        for s in range(k):
+            sink.write({"stream": s, "frame": rec["frame"], "position": rec["position"][s], "box": rec["box"][s],
+                        "conf": rec["conf"][s], "ess": rec["ess"][s], "lost": rec["lost"][s]})
+
+    stats = stream_track(ms, lockstep(), bboxes, on_record=on_record)
+    sink.close()
+    if not quiet and stats["frames"]:
+        print(f"served {k} streams x {stats['frames']} frames in {stats['wall_s']:.2f}s "
+              f"({k * stats['fps']:.1f} fps aggregate, {stats['fps']:.1f} per stream)", file=sys.stderr)
+    return 0
+
+
+COMMANDS = {"track": cmd_track, "stream": cmd_stream, "serve": cmd_serve}
+
+
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     cfg = load(args, implicit_config=argv is None)
-    return cmd_track(cfg, args.device, args.quiet)
+    return COMMANDS[args.command](cfg, args.device, args.quiet)
 
 
 if __name__ == "__main__":

@@ -12,6 +12,7 @@ CLI overrides use dotted paths: ``--set filter.num_particles=4096``.
 from __future__ import annotations
 
 import dataclasses
+import json
 from dataclasses import dataclass, field
 from typing import Any
 
@@ -336,11 +337,15 @@ def _dataclass_from_dict(cls: type, d: dict[str, Any]) -> Any:
 
 
 def load_config(path: str, overrides: list[str] | None = None) -> Config:
-    """Load a config.yaml with dotted CLI overrides."""
-    import yaml
-
+    """Load a config.yaml (or the same sections as a .json file, read
+    without a YAML parser) with dotted CLI overrides."""
     with open(path) as f:
-        raw = yaml.safe_load(f) or {}
+        if path.endswith(".json"):
+            raw = json.load(f)
+        else:
+            import yaml
+
+            raw = yaml.safe_load(f) or {}
     cfg = Config.from_dict(raw)
     for ov in overrides or []:
         apply_override(cfg, ov)

@@ -13,6 +13,7 @@ import numpy as np
 
 from vitparticlefiltertracker_tpu_torch.io import synthetic
 
+VIDEO_EXTS = {".mp4", ".avi", ".mov", ".mkv", ".webm", ".m4v", ".y4m"}
 IMAGE_EXTS = {".png", ".jpg", ".jpeg", ".bmp", ".ppm"}
 
 
@@ -60,13 +61,24 @@ class ImageSequenceSource:
         return len(self.paths)
 
 
+def _not_ported(source: str, what: str, item: str):
+    return NotImplementedError(f"source {source!r}: {what} is not ported yet; see ROADMAP.md (open items §1, {item})")
+
+
 def open_source(
     source: str,
     num_frames: int = 0,
     frame_size: tuple[int, int] = (224, 224),
     seed: int = 0,
 ):
-    """Dispatch on the config's io.source string (synthetic or image glob)."""
+    """Dispatch on the config's io.source string, in the JAX package's order:
+    cameras, native sources, synthetic clips, image globs, video files. The
+    port reads synthetic clips and image sequences so far; the others raise
+    NotImplementedError, and a source no reader takes raises ValueError."""
+    if source.startswith("camera:"):
+        raise _not_ported(source, "a camera", "I/O remainder")
+    if source.startswith("native-synthetic:") or source.endswith(".rgb24"):
+        raise _not_ported(source, "the native ring", "1c")
     if source.startswith("synthetic:"):
         return SyntheticSource(
             synthetic.parse_synthetic_source(source),
@@ -78,7 +90,6 @@ def open_source(
     ext = os.path.splitext(source)[1].lower()
     if "*" in source or "?" in source or ext in IMAGE_EXTS:
         return ImageSequenceSource(source, num_frames)
-    raise NotImplementedError(
-        f"source {source!r}: the port reads synthetic clips and image "
-        "sequences so far (video files, cameras and native sources: see ROADMAP.md)"
-    )
+    if ext in VIDEO_EXTS:
+        raise _not_ported(source, "a video file", "I/O remainder")
+    raise ValueError(f"cannot infer source type from {source!r}")

@@ -149,3 +149,18 @@ def window_patchify_library() -> ctypes.CDLL:
         lib.vpt_window_patchify_smem_bytes.argtypes = [i, i, i, i]
         lib.vpt_window_patchify_smem_bytes.restype = ctypes.c_int
     return lib
+
+
+def graph_if_library() -> ctypes.CDLL:
+    """The CUDA graph IF-node helpers of a captured step
+    (runtime/step_graph.py), with argtypes set as for flash_attn_library."""
+    lib, _ = build_library("graph_if.cu")
+    if lib.vpt_if_begin.argtypes is None:
+        p = ctypes.c_void_p
+        lib.vpt_if_begin.argtypes = [p, p, p]  # capturing stream, predicate, body stream
+        lib.vpt_if_begin.restype = ctypes.c_int
+        lib.vpt_if_end.argtypes = [p]
+        lib.vpt_if_end.restype = ctypes.c_int
+        lib.vpt_if_load.argtypes = []
+        lib.vpt_if_load.restype = ctypes.c_int
+    return lib

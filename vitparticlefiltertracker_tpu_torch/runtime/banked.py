@@ -16,7 +16,8 @@ windows and one forward of all K * N crops). Two forms:
 Bank k draws the noise that a single Tracker with seed k draws at its own
 frame index. On the card each step of either is one replay of a captured
 CUDA graph (runtime/step_graph.py), as for the single-object Tracker; the
-host keeps each bank's seed, frame index, lost flag and lost count.
+host keeps each bank's seed and frame index, and the graph's IF nodes run a
+lost-only branch for all banks when any bank's flag on the card needs it.
 """
 
 from __future__ import annotations
@@ -128,7 +129,7 @@ class MultiTracker(_GraphStepper):
         """Track one frame for every bank -> one host-side record a bank
         (the JAX package's keys), after one wait for the card."""
         t0 = time.perf_counter()
-        out = self._read(self._advance(self._stage(frame)))
+        out = self._read(self._advance(self.stage(frame)))
         ms = (time.perf_counter() - t0) * 1e3
         k = self.banks
         v = out.astype(np.float64)
@@ -151,8 +152,9 @@ class MultiTracker(_GraphStepper):
         single-object state from (frame, bbox), seed filter.seed + k unless
         given, written into row k of the banked state; bank k restarts at
         frame index 0 and the other banks are untouched. On the card the
-        fresh row is copied into the graphs' static buffers, which the
-        graphs read in place."""
+        fresh row (lost flag and lost count cleared) is copied into the
+        graph's static buffers, which the graph and its branch predicates
+        read in place."""
         if self._state is None:
             raise RuntimeError("call init() first")
         if not 0 <= k < self.banks:
@@ -170,7 +172,7 @@ class MultiTracker(_GraphStepper):
             for dst, src in zip(leaves, fresh):
                 dst[k] = src
             self._state = TrackerState(PFState(*leaves[:2]), *leaves[2:])
-        self._seed[k], self._frame_idx[k], self._lost[k], self._lost_count[k] = seed, 0, False, 0
+        self._seed[k], self._frame_idx[k] = seed, 0
 
 
 class MultiStreamTracker(_GraphStepper):

@@ -1,26 +1,36 @@
-"""A tracker step captured as CUDA graphs and replayed: the port's counterpart
-of the JAX package's one jitted, state-donating step executable.
+"""A tracker step captured as one CUDA graph and replayed: the port's
+counterpart of the JAX package's one jitted, state-donating step executable.
 
 ``StepGraphs`` holds, for one frame shape and dtype, the static buffers a
 step reads (the frame, the step noise, the re-detection reseed normals; with
 a leading K axis for K banks: frame [H, W, 3] shared or [K, H, W, 3], noise
-[K, N, ...], reseed [K, N, 2]) and
-one graph for each branch key (probe, scan) that the config can take. Every
-graph reads the tracker state from the same static buffers and writes the
-new state back into them as its last operations, so replaying a graph
-advances the tracker in place. The graphs share one memory pool and are
-never replayed at once.
+[K, N, ...], reseed [K, N, 2]) and one graph. The graph reads the tracker
+state from static buffers and writes the new state back into them as its
+last operations, so replaying it advances the tracker in place.
+
+The step's two lost-only branches (the probe and the global re-detection
+scan; ``lax.cond`` in the JAX package) are CUDA conditional (IF) nodes in
+that graph: the step computes each predicate on the card, a one-thread
+kernel sets the node's handle from it, and the branch's body runs on a
+replay only where it is true (``csrc/graph_if.cu``). So the host chooses
+nothing and reads nothing back. A branch writes its results into buffers
+that the step filled with the not-taken values before the node. The bodies
+are captured on a stream of their own, into a memory pool of their own.
 
 A replay does not call the kernel wrappers, so their launch counts would
-stand still: each graph records what its capture added to the counts (the
-capture launches nothing) and adds it again on each replay. Warm-up launches
-are not counted.
+stand still: the graph records what its capture added to the counts outside
+the branches (the capture launches nothing) and adds it again on each
+replay. Each branch body also adds one to a counter on the card when it
+runs; ``settle_counts`` reads those counters (one wait) and adds each
+body's launches once for every time it ran. Warm-up launches are not
+counted.
 """
 
 from __future__ import annotations
 
+import weakref
 from collections import Counter
-from typing import Callable, Iterable
+from typing import Callable
 
 import torch
 
@@ -43,10 +53,12 @@ def restore_counts(saved: list[tuple[int, Counter]]) -> None:
         setattr(f, by, Counter(by_shape))
 
 
-def add_counts(delta: list[tuple[int, Counter]]) -> None:
+def add_counts(delta: list[tuple[int, Counter]], times: int = 1) -> None:
+    if times == 0:
+        return
     for (f, by), (launches, by_shape) in zip(_COUNTED, delta):
-        f.launches += launches
-        getattr(f, by).update(by_shape)
+        f.launches += launches * times
+        getattr(f, by).update({k: v * times for k, v in by_shape.items()})
 
 
 def _delta(before, after) -> list[tuple[int, Counter]]:
@@ -75,55 +87,163 @@ def copy_state_(dst, src) -> None:
             d.copy_(s)
 
 
-# body(state, frame, noise, reseed, probe, scan) -> (new state, [12 K] f32 row)
+# run_if(pred, body): run body() where the 0-d bool tensor `pred` holds.
+RunIf = Callable[[torch.Tensor, Callable[[], None]], None]
+
+
+def run_if_host(pred: torch.Tensor, body: Callable[[], None]) -> None:
+    """The eager step's branch: the host reads the predicate (a wait on the
+    card) and runs the body where it holds."""
+    if bool(pred):
+        body()
+
+
+def run_if_always(pred: torch.Tensor, body: Callable[[], None]) -> None:
+    """Every branch on every step; the step's merges keep the not-taken
+    values where the predicate is false (what warm-up runs)."""
+    body()
+
+
+# body(state, frame, noise, reseed, run_if) -> (new state, [10 K] f32 row)
 StepBody = Callable[..., tuple[object, torch.Tensor]]
+
+# Every StepGraphs alive, for settle_counts.
+_LIVE: "weakref.WeakSet[StepGraphs]" = weakref.WeakSet()
+_MAX_BRANCHES = 2  # the probe and the scan
+
+
+def settle_counts() -> None:
+    """Add to the kernel wrappers' counts the launches of every branch body
+    that ran since the last call (reads each graph's counters: one wait)."""
+    for graphs in list(_LIVE):
+        graphs.settle()
+
+
+def capture_if(pred: torch.Tensor, body: Callable[[], None], body_stream: torch.cuda.Stream, body_pool) -> None:
+    """Inside a CUDA graph capture on the current stream: capture body() as
+    an IF node on `pred` (a 0-d bool on the card, computed on the current
+    stream), its work on `body_stream` and its allocations in the memory
+    pool `body_pool` (a graph_pool_handle() of its own: the capture's pool
+    is keyed to the capture's stream). Each call holds one reference to the
+    pool, which the caller releases (torch._C._cuda_releasePool) once the
+    graph is gone."""
+    from vitparticlefiltertracker_tpu_torch.ops._build import graph_if_library
+
+    lib = graph_if_library()
+    dev = pred.device
+    pred = pred.reshape(()).to(torch.bool)
+    rc = lib.vpt_if_begin(torch.cuda.current_stream(dev).cuda_stream, pred.data_ptr(), body_stream.cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"vpt_if_begin failed with code {rc}")
+    try:
+        with torch.cuda.stream(body_stream):
+            torch._C._cuda_beginAllocateCurrentStreamToPool(dev.index, body_pool)
+            try:
+                body()
+            finally:
+                torch._C._cuda_endAllocateToPool(dev.index, body_pool)
+    finally:
+        rc = lib.vpt_if_end(body_stream.cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"vpt_if_end failed with code {rc}")
+
+
+def _release_pool(device_index: int, pool, refs: list[int]) -> None:
+    for _ in range(refs[0]):
+        torch._C._cuda_releasePool(device_index, pool)
 
 
 class StepGraphs:
-    """The graphs of one frame shape and dtype over the static `state`.
+    """The graph of one frame shape and dtype over the static `state`.
 
-    body: the step; it returns the new state and a [12 K] f32 row (the
-    packed TrackOutput of the K filters, then their lost flags and lost
-    counts; K = 1 without banks), and must be capturable: no host read and
-    no copy from host memory. lead: the state's leading axes, () or (K,).
+    body: the step; it returns the new state and a [10 K] f32 row (the
+    packed TrackOutput of the K filters; K = 1 without banks), and must be
+    capturable: no host read and no copy from host memory. It runs its
+    lost-only branches through the run_if it is given. lead: the state's
+    leading axes, () or (K,).
     """
 
-    def __init__(self, body: StepBody, state, frame_shape, frame_dtype: torch.dtype, n: int,
-                 keys: Iterable[tuple[bool, bool]], pool, lead: tuple[int, ...] = ()):
+    def __init__(self, body: StepBody, state, frame_shape, frame_dtype: torch.dtype, n: int, pool,
+                 lead: tuple[int, ...] = ()):
         dev = state.center.device
+        self._dev = dev
         self.frame = torch.zeros(frame_shape, dtype=frame_dtype, device=dev)
         self.noise = StepNoise(pos=torch.zeros((*lead, n, 2), device=dev), vel=torch.zeros((*lead, n, 2), device=dev),
                                scale=torch.zeros((*lead, n), device=dev), resample_u=torch.zeros(lead, device=dev))
         self.reseed = torch.zeros((*lead, n, 2), device=dev)
-        self.graphs: dict[tuple[bool, bool], torch.cuda.CUDAGraph] = {}
-        self.rows: dict[tuple[bool, bool], torch.Tensor] = {}
-        self.counts: dict[tuple[bool, bool], list] = {}
+        # Branch bodies: their stream and memory pool, how often each ran
+        # (on the card), and the launches each capture added.
+        self._body_stream = torch.cuda.Stream(dev)
+        self._body_pool = torch.cuda.graph_pool_handle()
+        self._pool_refs = [0]
+        self.taken = torch.zeros(_MAX_BRANCHES, dtype=torch.int64, device=dev)
+        self._settled = [0] * _MAX_BRANCHES
+        self.branch_counts: list[list] = []
         stream = torch.cuda.Stream(dev)
-        for key in keys:
-            probe, scan = key
-            before = read_counts()
-            # Warm-up on a copy of the state, on the capture stream (cuBLAS
-            # workspaces, the kernels' first-use build and load, the
-            # per-frame-size constants), then the capture itself.
-            warm = clone_state(state)
-            stream.wait_stream(torch.cuda.current_stream(dev))
-            with torch.cuda.stream(stream):
-                body(warm, self.frame, self.noise, self.reseed, probe, scan)
-            torch.cuda.current_stream(dev).wait_stream(stream)
-            del warm
-            restore_counts(before)
-            graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(graph, pool=pool, stream=stream):
-                new, row = body(state, self.frame, self.noise, self.reseed, probe, scan)
-                copy_state_(state, new)
-            self.counts[key] = _delta(before, read_counts())
-            restore_counts(before)
-            self.graphs[key] = graph
-            self.rows[key] = row
+        before = read_counts()
+        # Warm-up on a copy of the state, on the capture stream, with every
+        # branch run on the bodies' stream (cuBLAS workspaces of both
+        # streams, the kernels' first-use build and load, the per-frame-size
+        # constants), then the capture itself.
+        warm = clone_state(state)
+        stream.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(stream):
+            body(warm, self.frame, self.noise, self.reseed, self._warm_if)
+        torch.cuda.current_stream(dev).wait_stream(stream)
+        del warm
+        restore_counts(before)
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.graph, pool=pool, stream=stream):
+            new, self.row = body(state, self.frame, self.noise, self.reseed, self._capture_if)
+            copy_state_(state, new)
+        total = _delta(before, read_counts())
+        self.counts = total
+        for branch in self.branch_counts:
+            self.counts = _delta(branch, self.counts)
+        restore_counts(before)
+        if self._pool_refs[0]:
+            weakref.finalize(self, _release_pool, dev.index, self._body_pool, self._pool_refs)
+        _LIVE.add(self)
 
-    def replay(self, key: tuple[bool, bool]) -> torch.Tensor:
-        """Run the step of branch `key` on the current stream -> its [12 K]
-        row, a buffer the next replay of that graph overwrites."""
-        self.graphs[key].replay()
-        add_counts(self.counts[key])
-        return self.rows[key]
+    def _warm_if(self, pred: torch.Tensor, body: Callable[[], None]) -> None:
+        from vitparticlefiltertracker_tpu_torch.ops._build import graph_if_library
+
+        rc = graph_if_library().vpt_if_load()
+        if rc != 0:
+            raise RuntimeError(f"vpt_if_load failed with code {rc}")
+        current = torch.cuda.current_stream(self._dev)
+        self._body_stream.wait_stream(current)
+        with torch.cuda.stream(self._body_stream):
+            body()
+        current.wait_stream(self._body_stream)
+
+    def _capture_if(self, pred: torch.Tensor, body: Callable[[], None]) -> None:
+        """capture_if, counting the body's launches and its runs."""
+        i = len(self.branch_counts)
+        if i >= _MAX_BRANCHES:
+            raise RuntimeError(f"a step has at most {_MAX_BRANCHES} branches")
+        before = read_counts()
+
+        def counted():
+            body()
+            self.taken[i:i + 1].add_(1)
+
+        self._pool_refs[0] += 1
+        capture_if(pred, counted, self._body_stream, self._body_pool)
+        self.branch_counts.append(_delta(before, read_counts()))
+
+    def replay(self) -> torch.Tensor:
+        """Run the step on the current stream -> its [10 K] row, a buffer
+        the next replay overwrites."""
+        self.graph.replay()
+        add_counts(self.counts)
+        return self.row
+
+    def settle(self) -> None:
+        """Count the branch bodies' launches of the replays since the last call."""
+        if not self.branch_counts:
+            return
+        taken = self.taken.tolist()
+        for i, delta in enumerate(self.branch_counts):
+            add_counts(delta, taken[i] - self._settled[i])
+        self._settled = taken

@@ -8,9 +8,11 @@ crop per particle instead (``tracker.crop_impl``: from the frame, or from one
 resampled search window through the plain version or kernel K2), embeds all
 N crops in one ViT forward with position embeddings, mean-pools them and
 scores each against the template. The JAX version is one jitted program
-with ``lax.cond`` for its two lost-only branches; here PyTorch runs eagerly
-and each is a host branch: the probe (dense mode only) on the lost flag, the
-global re-detection scan on lost_count reaching redetect_global_after.
+with ``lax.cond`` for its two lost-only branches: the probe (dense mode
+only) on the lost flag, the global re-detection scan on lost_count reaching
+redetect_global_after. Here each is a body run through a ``run_if`` on a
+predicate the step computes: an IF node of the captured CUDA graph on the
+card (runtime/step_graph.py), a host branch in the eager step.
 
 Ported: dense and crop mode with the lost gate and probe, template EMA and
 anchor, coasting, the residual head's blend (static, or automatic for the
@@ -71,7 +73,13 @@ from vitparticlefiltertracker_tpu_torch.ops.patchify_window import (
     window_gather_patchify,
     window_gather_patchify_plain,
 )
-from vitparticlefiltertracker_tpu_torch.runtime.step_graph import StepGraphs, clone_state, copy_state_
+from vitparticlefiltertracker_tpu_torch.runtime.step_graph import (
+    RunIf,
+    StepGraphs,
+    clone_state,
+    copy_state_,
+    run_if_host,
+)
 from vitparticlefiltertracker_tpu_torch.utils.platform import resolve_device
 
 
@@ -205,7 +213,7 @@ def build_tracker_fns(cfg: Config) -> _Fns:
     """Build (init_fn, step_fn, track_clip_fn) for a dense- or crop-mode config.
 
     init(params, frame, bbox, seed, cloud=None) -> TrackerState
-    step(params, state, frame, noise=None, reseed=None, probe=None, scan=None)
+    step(params, state, frame, noise=None, reseed=None, run_if=None)
         -> (TrackerState, TrackOutput)
     track_clip(params, state, frames, noises=None, reseeds=None)
         -> (TrackerState, TrackOutput with a leading T axis)
@@ -221,18 +229,21 @@ def build_tracker_fns(cfg: Config) -> _Fns:
     and reseed with a leading K; outputs [K, ...]). Bank k's draws are those
     of a single filter with its seed at its own frame index.
 
-    probe / scan choose the step's two lost-only branches (``lax.cond`` in
-    the JAX package). Left None, the step reads the flag it needs back from
-    the card: `state.lost` for the probe, the step's own lost count for the
-    scan. Given, the step is capturable in a CUDA graph, provided noise and,
-    when scan is True, reseed are given too: no host read and no copy from
-    host memory runs in it. probe=True probes (a no-op unless the config
-    gates on confidence in dense mode) where the state is lost; scan=True
-    ("armed") runs the scan and applies its effects where the step's own lost
-    count reaches redetect_global_after and the match is accepted, so an
-    armed step whose trigger stays low gives what an unarmed one gives. With
-    banks each flag is per bank: a branch runs for all banks when any needs
-    it, and each bank takes its effects only where its own flag says so.
+    The step's two lost-only branches (``lax.cond`` in the JAX package) run
+    through run_if(pred, body), pred a 0-d bool tensor the step computes:
+    the probe (dense mode, a lost gate configured) on `state.lost.any()`,
+    the global scan (redetect_global_after > 0) on the step's own lost
+    count reaching redetect_global_after for any bank. Each body writes into
+    buffers that hold the not-taken values before it (the probe's gate
+    confidence defaults to the step's confidence; the scan's match to the
+    state's centre at cosine -2 and z 0, which nothing accepts), and the
+    merges after the branches take a bank's branch result only where its
+    own flag says so, so a body run where its predicate is false changes
+    nothing. run_if None: the host reads the predicate and runs the body
+    where it holds (step_graph.run_if_host). Given a run_if that reads
+    nothing (the capture's IF nodes, or one that always runs the body), and
+    noise and, with the scan configured, reseed, the step is capturable in
+    a CUDA graph: no host read and no copy from host memory runs in it.
     """
     t = cfg.tracker
     m = cfg.model
@@ -412,7 +423,8 @@ def build_tracker_fns(cfg: Config) -> _Fns:
         return best_xy, best_cos, z
 
     def step_fn(prm, state: TrackerState, frame, noise: StepNoise | None = None,
-                reseed: torch.Tensor | None = None, probe: bool | None = None, scan: bool | None = None):
+                reseed: torch.Tensor | None = None, run_if: RunIf | None = None):
+        run_if = run_if_host if run_if is None else run_if
         dev = state.center.device
         lead = state.center.shape[:-1]  # () for one filter, (K,) for K banks
         nb = len(lead)
@@ -421,7 +433,6 @@ def build_tracker_fns(cfg: Config) -> _Fns:
         fc = frame_consts(fh, fw, dev)
         if noise is None:
             noise = draw_step_noise(key_seed(state.key), state.frame_idx.tolist(), n, dev)
-        probe = probe_gated and (bool(state.lost.any()) if probe is None else probe)
         # While lost, sweep a wider area: inflate position diffusion and the
         # search window until re-lock.
         noise_boost = torch.where(state.lost, t.redetect_noise_boost, 1.0)
@@ -484,18 +495,23 @@ def build_tracker_fns(cfg: Config) -> _Fns:
         est_box = (state.box_wh * est_scale[..., None])[..., None, :]  # [..., 1, 2]
         # Confidence = best valid cosine; all-out-of-window gives -1.
         conf = torch.amax(torch.where(in_win, cos, -1.0), dim=-1)
-        if probe:
+        if probe_gated:
             # While lost the window is boosted, which depresses every cosine;
             # probe the estimate through an unboosted window instead (one
             # extra ViT forward, on lost frames only). Crop mode embeds at
             # the box's own scale already and has no probe. With banks the
             # probe runs for all while any is lost, and each takes its result
             # where it was lost (what JAX's vmap makes of the lax.cond).
-            side0 = _window_side(state.box_wh, state.prev_scale, t.search_scale)
-            pool_p = make_dense_embedder(prm, view, est_xy, side0, es)
-            emb_p, ok_p = pool_p(est_xy[..., None, :], est_box)
-            _, cos_p = cosine_log_likelihood(emb_p, tmpl, 1.0, split=split, batch_dims=nb)
-            conf_gate = torch.where(state.lost, torch.where(ok_p[..., 0], cos_p[..., 0], -1.0), conf)
+            conf_gate = conf.clone()  # the not-taken value
+
+            def probe():
+                side0 = _window_side(state.box_wh, state.prev_scale, t.search_scale)
+                pool_p = make_dense_embedder(prm, view, est_xy, side0, es)
+                emb_p, ok_p = pool_p(est_xy[..., None, :], est_box)
+                _, cos_p = cosine_log_likelihood(emb_p, tmpl, 1.0, split=split, batch_dims=nb)
+                conf_gate.copy_(torch.where(state.lost, torch.where(ok_p[..., 0], cos_p[..., 0], -1.0), conf))
+
+            run_if(state.lost.any(), probe)
         else:
             conf_gate = conf
         lost = conf_gate < lost_thresh
@@ -535,16 +551,23 @@ def build_tracker_fns(cfg: Config) -> _Fns:
 
         # Global re-detection: after redetect_global_after lost frames in a
         # row, scan a grid over the whole frame against the template and, on
-        # an accepted match, reseed the cloud there (a branch chosen on the
-        # host where the JAX package has lax.cond; its effects are gated on
-        # each bank's trigger, so an armed step that does not trigger changes
-        # nothing, and banks scan together while any may trigger).
-        if scan is None:
-            scan = n_after > 0 and bool((lost_count >= n_after).any())
-        if scan and n_after > 0:
-            cand_wh = state.box_wh * state.prev_scale[..., None]
-            best_xy, best_cos, best_z = global_scan(prm, view, tmpl, side, cand_wh)
-            accept = (lost_count >= n_after) & (best_cos >= t.redetect_accept_conf) & (best_z >= t.redetect_accept_z)
+        # an accepted match, reseed the cloud there (lax.cond in the JAX
+        # package; here a body on the trigger of any bank, its effects gated
+        # on each bank's own trigger).
+        if n_after > 0:
+            trigger = lost_count >= n_after
+            # The not-taken values (JAX's false branch): no match to accept.
+            best_xy = state.center.clone()
+            best_cos = torch.full(lead, -2.0, dtype=torch.float32, device=dev)
+            best_z = torch.zeros(lead, dtype=torch.float32, device=dev)
+
+            def scan():
+                cand_wh = state.box_wh * state.prev_scale[..., None]
+                for buf, value in zip((best_xy, best_cos, best_z), global_scan(prm, view, tmpl, side, cand_wh)):
+                    buf.copy_(value)
+
+            run_if(trigger.any(), scan)
+            accept = trigger & (best_cos >= t.redetect_accept_conf) & (best_z >= t.redetect_accept_z)
             if t.redetect_accept_ratio > 0:
                 # A fraction of the locked-state confidence EMA, skipped while
                 # unseeded.
@@ -741,6 +764,55 @@ def load_tracker_state(path: str, device="cpu") -> TrackerState:
     )
 
 
+class StagingRing:
+    """Pinned host slots for frames on their way to the card, `depth` a
+    frame shape, used in turn. A host frame is copied into the next slot;
+    the step's copy from that slot to the card records the slot's event
+    (``copied``). A slot is written again only once its event has passed:
+    when the host runs `depth` frames ahead of the card's copies, ``stage``
+    waits for the oldest one, and counts the wait in `waits`."""
+
+    def __init__(self, depth: int = 2):
+        self.depth = depth
+        self.waits = 0
+        self._slots: dict = {}  # (shape, dtype) -> [(pinned tensor, event), ...]
+        self._turn: dict = {}  # (shape, dtype) -> frames staged
+        self._pending = None  # the slot whose copy to the card comes next
+
+    def reserve(self, frame: np.ndarray) -> None:
+        """Allocate every slot for frames like `frame` now (a pinned
+        allocation costs the host about a millisecond a frame)."""
+        key = (tuple(frame.shape), torch.from_numpy(np.ascontiguousarray(frame[:0])).dtype)
+        slots = self._slots.setdefault(key, [])
+        while len(slots) < self.depth:
+            slots.append((torch.empty(key[0], dtype=key[1]).pin_memory(), torch.cuda.Event()))
+
+    def stage(self, frame: np.ndarray) -> torch.Tensor:
+        src = torch.from_numpy(np.ascontiguousarray(frame))
+        key = (tuple(src.shape), src.dtype)
+        slots = self._slots.setdefault(key, [])
+        turn = self._turn.get(key, 0)
+        self._turn[key] = turn + 1
+        if len(slots) < self.depth and turn >= len(slots):  # grow to `depth` as frames come
+            slots.append((torch.empty(src.shape, dtype=src.dtype).pin_memory(), torch.cuda.Event()))
+            slot = slots[-1]
+        else:
+            slot = slots[turn % len(slots)]
+            if not slot[1].query():
+                self.waits += 1
+                slot[1].synchronize()
+        slot[0].copy_(src)
+        self._pending = slot
+        return slot[0]
+
+    def copied(self, frame: torch.Tensor) -> None:
+        """The copy from `frame` to the card is enqueued on the current
+        stream: record its slot's event there (if it is a slot)."""
+        if self._pending is not None and self._pending[0] is frame:
+            self._pending[1].record()
+            self._pending = None
+
+
 class _GraphStepper:
     """The machinery shared by Tracker and the banked trackers
     (runtime/banked.py): the device-side steps .step_device, .step_packed and
@@ -758,17 +830,12 @@ class _GraphStepper:
     CPU the step runs eagerly.
 
     The step's noise is drawn on the host's call, keyed on (seed, frame
-    index) of each bank, both kept on the host, so no step reads them back.
-    Its two lost-only branches are chosen on the host from the previous
-    step's `lost` flags and lost counts: the probe graph while any bank is
-    lost, and the "armed" graph, which holds the global re-detection scan,
-    once a bank's trigger is possible (lost_count >= redetect_global_after -
-    1); each bank takes a branch's effects only where its own flags say so.
-    The JAX package chooses both on the device (``lax.cond``, a select under
-    ``vmap``), so it never waits; here a config with either gate reads those
-    numbers back after every step: one wait a step in step_device,
-    step_packed and track_clip_device (a config without gates waits for
-    nothing there).
+    index) of each bank, both kept on the host; with global re-detection
+    configured, the reseed normals too, on every step. Its two lost-only
+    branches are IF nodes of the graph, chosen on the card from the state
+    (runtime/step_graph.py), so step_device, step_packed and
+    track_clip_device wait for nothing on any config. The eager step
+    chooses them on the host (a wait a branch).
     """
 
     def _setup(self, cfg: Config, vit_params, device, graphs: bool, lead: tuple[int, ...]) -> None:
@@ -784,39 +851,33 @@ class _GraphStepper:
         self.vit_params = resolve_vit_params(cfg, vit_params, self.device)
         self.graphs = graphs and self.device.type == "cuda"
         self._donate = bool(cfg.runtime.donate_state)
-        self._probe_gated, self._n_after = step_branches(cfg)
+        self._n_after = cfg.tracker.redetect_global_after
         self._n = cfg.filter.num_particles
         self._lead = lead
         self._k = int(np.prod(lead, dtype=np.int64))  # filters a step
         self._state: TrackerState | None = None
-        self._static: TrackerState | None = None  # the graphs' state buffers
+        self._static: TrackerState | None = None  # the graph's state buffers
         self._step_graphs: dict = {}  # (frame shape, dtype) -> StepGraphs
         self._pool = None
-        self._pinned: dict = {}  # (shape, dtype) -> pinned host frame buffer (CUDA)
+        self.staging = StagingRing()  # pinned host frame slots (CUDA)
         self._row_buf: torch.Tensor | None = None  # pinned host copy of a step's row (CUDA)
-        # Host copies of what the next step needs, one a bank (arrays of
-        # shape `lead`): the noise seed and frame index, and the previous
-        # step's lost flag and lost count.
+        # Host copies of what the next step's noise needs, one a bank
+        # (arrays of shape `lead`): the seed and the frame index.
         self._seed = np.zeros(lead, np.int64)
         self._frame_idx = np.zeros(lead, np.int64)
-        self._lost = np.zeros(lead, np.bool_)
-        self._lost_count = np.zeros(lead, np.int64)
 
     # -- state ---------------------------------------------------------------
     @property
     def state(self) -> TrackerState | None:
         return self._state
 
-    def _adopt(self, state: TrackerState, seed, frame_idx, lost, lost_count) -> None:
+    def _adopt(self, state: TrackerState, seed, frame_idx) -> None:
         """Take `state` (on any device) and the host's copies of its noise
-        seeds, frame indices, lost flags and lost counts."""
+        seeds and frame indices."""
         state = TrackerState(*(x.to(self.device) if isinstance(x, torch.Tensor)
                                else PFState(*(y.to(self.device) for y in x)) for x in state))
-        def host(x, dtype):
-            return np.broadcast_to(np.asarray(x, dtype), self._lead).copy()
-
-        self._seed, self._frame_idx = host(seed, np.int64), host(frame_idx, np.int64)
-        self._lost, self._lost_count = host(lost, np.bool_), host(lost_count, np.int64)
+        self._seed = np.broadcast_to(np.asarray(seed, np.int64), self._lead).copy()
+        self._frame_idx = np.broadcast_to(np.asarray(frame_idx, np.int64), self._lead).copy()
         if not self.graphs:
             self._state = state
             return
@@ -833,136 +894,105 @@ class _GraphStepper:
 
     def _start(self, frame, bboxes, seeds) -> None:
         """Template and cloud from the first frame (a frame, or one a bank)
-        and boxes; on the card, also every graph this config can need at
-        this frame shape (captured now, so no capture lands inside a run)."""
+        and boxes; on the card, also the step's graph at this frame shape
+        (captured now, so no capture lands inside a run)."""
         bbox_t = torch.as_tensor(np.asarray(bboxes, np.float32), device=self.device)
         frame_t = self._frame(frame)
-        self._adopt(self._fns.init(self.vit_params, frame_t, bbox_t, seeds), seeds, 0, False, 0)
+        self._adopt(self._fns.init(self.vit_params, frame_t, bbox_t, seeds), seeds, 0)
         if self.graphs:
             self._graphs_for(frame_t)
 
     # -- the step --------------------------------------------------------------
-    def _branch(self) -> tuple[bool, bool]:
-        """(probe, scan) for the next step, from the host's copies: each
-        runs when any bank needs it."""
-        return (self._probe_gated and bool(self._lost.any()),
-                self._n_after > 0 and bool((self._lost_count >= self._n_after - 1).any()))
+    def _body(self, state, frame, noise, reseed, run_if):
+        """One step -> (new state, [10 K] f32 row: the packed TrackOutput,
+        pack_track_output's layout); capturable with a run_if that reads
+        nothing."""
+        new, out = self._fns.step(self.vit_params, state, frame, noise=noise, reseed=reseed, run_if=run_if)
+        return new, pack_track_output(out)
 
-    def _body(self, state, frame, noise, reseed, probe: bool, scan: bool):
-        """One step, capturable -> (new state, [12 K] f32 row: the packed
-        TrackOutput (pack_track_output's layout), then the new lost flags
-        and lost counts)."""
-        new, out = self._fns.step(self.vit_params, state, frame, noise=noise, reseed=reseed if scan else None,
-                                  probe=probe, scan=scan)
-        row = torch.cat([pack_track_output(out), new.lost.reshape(-1).to(torch.float32),
-                         new.lost_count.reshape(-1).to(torch.float32)])
-        return new, row
-
-    def _graphs_for(self, frame: torch.Tensor):
+    def _graphs_for(self, frame: torch.Tensor) -> StepGraphs:
         """The StepGraphs of this frame's shape and dtype, captured on first sight."""
         key = (tuple(frame.shape), frame.dtype)
         if key not in self._step_graphs:
             if self._pool is None:
                 self._pool = torch.cuda.graph_pool_handle()
-            probes = (False, True) if self._probe_gated else (False,)
-            scans = (False, True) if self._n_after > 0 else (False,)
             self._step_graphs[key] = StepGraphs(self._body, self._static, frame.shape, frame.dtype, self._n,
-                                                [(p, s) for p in probes for s in scans], self._pool, self._lead)
+                                                self._pool, self._lead)
         return self._step_graphs[key]
 
     def _advance(self, frame: torch.Tensor) -> torch.Tensor:
         """One step on `frame` (a tensor on the device, or in pinned host
-        memory) -> its [12 K] row on the device, enqueued, not waited for. On
+        memory) -> its [10 K] row on the device, enqueued, not waited for. On
         the card with graphs the row is the graph's buffer, valid until the
         next step."""
         if self._state is None:
             raise RuntimeError("call init() or resume() first")
         dev = self.device
-        probe, scan = self._branch()
         seeds, idx = self._seed.tolist(), self._frame_idx.tolist()
         noise = draw_step_noise(seeds, idx, self._n, dev)
-        reseed = draw_reseed_noise(seeds, idx, self._n, dev) if scan else None
+        reseed = draw_reseed_noise(seeds, idx, self._n, dev) if self._n_after > 0 else None
         if self.graphs:
             sg = self._graphs_for(frame)
             sg.frame.copy_(frame, non_blocking=True)
+            self.staging.copied(frame)
             for dst, src in zip(sg.noise, noise):
                 dst.copy_(src)
-            if scan:
+            if reseed is not None:
                 sg.reseed.copy_(reseed)
-            row = sg.replay((probe, scan))
+            row = sg.replay()
             if not self._donate:
                 self._state = clone_state(self._static)
         else:
-            self._state, row = self._body(self._state, frame.to(dev, non_blocking=True), noise, reseed, probe, scan)
+            frame_dev = frame.to(dev, non_blocking=True)
+            self.staging.copied(frame)
+            self._state, row = self._body(self._state, frame_dev, noise, reseed, None)
         self._frame_idx = self._frame_idx + 1
         return row
 
     def _read(self, row: torch.Tensor) -> np.ndarray:
         """The row on the host (on the card: one copy into pinned memory and
-        one wait, a stream synchronize, which torch's sync debug mode counts),
-        and the host's copies of the lost flags and counts from it."""
-        if self.device.type == "cuda":
-            if self._row_buf is None:
-                self._row_buf = torch.empty(row.shape, dtype=torch.float32).pin_memory()
-            self._row_buf.copy_(row, non_blocking=True)
-            torch.cuda.current_stream(self.device).synchronize()
-            v = self._row_buf.numpy().copy()
-        else:
-            v = row.numpy().copy()
-        k = self._k
-        self._lost = (v[10 * k:11 * k] != 0).reshape(self._lead)
-        self._lost_count = v[11 * k:12 * k].astype(np.int64).reshape(self._lead)
-        return v
+        one wait, a stream synchronize, which torch's sync debug mode counts)."""
+        if self.device.type != "cuda":
+            return row.numpy().copy()
+        if self._row_buf is None:
+            self._row_buf = torch.empty(row.shape, dtype=torch.float32).pin_memory()
+        self._row_buf.copy_(row, non_blocking=True)
+        torch.cuda.current_stream(self.device).synchronize()
+        return self._row_buf.numpy().copy()
 
-    def _sync_flags(self, row: torch.Tensor) -> None:
-        """Read the lost flags and counts back where the next step's branch needs them."""
-        if self._probe_gated or self._n_after > 0:
-            self._read(row)
-
-    def _stage(self, frame) -> torch.Tensor:
+    def stage(self, frame) -> torch.Tensor:
         """A host frame on its way to the device: on the card, copied into a
-        pinned buffer (its copy to the device then needs no wait)."""
+        pinned slot of `staging` (its copy to the device then needs no
+        wait). A tensor passes through."""
         if isinstance(frame, torch.Tensor):
             return frame
-        frame = torch.from_numpy(np.ascontiguousarray(frame))
         if self.device.type != "cuda":
-            return frame
-        key = (tuple(frame.shape), frame.dtype)
-        buf = self._pinned.get(key)
-        if buf is None:
-            buf = self._pinned[key] = torch.empty(frame.shape, dtype=frame.dtype).pin_memory()
-        buf.copy_(frame)
-        return buf
+            return torch.from_numpy(np.ascontiguousarray(frame))
+        return self.staging.stage(frame)
 
     def _banks(self) -> int | None:
         return self._lead[0] if self._lead else None
 
     def step_device(self, frame_dev: torch.Tensor) -> TrackOutput:
-        """Track one frame already on the device -> TrackOutput on the device
-        (a copy of the step's output; [K, ...] for K banks). No wait on a
-        config without gates."""
+        """Track one frame already on the device (or staged by ``stage``)
+        -> TrackOutput on the device (a copy of the step's output; [K, ...]
+        for K banks). Waits for nothing on the card."""
         return unpack_track_output(self.step_packed(frame_dev), self._banks())
 
     def step_packed(self, frame_dev: torch.Tensor) -> torch.Tensor:
         """step_device with the output packed on the device into one f32
         row, [10] ([10 K] for K banks, pack_track_output's layout), packed
-        inside the same graph."""
-        row = self._advance(frame_dev)
-        packed = row[:10 * self._k].clone()
-        self._sync_flags(row)
-        return packed
+        inside the same graph; a copy, which later steps leave alone."""
+        return self._advance(frame_dev).clone()
 
     def track_clip_device(self, frames_dev: torch.Tensor) -> TrackOutput:
         """Track a staged clip [T, ...] (a frame, or K frames, a step) on the
         device -> TrackOutput with a leading T axis, the same as T sequential
         steps: T replays, each row copied into a [T, 10 K] buffer on the
-        device."""
-        k = self._k
-        rows = torch.empty((frames_dev.shape[0], 10 * k), dtype=torch.float32, device=self.device)
+        device. Waits for nothing on the card."""
+        rows = torch.empty((frames_dev.shape[0], 10 * self._k), dtype=torch.float32, device=self.device)
         for i in range(frames_dev.shape[0]):
-            row = self._advance(frames_dev[i])
-            rows[i].copy_(row[:10 * k])
-            self._sync_flags(row)
+            rows[i].copy_(self._advance(frames_dev[i]))
         return unpack_track_output(rows, self._banks())
 
 
@@ -990,12 +1020,12 @@ class Tracker(_GraphStepper):
     @_GraphStepper.state.setter
     def state(self, value: TrackerState) -> None:
         """Install a state (read back once for the host's copies)."""
-        self._adopt(value, key_seed(value.key), int(value.frame_idx), bool(value.lost), int(value.lost_count))
+        self._adopt(value, key_seed(value.key), int(value.frame_idx))
 
     def init(self, frame, bbox) -> None:
-        """Template and cloud from the first frame; on the card, also every
-        graph this config can need at this frame shape (captured now, so no
-        capture lands inside a run)."""
+        """Template and cloud from the first frame; on the card, also the
+        step's graph at this frame shape (captured now, so no capture lands
+        inside a run)."""
         self._start(frame, bbox, int(self.cfg.filter.seed))
 
     def save(self, path: str) -> None:
@@ -1004,14 +1034,14 @@ class Tracker(_GraphStepper):
         save_tracker_state(path, self._state)
 
     def resume(self, path: str) -> None:
-        """Restore a saved state; later steps continue its trajectory. The seed,
-        frame index and flags are read from the file on the host."""
+        """Restore a saved state; later steps continue its trajectory. The seed
+        and frame index are read from the file on the host."""
         self.state = load_tracker_state(path, "cpu")
 
     def step(self, frame) -> dict[str, Any]:
         """Track one frame; returns a host-side record (one wait for the card)."""
         t0 = time.perf_counter()
-        rec = self._to_record(self._read(self._advance(self._stage(frame))))
+        rec = self._to_record(self._read(self._advance(self.stage(frame))))
         rec["step_ms"] = (time.perf_counter() - t0) * 1e3
         return rec
 
