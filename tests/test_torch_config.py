@@ -80,6 +80,21 @@ def test_chip_smoke_banked_config_is_eval4_plus_overrides():
     assert tuple(want["io"]["frame_size"]) == (720, 1280)
 
 
+def test_chip_smoke_eval5_config_is_eval5_plus_overrides():
+    """chip_smoke.py's eval5-roi-c4 path: configs/eval5-tpu-streaming-4k.yaml
+    with the native ring's source and 60 frames, in both packages' loaders."""
+    import chip_smoke
+
+    overrides = ["io.source=native-synthetic:moving-square", "io.num_frames=60"]
+    path = os.path.join(ROOT, "configs", "eval5-tpu-streaming-4k.yaml")
+    want = jconfig.load_config(path, overrides).to_dict()
+    assert tconfig.load_config(path, overrides).to_dict() == want
+    assert tconfig.Config.from_dict(chip_smoke.EVAL5_CONFIG).to_dict() == want
+    assert want["model"]["variant"] == "vit-l16" and want["filter"]["num_particles"] == 16384
+    assert (want["runtime"]["stream_roi"], want["runtime"]["stream_roi_out"], want["runtime"]["stream_chunk"]) == (
+        1600, 288, 4)
+
+
 @pytest.mark.parametrize("name", ["config.yaml", "configs/robust-head.yaml"])
 def test_json_config_reads_as_its_yaml(name, tmp_path):
     """The same sections as a .json file load without a YAML parser (as

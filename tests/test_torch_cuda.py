@@ -428,3 +428,88 @@ def test_robust_track_clip_device_waits_for_nothing(cuda_device):
     assert np.array_equal(got, np.array(want, np.float64))
     assert got[:, 9].any()  # the lost branch ran
 
+
+
+def _roi_chunks(src, roi, glob_stride, device):
+    """The teleport clip's frames after the first as ROI StreamFrames on the
+    card: a crop of `roi` px around the truth, the global view refreshed
+    at frames 1, 5, 9, ... (a new tensor each refresh, reused in between;
+    one a chunk of 4)."""
+    from vitparticlefiltertracker_tpu_torch.ops.image import FrameView, StreamFrame
+
+    h, w = src.frames[0].shape[:2]
+    out, glob = [], None
+    for i in range(1, len(src.frames)):
+        frame = src.frames[i]
+        if (i - 1) % 4 == 0:
+            glob = FrameView(torch.from_numpy(np.ascontiguousarray(frame[::glob_stride, ::glob_stride])).to(device),
+                             torch.zeros(2, device=device), float(glob_stride))
+        cx, cy = src.truth[i]
+        ox, oy = int(np.clip(round(cx - roi / 2), 0, w - roi)), int(np.clip(round(cy - roi / 2), 0, h - roi))
+        pixels = torch.from_numpy(np.ascontiguousarray(frame[oy:oy + roi, ox:ox + roi])).to(device)
+        out.append(StreamFrame(FrameView(pixels, torch.tensor([ox, oy], dtype=torch.float32, device=device), 1.0),
+                               glob))
+    return out
+
+
+def test_roi_chunk_graph_equals_sequential_replays(cuda_device):
+    """ROI streaming's chunk graph (tiny dense tracker with the head, its
+    automatic blend and re-detection, on the teleport clip): chunks of 4
+    StreamFrames sharing a global view through step_chunk_packed equal the
+    same frames one step_packed each (the one-frame ROI graph) and the eager
+    steps; each chunk graph has its two IF nodes a step; a scan ran."""
+    import chip_smoke
+    from vitparticlefiltertracker_tpu_torch.io.video import open_source
+    from vitparticlefiltertracker_tpu_torch.ops.image import FrameView, StreamFrame
+    from vitparticlefiltertracker_tpu_torch.runtime.tracker import Tracker
+
+    cfg = Config.from_dict(copy.deepcopy(chip_smoke.TINY_HEAD_REDETECT))
+    src = open_source(cfg.io.source, 13, tuple(cfg.io.frame_size))
+    sfs = _roi_chunks(src, 128, 3, cuda_device)[:12]
+    prm = Tracker(copy.deepcopy(cfg), device="cpu").vit_params
+    rows = {}
+    for kind in ("chunks", "steps", "eager"):
+        tr = Tracker(copy.deepcopy(cfg), vit_params=prm, device="cuda", graphs=kind != "eager")
+        tr.init(src.frames[0], src.init_bbox)
+        if kind == "chunks":
+            out = []
+            for i in range(0, 12, 4):
+                part = sfs[i:i + 4]
+                chunk = StreamFrame(FrameView(torch.stack([s.track.pixels for s in part]),
+                                              torch.stack([s.track.origin for s in part]), 1.0), part[0].glob)
+                out.append(tr.step_chunk_packed(chunk))
+            rows[kind] = torch.cat(out).cpu()
+            (key,) = [k for k in tr._chunk_graphs if k[0][0] == 4]
+            assert len(tr._chunk_graphs[key].branch_counts) == 8
+            assert sum(tr._chunk_graphs[key].taken.tolist()[1::2]) >= 1  # a scan ran in a chunk graph
+        else:
+            rows[kind] = torch.stack([tr.step_packed(s) for s in sfs]).cpu()
+    assert torch.equal(rows["chunks"], rows["steps"])
+    torch.testing.assert_close(rows["chunks"][:, :2], rows["eager"][:, :2], rtol=0, atol=chip_smoke.GRAPH_POS_TOL_PX)
+    assert torch.equal(rows["chunks"][:, 8:], rows["eager"][:, 8:])
+    assert bool(rows["chunks"][:, 9].any())  # some frame was lost
+
+
+def test_chunked_roi_stream_submitter_waits_for_nothing(cuda_device):
+    """stream_track with ROI shipping, chunk 4 and a one-frame tail on the
+    card (tiny tracker with re-detection on the teleport clip): the
+    submitting thread waits for the card only in init and capture and once
+    at the end, never in the loop; records complete and in order."""
+    import chip_smoke
+    from vitparticlefiltertracker_tpu_torch.io.video import open_source
+    from vitparticlefiltertracker_tpu_torch.runtime.streaming import stream_track
+    from vitparticlefiltertracker_tpu_torch.runtime.tracker import Tracker
+
+    cfg = Config.from_dict(copy.deepcopy(chip_smoke.TINY_HEAD_REDETECT))
+    src = open_source(cfg.io.source, 23, tuple(cfg.io.frame_size))
+    tr = Tracker(copy.deepcopy(cfg), device="cuda")
+    recs, stats = [], {}
+
+    def go():
+        stats.update(stream_track(tr, src, src.init_bbox, on_record=recs.append, roi_px=128, glob_stride=3,
+                                  glob_every=4, chunk=4, steer_lag=8, readback_window=8))
+
+    where, _ = chip_smoke.stream_waits(go, "tiny chunked ROI stream")
+    assert where["loop"] == 0 and where["final"] == 1
+    assert stats["dispatches"] == {4: 5, 1: 2} and stats["staging_waits"] == 0
+    assert sorted(r["frame"] for r in recs) == list(range(1, 23))

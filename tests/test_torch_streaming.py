@@ -1,7 +1,8 @@
 """The port's streaming pipeline and its commands
 (vitparticlefiltertracker_tpu_torch/runtime/streaming.py: FramePump,
-OutputPacker, stream_track; cli.py: stream, serve) and open_source's
-dispatch, on the CPU.
+OutputPacker, stream_track over whole frames; cli.py: stream, serve) and
+open_source's dispatch, on the CPU. ROI streaming:
+tests/test_torch_streaming_roi.py.
 
 The FramePump tests mirror tests/test_io_and_streaming.py's. Parity with the
 JAX package is transitive: stream_track's records are held equal to
@@ -220,12 +221,18 @@ def test_stream_track_banked_matches_multitracker():
 
 
 def test_stream_track_refuses_roi_and_chunks():
+    """JAX's refusals: chunks without ROI shipping, ROI shipping of banks, a
+    resampled ROI view without a native source (ROI streaming itself runs:
+    tests/test_torch_streaming_roi.py)."""
     cfg = Config.from_dict(TINY)
     src = open_source("synthetic:moving-square", num_frames=3, frame_size=(96, 96))
-    with pytest.raises(NotImplementedError, match="1b"):
-        stream_track(Tracker(cfg, device="cpu"), src, src.init_bbox, roi_px=256)
     with pytest.raises(ValueError, match="requires roi_px > 0"):
         stream_track(Tracker(cfg, device="cpu"), src, src.init_bbox, chunk=4)
+    with pytest.raises(ValueError, match="single tracker"):
+        stream_track(MultiTracker(Config.from_dict({**TINY, "runtime": {"banks": 2}}), device="cpu"), src,
+                     banked_bboxes(src.init_bbox, 2), roi_px=64)
+    with pytest.raises(ValueError, match="requires a native source"):
+        stream_track(Tracker(cfg, device="cpu"), src, src.init_bbox, roi_px=64, roi_out=32)
 
 
 def test_stream_track_drain_error_surfaces_after_teardown():
@@ -311,9 +318,28 @@ def test_unknown_source_rejected():
         open_source("not-a-real-thing.xyz")
 
 
-@pytest.mark.parametrize("source", ["clip.mp4", "camera:0", "native-synthetic:", "feed.rgb24"])
+@pytest.mark.parametrize("source", ["clip.mp4", "camera:0"])
 def test_unported_sources_name_the_roadmap(source):
     """A source the JAX package reads and the port does not yet raises
     NotImplementedError naming ROADMAP.md, not the unknown-source error."""
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         open_source(source)
+
+
+@pytest.mark.parametrize("source", ["native-synthetic:", "feed.rgb24"])
+def test_native_sources_open(source, tmp_path):
+    """The native ring's sources open as in the JAX package: the synthetic
+    clip and a raw RGB24 file, each a native source with its frames."""
+    from vitparticlefiltertracker_tpu_torch.io import native
+
+    if source.endswith(".rgb24"):
+        clip = np.random.default_rng(0).integers(0, 255, (3, 24, 32, 3), dtype=np.uint8)
+        source = str(tmp_path / source)
+        clip.tofile(source)
+        src = open_source(source, 0, (24, 32))
+        assert isinstance(src, native.NativeRawSource)
+        assert all(np.array_equal(a, b) for a, b in zip(src, clip))
+    else:
+        src = open_source(source, 4, (48, 64), seed=1)
+        assert isinstance(src, native.NativeSyntheticSource) and src.truth.shape == (4, 2)
+        assert [f.shape for f in src] == [(48, 64, 3)] * 4

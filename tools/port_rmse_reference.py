@@ -21,7 +21,10 @@ clip, each initialised on its own target of a multi-object source, as
 tools/eval_quality.py's run_banked): the errors of every bank and record are
 pooled into one RMSE. --streams K runs the JAX MultiStreamTracker: K clips
 of the source seeded 0..K-1, stream i with filter seed (seed + i), as the
-serve command opens them; one RMSE a stream.
+serve command opens them; one RMSE a stream. --stream runs the JAX
+stream_track instead, as the stream command runs it (every runtime.stream_*
+key of the config) on io.source: eval5's ROI stream, through the native
+ring (the JAX package builds native/ with make, so run a copy of the repo).
 
 Usage:
   python tools/port_rmse_reference.py [--frames 60] [--seeds 0 1 2 3]
@@ -38,6 +41,20 @@ Usage:
       --set io.source=synthetic:multi-8
   # the multi-stream path (4 streams of config.yaml's moving-square):
   python tools/port_rmse_reference.py --streams 4
+  # eval5's ROI stream (ViT-L/16 random init, 16384 particles, 4K, ROI 1600
+  # as a 288-px view, chunk 4), 60 frames:
+  python tools/port_rmse_reference.py --stream --config \\
+      configs/eval5-tpu-streaming-4k.yaml --checkpoint "" --frames 60 \\
+      --set io.source=native-synthetic:moving-square
+  # its teleport form (ROI 1600 at stride 4, 48 frames; recover_err_px):
+  python tools/port_rmse_reference.py --stream --config \\
+      configs/eval5-tpu-streaming-4k.yaml --checkpoint "" --frames 48 \\
+      --set io.source=synthetic:teleport --set runtime.stream_roi_out=0
+  # a crop-mode ROI stream (config.yaml, K2's path, ROI 320 at stride 2):
+  python tools/port_rmse_reference.py --stream --frames 60 \\
+      --set tracker.mode=crop --set tracker.crop_impl=window-pallas \\
+      --set runtime.stream_roi=320 --set runtime.stream_roi_stride=2 \\
+      --set runtime.stream_chunk=4 --set runtime.stream_glob_every=4
 """
 
 from __future__ import annotations
@@ -112,6 +129,36 @@ def run_streams(cfg, k: int) -> tuple[np.ndarray, np.ndarray]:
     return err, np.asarray(outs.lost)
 
 
+def run_stream(cfg) -> tuple[np.ndarray, list[bool], dict]:
+    """stream_track over io.source (seed 0) with the config's runtime.stream_*
+    keys, as the stream command runs it -> (scored errors, lost flags, and on
+    synthetic:teleport recover_err_px: the mean error from the tenth frame
+    after the reappearance on, as tools/bench_stream_e2e.py scores it)."""
+    from vitparticlefiltertracker_tpu.runtime.streaming import stream_track
+
+    src = open_source(cfg.io.source, cfg.io.num_frames, tuple(cfg.io.frame_size), seed=0)
+    print(json.dumps({"source": type(src).__name__}), flush=True)
+    rt = cfg.runtime
+    recs = []
+    stream_track(
+        Tracker(cfg), src, src.init_bbox, on_record=recs.append, pump_depth=rt.prefetch_frames,
+        readback_window=rt.stream_readback, roi_px=rt.stream_roi, roi_stride=rt.stream_roi_stride,
+        roi_out=rt.stream_roi_out, steer_lag=rt.stream_steer_lag, glob_stride=rt.stream_glob_stride,
+        glob_every=rt.stream_glob_every, chunk=rt.stream_chunk if rt.stream_roi > 0 else 1,
+        steer_workers=rt.stream_steer_workers, chunk_max=rt.stream_chunk_max, fps_target=rt.stream_fps_target,
+        lost_throttle=rt.stream_lost_throttle,
+    )
+    recs.sort(key=lambda r: r["frame"])
+    truth = np.asarray(src.truth)
+    pos = np.array([r["position"] for r in recs])
+    err = np.linalg.norm(pos - truth[[r["frame"] for r in recs]], axis=1)
+    extra = {}
+    if cfg.io.source == "synthetic:teleport":
+        show = teleport_times(cfg.io.num_frames)[1]
+        extra["recover_err_px"] = float(np.mean([e for r, e in zip(recs, err) if r["frame"] >= show + 10]))
+    return scored_errors(err, cfg.io.source, cfg.io.num_frames), [bool(r["lost"]) for r in recs], extra
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--frames", type=int, default=60)
@@ -126,13 +173,16 @@ def main() -> int:
                       help="the JAX MultiTracker, runtime.banks targets of a multi-object source; errors pooled")
     mode.add_argument("--streams", type=int, default=0, metavar="K",
                       help="the JAX MultiStreamTracker over K clips; one RMSE a stream")
+    mode.add_argument("--stream", action="store_true",
+                      help="the JAX stream_track with the config's runtime.stream_* keys")
     args = ap.parse_args()
     root = os.path.join(os.path.dirname(__file__), "..")
     rmses, losts, stream_rmses = [], [], []
     for seed in args.seeds:
+        ckpt = os.path.join(root, args.checkpoint) if args.checkpoint else ""
         cfg = load_config(
             os.path.join(root, args.config),
-            [f"model.checkpoint={os.path.join(root, args.checkpoint)}",
+            [f"model.checkpoint={ckpt}",
              f"io.num_frames={args.frames}", f"filter.seed={seed}", *args.overrides],
         )
         t0 = time.perf_counter()
@@ -146,7 +196,10 @@ def main() -> int:
             last5 = lost[-5:].any(axis=1).tolist()
             err, lost = err.reshape(-1), lost.reshape(-1).tolist()
         else:
-            err, lost = run_single(cfg, args.frames)
+            if args.stream:
+                err, lost, extra = run_stream(cfg)
+            else:
+                err, lost = run_single(cfg, args.frames)
             last5 = lost[-5:]
         rmses.append(float(np.sqrt(np.mean(err**2))))
         losts.append(int(sum(lost)))
@@ -154,7 +207,8 @@ def main() -> int:
             "package": "vitparticlefiltertracker_tpu (JAX, CPU)",
             "config": args.config,
             "tracker": ("MultiTracker" if args.banked else
-                        f"MultiStreamTracker x {args.streams}" if args.streams else "Tracker"),
+                        f"MultiStreamTracker x {args.streams}" if args.streams else
+                        "Tracker through stream_track" if args.stream else "Tracker"),
             "frames": args.frames,
             "overrides": args.overrides,
             "filter_seed": seed,

@@ -111,10 +111,32 @@ def _open(cfg: Config, spec: str, seed: int):
     return open_source(spec, num_frames=cfg.io.num_frames, frame_size=tuple(cfg.io.frame_size), seed=seed)
 
 
+def stream_kwargs(cfg: Config) -> dict:
+    """stream_track's arguments from the config's runtime.stream_* keys, as
+    the stream command passes them (ROI streaming for one filter only)."""
+    rt = cfg.runtime
+    return dict(
+        pump_depth=rt.prefetch_frames,
+        readback_window=rt.stream_readback,
+        roi_px=rt.stream_roi if rt.banks == 1 else 0,
+        roi_stride=rt.stream_roi_stride,
+        roi_out=rt.stream_roi_out,
+        steer_lag=rt.stream_steer_lag,
+        glob_stride=rt.stream_glob_stride,
+        glob_every=rt.stream_glob_every,
+        chunk=rt.stream_chunk if rt.banks == 1 and rt.stream_roi > 0 else 1,
+        steer_workers=rt.stream_steer_workers,
+        chunk_max=rt.stream_chunk_max,
+        fps_target=rt.stream_fps_target,
+        lost_throttle=rt.stream_lost_throttle,
+    )
+
+
 def cmd_stream(cfg: Config, device: str = "cuda", quiet: bool = False) -> int:
     """The decode -> track pipeline (runtime/streaming.py): a producer
-    thread, pinned staging, one graph replay a frame and trailing readback;
-    a MultiTracker with one record a bank when runtime.banks > 1."""
+    thread, pinned staging, one graph replay a frame (or a chunk of ROI
+    frames) and trailing readback; ROI streaming with every runtime.stream_*
+    key; a MultiTracker with one record a bank when runtime.banks > 1."""
     from vitparticlefiltertracker_tpu_torch.io.sink import JsonlSink
     from vitparticlefiltertracker_tpu_torch.runtime.streaming import stream_track
 
@@ -133,13 +155,7 @@ def cmd_stream(cfg: Config, device: str = "cuda", quiet: bool = False) -> int:
 
         tracker = Tracker(cfg, device=device)
     sink = JsonlSink(cfg.io.output)
-    stats = stream_track(
-        tracker, source, init_bbox, on_record=sink.write,
-        pump_depth=rt.prefetch_frames,
-        readback_window=rt.stream_readback,
-        roi_px=rt.stream_roi if rt.banks == 1 else 0,
-        chunk=rt.stream_chunk if rt.banks == 1 and rt.stream_roi > 0 else 1,
-    )
+    stats = stream_track(tracker, source, init_bbox, on_record=sink.write, **stream_kwargs(cfg))
     sink.close()
     if not quiet:
         print(f"streamed {stats['frames']} frames in {stats['wall_s']:.2f}s ({stats['fps']:.1f} fps)",

@@ -1,6 +1,7 @@
-"""Input sources: synthetic clips and image sequences — the port's own copy
-of that part of the JAX package's ``io/video.py``. All sources yield RGB
-uint8 [H, W, 3] numpy arrays.
+"""Input sources: synthetic clips, image sequences, raw RGB24 files and the
+native ring's sources (io/native.py) — the port's own copy of that part of
+the JAX package's ``io/video.py``. All sources yield RGB uint8 [H, W, 3]
+numpy arrays.
 """
 
 from __future__ import annotations
@@ -61,6 +62,24 @@ class ImageSequenceSource:
         return len(self.paths)
 
 
+class RawMemmapSource:
+    """Pure-Python packed-RGB24 reader (np.memmap): the fallback for
+    `*.rgb24` sources when the native library is unavailable."""
+
+    def __init__(self, path: str, height: int, width: int, num_frames: int = 0):
+        frame_bytes = height * width * 3
+        total = os.path.getsize(path) // frame_bytes
+        self._n = min(num_frames, total) if num_frames else total
+        self._mm = np.memmap(path, dtype=np.uint8, mode="r", shape=(total, height, width, 3))
+
+    def __iter__(self) -> Iterator[np.ndarray]:
+        for i in range(self._n):
+            yield np.asarray(self._mm[i])
+
+    def __len__(self) -> int:
+        return self._n
+
+
 def _not_ported(source: str, what: str, item: str):
     return NotImplementedError(f"source {source!r}: {what} is not ported yet; see ROADMAP.md (open items §1, {item})")
 
@@ -73,12 +92,26 @@ def open_source(
 ):
     """Dispatch on the config's io.source string, in the JAX package's order:
     cameras, native sources, synthetic clips, image globs, video files. The
-    port reads synthetic clips and image sequences so far; the others raise
-    NotImplementedError, and a source no reader takes raises ValueError."""
+    port reads all but cameras and video files, which raise
+    NotImplementedError; a source no reader takes raises ValueError. Native
+    sources (`native-synthetic:...`, `*.rgb24`) fall back to the pure-Python
+    ones, with a warning, when the native library cannot be built."""
     if source.startswith("camera:"):
         raise _not_ported(source, "a camera", "I/O remainder")
     if source.startswith("native-synthetic:") or source.endswith(".rgb24"):
-        raise _not_ported(source, "the native ring", "1c")
+        from vitparticlefiltertracker_tpu_torch.io import native
+
+        if native.available():
+            if source.endswith(".rgb24"):
+                return native.NativeRawSource(source, frame_size[0], frame_size[1], num_frames)
+            return native.NativeSyntheticSource(num_frames or 30, frame_size[0], frame_size[1], seed=seed)
+        import warnings
+
+        warnings.warn("native io library unavailable (g++ build of native/vpt_io.cpp failed?); "
+                      "falling back to the pure-Python source", stacklevel=2)
+        if source.endswith(".rgb24"):
+            return RawMemmapSource(source, frame_size[0], frame_size[1], num_frames)
+        return SyntheticSource("moving-square", num_frames or 30, frame_size[0], frame_size[1], seed=seed)
     if source.startswith("synthetic:"):
         return SyntheticSource(
             synthetic.parse_synthetic_source(source),

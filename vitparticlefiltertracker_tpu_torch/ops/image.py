@@ -1,6 +1,5 @@
 """Vision ops for the tracker: normalization, bilinear sampling, window
-extraction and ROI pooling — the port of the JAX package's ``ops/image.py``
-(without its streaming views).
+extraction and ROI pooling — the port of the JAX package's ``ops/image.py``.
 
 Arbitrary float window positions and sizes are handled by resampling onto a
 fixed grid. ``bilinear_sample`` gathers 4 taps per point; the ``*_mxu``
@@ -125,6 +124,23 @@ class FrameView(NamedTuple):
     pixels: torch.Tensor
     origin: torch.Tensor
     stride: float = 1.0
+
+
+class StreamFrame(NamedTuple):
+    """A step's input on the ROI streaming path.
+
+    track: a crop around the predicted target (stride 1, a strided slice,
+        or a resampled view at a fractional stride): what each frame ships.
+    glob: the whole frame decimated (stride >> 1), refreshed every few
+        frames and reused on the device in between: global re-detection
+        scans it, and it gives the frame's bounds.
+    A chunk of C frames stacks C tracking views (pixels [C, h, w, 3],
+    origins [C, 2], one stride) over one glob view. Each stride is a Python
+    float, fixed for a stream: on the card it is part of the step graph's key.
+    """
+
+    track: FrameView
+    glob: FrameView
 
 
 def full_view(frame_f32: torch.Tensor) -> FrameView:

@@ -1,12 +1,15 @@
 """A tracker step captured as one CUDA graph and replayed: the port's
 counterpart of the JAX package's one jitted, state-donating step executable.
 
-``StepGraphs`` holds, for one frame shape and dtype, the static buffers a
-step reads (the frame, the step noise, the re-detection reseed normals; with
-a leading K axis for K banks: frame [H, W, 3] shared or [K, H, W, 3], noise
-[K, N, ...], reseed [K, N, 2]) and one graph. The graph reads the tracker
-state from static buffers and writes the new state back into them as its
-last operations, so replaying it advances the tracker in place.
+``StepGraphs`` holds, for one input shape and dtype, the static buffers a
+step reads (its inputs, given by the caller: the frame, or a chunk's stacked
+ROI views and the global view that several graphs share; the step noise and
+the re-detection reseed normals, with a leading K axis for K banks: frame
+[H, W, 3] shared or [K, H, W, 3], noise [K, N, ...], reseed [K, N, 2], and a
+leading C axis before it for a chunk of C steps) and one graph. The graph
+reads the tracker state from static buffers and writes the new state back
+into them as its last operations, so replaying it advances the tracker in
+place.
 
 The step's two lost-only branches (the probe and the global re-detection
 scan; ``lax.cond`` in the JAX package) are CUDA conditional (IF) nodes in
@@ -104,12 +107,12 @@ def run_if_always(pred: torch.Tensor, body: Callable[[], None]) -> None:
     body()
 
 
-# body(state, frame, noise, reseed, run_if) -> (new state, [10 K] f32 row)
+# body(state, *inputs, noise, reseed, run_if) -> (new state, f32 rows)
 StepBody = Callable[..., tuple[object, torch.Tensor]]
 
 # Every StepGraphs alive, for settle_counts.
 _LIVE: "weakref.WeakSet[StepGraphs]" = weakref.WeakSet()
-_MAX_BRANCHES = 2  # the probe and the scan
+_MAX_BRANCHES = 2  # a step's: the probe and the scan
 
 
 def settle_counts() -> None:
@@ -154,30 +157,36 @@ def _release_pool(device_index: int, pool, refs: list[int]) -> None:
 
 
 class StepGraphs:
-    """The graph of one frame shape and dtype over the static `state`.
+    """The graph of one input shape and dtype over the static `state`.
 
-    body: the step; it returns the new state and a [10 K] f32 row (the
-    packed TrackOutput of the K filters; K = 1 without banks), and must be
-    capturable: no host read and no copy from host memory. It runs its
-    lost-only branches through the run_if it is given. lead: the state's
-    leading axes, () or (K,).
+    body: the step, called as body(state, *inputs, noise, reseed, run_if);
+    it returns the new state and its f32 rows (the packed TrackOutput: [10 K]
+    for the K filters of one step, K = 1 without banks; [C, 10] for a chunk
+    of C steps), and must be capturable: no host read and no copy from host
+    memory. It runs its lost-only branches through the run_if it is given.
+    inputs: the static input buffers, which the caller fills before each
+    replay. lead: the state's leading axes, () or (K,). steps: None for one
+    step, C for a chunk of C steps (the noise and reseed buffers then have a
+    leading C, and the graph up to two branches a step).
     """
 
-    def __init__(self, body: StepBody, state, frame_shape, frame_dtype: torch.dtype, n: int, pool,
-                 lead: tuple[int, ...] = ()):
+    def __init__(self, body: StepBody, state, inputs: tuple[torch.Tensor, ...], n: int, pool,
+                 lead: tuple[int, ...] = (), steps: int | None = None):
         dev = state.center.device
         self._dev = dev
-        self.frame = torch.zeros(frame_shape, dtype=frame_dtype, device=dev)
-        self.noise = StepNoise(pos=torch.zeros((*lead, n, 2), device=dev), vel=torch.zeros((*lead, n, 2), device=dev),
-                               scale=torch.zeros((*lead, n), device=dev), resample_u=torch.zeros(lead, device=dev))
-        self.reseed = torch.zeros((*lead, n, 2), device=dev)
+        self.inputs = inputs
+        per = lead if steps is None else (steps, *lead)
+        self.noise = StepNoise(pos=torch.zeros((*per, n, 2), device=dev), vel=torch.zeros((*per, n, 2), device=dev),
+                               scale=torch.zeros((*per, n), device=dev), resample_u=torch.zeros(per, device=dev))
+        self.reseed = torch.zeros((*per, n, 2), device=dev)
+        self._max_branches = _MAX_BRANCHES * (steps or 1)
         # Branch bodies: their stream and memory pool, how often each ran
         # (on the card), and the launches each capture added.
         self._body_stream = torch.cuda.Stream(dev)
         self._body_pool = torch.cuda.graph_pool_handle()
         self._pool_refs = [0]
-        self.taken = torch.zeros(_MAX_BRANCHES, dtype=torch.int64, device=dev)
-        self._settled = [0] * _MAX_BRANCHES
+        self.taken = torch.zeros(self._max_branches, dtype=torch.int64, device=dev)
+        self._settled = [0] * self._max_branches
         self.branch_counts: list[list] = []
         stream = torch.cuda.Stream(dev)
         before = read_counts()
@@ -188,13 +197,13 @@ class StepGraphs:
         warm = clone_state(state)
         stream.wait_stream(torch.cuda.current_stream(dev))
         with torch.cuda.stream(stream):
-            body(warm, self.frame, self.noise, self.reseed, self._warm_if)
+            body(warm, *inputs, self.noise, self.reseed, self._warm_if)
         torch.cuda.current_stream(dev).wait_stream(stream)
         del warm
         restore_counts(before)
         self.graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(self.graph, pool=pool, stream=stream):
-            new, self.row = body(state, self.frame, self.noise, self.reseed, self._capture_if)
+            new, self.row = body(state, *inputs, self.noise, self.reseed, self._capture_if)
             copy_state_(state, new)
         total = _delta(before, read_counts())
         self.counts = total
@@ -220,7 +229,7 @@ class StepGraphs:
     def _capture_if(self, pred: torch.Tensor, body: Callable[[], None]) -> None:
         """capture_if, counting the body's launches and its runs."""
         i = len(self.branch_counts)
-        if i >= _MAX_BRANCHES:
+        if i >= self._max_branches:
             raise RuntimeError(f"a step has at most {_MAX_BRANCHES} branches")
         before = read_counts()
 
@@ -233,8 +242,8 @@ class StepGraphs:
         self.branch_counts.append(_delta(before, read_counts()))
 
     def replay(self) -> torch.Tensor:
-        """Run the step on the current stream -> its [10 K] row, a buffer
-        the next replay overwrites."""
+        """Run the step on the current stream -> its rows, a buffer the next
+        replay overwrites."""
         self.graph.replay()
         add_counts(self.counts)
         return self.row

@@ -17,8 +17,10 @@ card (runtime/step_graph.py), a host branch in the eager step.
 Ported: dense and crop mode with the lost gate and probe, template EMA and
 anchor, coasting, the residual head's blend (static, or automatic for the
 likelihood), global re-detection (the tiled scan in dense mode, one flat
-grid of crops in crop mode) with its reseed, the Tracker class and the
-name-keyed state npz shared with the JAX package.
+grid of crops in crop mode) with its reseed, the ROI streaming step (a
+StreamFrame: a tracking view and a decimated global view) and its chunk of
+C steps, the Tracker class and the name-keyed state npz shared with the
+JAX package.
 
 The step takes an optional leading bank axis on every state leaf (K
 independent filters, each with its own seed, in one batched step: one ViT
@@ -28,6 +30,7 @@ package's ``vmap`` of this same step.
 
 from __future__ import annotations
 
+import functools
 import math
 import time
 from typing import Any, Callable, NamedTuple
@@ -55,6 +58,7 @@ from vitparticlefiltertracker_tpu_torch.models.embedder import (
 from vitparticlefiltertracker_tpu_torch.models.vit import VitSpec, encode_tokens, pool_tokens
 from vitparticlefiltertracker_tpu_torch.ops.image import (
     FrameView,
+    StreamFrame,
     frame_to_window_coords,
     full_view,
     imagenet_stats,
@@ -161,6 +165,28 @@ def _window_side(box_wh: torch.Tensor, scale, search_scale: float) -> torch.Tens
     return search_scale * torch.sqrt(box_wh[..., 0] * box_wh[..., 1]) * scale
 
 
+def _float_view(v: FrameView) -> FrameView:
+    return FrameView(v.pixels.to(torch.float32), v.origin, v.stride)
+
+
+def _frame_views(frame) -> tuple[FrameView, FrameView]:
+    """The step's frame input as (tracking view, global view): a raw frame
+    [H, W, 3] (or one a bank) is one full view for both; a StreamFrame gives
+    its ROI to the tracking path and its decimated whole frame to global
+    re-detection and the frame bounds."""
+    if isinstance(frame, StreamFrame):
+        return _float_view(frame.track), _float_view(frame.glob)
+    v = full_view(frame.to(torch.float32))
+    return v, v
+
+
+def _frame_dims(gview: FrameView) -> tuple[int, int]:
+    """The full frame's (h, w) px as the global view implies them: exact at
+    stride 1, over by up to a stride for a decimated view (the JAX package's
+    formula, which the bounds and the scan grid use)."""
+    return int(gview.pixels.shape[-3] * gview.stride), int(gview.pixels.shape[-2] * gview.stride)
+
+
 def _flag_like(flag: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
     """A per-bank flag [...] with trailing axes of 1 to broadcast against `like`."""
     return flag.reshape(*flag.shape, *[1] * (like.dim() - flag.dim()))
@@ -198,6 +224,7 @@ class _Fns(NamedTuple):
     init: Callable
     step: Callable
     track_clip: Callable
+    track_chunk: Callable
 
 
 def step_branches(cfg: Config) -> tuple[bool, int]:
@@ -210,15 +237,22 @@ def step_branches(cfg: Config) -> tuple[bool, int]:
 
 
 def build_tracker_fns(cfg: Config) -> _Fns:
-    """Build (init_fn, step_fn, track_clip_fn) for a dense- or crop-mode config.
+    """Build (init_fn, step_fn, track_clip_fn, track_chunk_fn) for a dense- or
+    crop-mode config.
 
     init(params, frame, bbox, seed, cloud=None) -> TrackerState
     step(params, state, frame, noise=None, reseed=None, run_if=None)
         -> (TrackerState, TrackOutput)
     track_clip(params, state, frames, noises=None, reseeds=None)
         -> (TrackerState, TrackOutput with a leading T axis)
+    track_chunk(params, state, chunk, noises=None, reseeds=None, run_if=None)
+        -> (TrackerState, TrackOutput with a leading C axis)
 
-    frame: [H, W, 3] tensor (uint8 or float, 0..255) on the run's device.
+    frame: [H, W, 3] tensor (uint8 or float, 0..255) on the run's device, or
+    (step only) a StreamFrame: the ROI streaming path, where the tracking
+    view feeds the embedder and the template EMA, and the decimated global
+    view the re-detection scan and the frame bounds. chunk: a StreamFrame of
+    C stacked tracking views over one global view.
     cloud / noise / reseed: optional injected initial particles, step draws
     and [N, 2] re-detection reseed normals (parity runs); by default they are
     drawn from generators keyed on (seed, frame).
@@ -374,7 +408,7 @@ def build_tracker_fns(cfg: Config) -> _Fns:
 
     def global_scan(prm, view: FrameView, tmpl, side, cand_wh):
         """Score a grid of candidate boxes of size cand_wh [..., 2] over the
-        whole frame against the template -> (best_xy [..., 2], best_cos
+        whole frame (`view`: the global view) against the template -> (best_xy [..., 2], best_cos
         [...], best_z [...]), z being the winner's margin over the valid
         candidates in standard deviations; each bank of a leading axis scans
         with its own template, window side and box.
@@ -386,7 +420,7 @@ def build_tracker_fns(cfg: Config) -> _Fns:
         step can hold it."""
         dev = cand_wh.device
         lead = cand_wh.shape[:-1]
-        h_px, w_px = int(view.pixels.shape[-3]), int(view.pixels.shape[-2])
+        h_px, w_px = _frame_dims(view)
         fc = frame_consts(h_px, w_px, dev)
         gxs = (torch.arange(g, dtype=torch.float32, device=dev) + 0.5) * (w_px / g)
         gys = (torch.arange(g, dtype=torch.float32, device=dev) + 0.5) * (h_px / g)
@@ -428,9 +462,8 @@ def build_tracker_fns(cfg: Config) -> _Fns:
         dev = state.center.device
         lead = state.center.shape[:-1]  # () for one filter, (K,) for K banks
         nb = len(lead)
-        view = full_view(frame.to(torch.float32))
-        fh, fw = int(frame.shape[-3]), int(frame.shape[-2])
-        fc = frame_consts(fh, fw, dev)
+        view, gview = _frame_views(frame)
+        fc = frame_consts(*_frame_dims(gview), dev)
         if noise is None:
             noise = draw_step_noise(key_seed(state.key), state.frame_idx.tolist(), n, dev)
         # While lost, sweep a wider area: inflate position diffusion and the
@@ -563,7 +596,7 @@ def build_tracker_fns(cfg: Config) -> _Fns:
 
             def scan():
                 cand_wh = state.box_wh * state.prev_scale[..., None]
-                for buf, value in zip((best_xy, best_cos, best_z), global_scan(prm, view, tmpl, side, cand_wh)):
+                for buf, value in zip((best_xy, best_cos, best_z), global_scan(prm, gview, tmpl, side, cand_wh)):
                     buf.copy_(value)
 
             run_if(trigger.any(), scan)
@@ -661,7 +694,21 @@ def build_tracker_fns(cfg: Config) -> _Fns:
             outs.append(out)
         return state, TrackOutput(*(torch.stack(x) for x in zip(*outs)))
 
-    return _Fns(init=init_fn, step=step_fn, track_clip=track_clip_fn)
+    def track_chunk_fn(prm, state: TrackerState, chunk: StreamFrame, noises=None, reseeds=None, run_if=None):
+        """C sequential steps over chunk.track's stacked views (pixels
+        [C, h, w, 3], origins [C, 2]) sharing chunk.glob -> (state,
+        TrackOutput with a leading C axis): the same as C step calls on the
+        single StreamFrames. noises / reseeds: optional draws, one a frame."""
+        tv = chunk.track
+        outs = []
+        for i in range(tv.pixels.shape[0]):
+            sf = StreamFrame(track=FrameView(tv.pixels[i], tv.origin[i], tv.stride), glob=chunk.glob)
+            state, out = step_fn(prm, state, sf, None if noises is None else noises[i],
+                                 None if reseeds is None else reseeds[i], run_if)
+            outs.append(out)
+        return state, TrackOutput(*(torch.stack(x) for x in zip(*outs)))
+
+    return _Fns(init=init_fn, step=step_fn, track_clip=track_clip_fn, track_chunk=track_chunk_fn)
 
 
 # ---------------------------------------------------------------------------
@@ -765,26 +812,32 @@ def load_tracker_state(path: str, device="cpu") -> TrackerState:
 
 
 class StagingRing:
-    """Pinned host slots for frames on their way to the card, `depth` a
-    frame shape, used in turn. A host frame is copied into the next slot;
-    the step's copy from that slot to the card records the slot's event
-    (``copied``). A slot is written again only once its event has passed:
-    when the host runs `depth` frames ahead of the card's copies, ``stage``
-    waits for the oldest one, and counts the wait in `waits`."""
+    """Pinned host slots for arrays on their way to the card (frames, ROI
+    crops, their origins, global views), `depth` slots an array shape and
+    dtype (or the depth ``reserve`` set for it), used in turn. A host array
+    is copied into the next slot; the step's copy from that slot to the card
+    records the slot's event (``copied``). A slot is written again only once
+    its event has passed: when the host runs `depth` arrays of a shape ahead
+    of the card's copies, ``stage`` waits for the oldest one, and counts the
+    wait in `waits`."""
 
     def __init__(self, depth: int = 2):
         self.depth = depth
         self.waits = 0
         self._slots: dict = {}  # (shape, dtype) -> [(pinned tensor, event), ...]
-        self._turn: dict = {}  # (shape, dtype) -> frames staged
-        self._pending = None  # the slot whose copy to the card comes next
+        self._turn: dict = {}  # (shape, dtype) -> arrays staged
+        self._depths: dict = {}  # (shape, dtype) -> its depth, where reserve set one
+        self._pending: list = []  # slots staged whose copy to the card is not enqueued yet
 
-    def reserve(self, frame: np.ndarray) -> None:
-        """Allocate every slot for frames like `frame` now (a pinned
-        allocation costs the host about a millisecond a frame)."""
+    def reserve(self, frame: np.ndarray, depth: int | None = None) -> None:
+        """Allocate the slots for arrays like `frame` now (a pinned
+        allocation costs the host about a millisecond a frame): `depth` of
+        them, or the ring's depth."""
         key = (tuple(frame.shape), torch.from_numpy(np.ascontiguousarray(frame[:0])).dtype)
+        if depth is not None:
+            self._depths[key] = depth
         slots = self._slots.setdefault(key, [])
-        while len(slots) < self.depth:
+        while len(slots) < self._depths.get(key, self.depth):
             slots.append((torch.empty(key[0], dtype=key[1]).pin_memory(), torch.cuda.Event()))
 
     def stage(self, frame: np.ndarray) -> torch.Tensor:
@@ -793,7 +846,7 @@ class StagingRing:
         slots = self._slots.setdefault(key, [])
         turn = self._turn.get(key, 0)
         self._turn[key] = turn + 1
-        if len(slots) < self.depth and turn >= len(slots):  # grow to `depth` as frames come
+        if len(slots) < self._depths.get(key, self.depth) and turn >= len(slots):  # grow as arrays come
             slots.append((torch.empty(src.shape, dtype=src.dtype).pin_memory(), torch.cuda.Event()))
             slot = slots[-1]
         else:
@@ -802,15 +855,17 @@ class StagingRing:
                 self.waits += 1
                 slot[1].synchronize()
         slot[0].copy_(src)
-        self._pending = slot
+        self._pending.append(slot)
         return slot[0]
 
     def copied(self, frame: torch.Tensor) -> None:
         """The copy from `frame` to the card is enqueued on the current
-        stream: record its slot's event there (if it is a slot)."""
-        if self._pending is not None and self._pending[0] is frame:
-            self._pending[1].record()
-            self._pending = None
+        stream: record its slot's event there (if it is a staged slot)."""
+        for i, slot in enumerate(self._pending):
+            if slot[0] is frame:
+                slot[1].record()
+                del self._pending[i]
+                return
 
 
 class _GraphStepper:
@@ -858,6 +913,11 @@ class _GraphStepper:
         self._state: TrackerState | None = None
         self._static: TrackerState | None = None  # the graph's state buffers
         self._step_graphs: dict = {}  # (frame shape, dtype) -> StepGraphs
+        # ROI streaming: (stacked track shape, dtype, stride, glob shape,
+        # dtype, stride) -> the chunk's StepGraphs; and the global view's
+        # device buffers, one a glob shape and dtype, shared by those graphs.
+        self._chunk_graphs: dict = {}
+        self._globs: dict = {}  # (shape, dtype) -> [pixels, origin, the host tensor last copied in]
         self._pool = None
         self.staging = StagingRing()  # pinned host frame slots (CUDA)
         self._row_buf: torch.Tensor | None = None  # pinned host copy of a step's row (CUDA)
@@ -916,8 +976,8 @@ class _GraphStepper:
         if key not in self._step_graphs:
             if self._pool is None:
                 self._pool = torch.cuda.graph_pool_handle()
-            self._step_graphs[key] = StepGraphs(self._body, self._static, frame.shape, frame.dtype, self._n,
-                                                self._pool, self._lead)
+            buf = torch.zeros(frame.shape, dtype=frame.dtype, device=self.device)
+            self._step_graphs[key] = StepGraphs(self._body, self._static, (buf,), self._n, self._pool, self._lead)
         return self._step_graphs[key]
 
     def _advance(self, frame: torch.Tensor) -> torch.Tensor:
@@ -933,7 +993,7 @@ class _GraphStepper:
         reseed = draw_reseed_noise(seeds, idx, self._n, dev) if self._n_after > 0 else None
         if self.graphs:
             sg = self._graphs_for(frame)
-            sg.frame.copy_(frame, non_blocking=True)
+            sg.inputs[0].copy_(frame, non_blocking=True)
             self.staging.copied(frame)
             for dst, src in zip(sg.noise, noise):
                 dst.copy_(src)
@@ -949,6 +1009,126 @@ class _GraphStepper:
         self._frame_idx = self._frame_idx + 1
         return row
 
+    # -- the ROI streaming step: chunks of StreamFrames ----------------------------
+    def _chunk_body(self, state, pixels, origin, glob, glob_origin, noise, reseed, run_if, *, stride, glob_stride):
+        """C steps over stacked tracking views [C, h, w, 3] (origins [C, 2])
+        sharing one global view -> (new state, [C, 10] f32 rows, a frame's
+        packed TrackOutput a row); noise and reseed with a leading C.
+        Capturable as _body is."""
+        c = pixels.shape[0]
+        chunk = StreamFrame(FrameView(pixels, origin, stride), FrameView(glob, glob_origin, glob_stride))
+        noises = [StepNoise(*(x[i] for x in noise)) for i in range(c)]
+        new, outs = self._fns.track_chunk(self.vit_params, state, chunk, noises, reseed, run_if)
+        return new, torch.cat([x.reshape(c, -1).to(torch.float32) for x in outs], dim=1)
+
+    def _glob_entry(self, shape, dtype) -> list:
+        key = (tuple(shape), dtype)
+        if key not in self._globs:
+            self._globs[key] = [torch.zeros(key[0], dtype=dtype, device=self.device),
+                                torch.zeros(2, dtype=torch.float32, device=self.device), None]
+        return self._globs[key]
+
+    def _glob_view(self, glob: FrameView) -> FrameView:
+        """A StreamFrame's global view in the tracker's device buffer for its
+        shape: the one every ROI graph of that glob shape reads. The host's
+        pixels (and origin) are copied in, on the current stream and so
+        before the next replay, only when they are not the tensor the last
+        step read: a view reused between refreshes is not copied again."""
+        entry = self._glob_entry(glob.pixels.shape, glob.pixels.dtype)
+        if entry[2] is not glob.pixels:
+            entry[0].copy_(glob.pixels, non_blocking=True)
+            self.staging.copied(glob.pixels)
+            entry[1].copy_(glob.origin, non_blocking=True)
+            self.staging.copied(glob.origin)
+            entry[2] = glob.pixels
+        return FrameView(entry[0], entry[1], glob.stride)
+
+    def _chunk_graphs_for(self, track_shape, dtype, stride: float, glob: FrameView) -> StepGraphs:
+        """The StepGraphs of a chunk of stacked tracking views
+        [C, h, w, 3] over a global view in the tracker's buffers, captured
+        on first sight."""
+        key = (tuple(track_shape), dtype, float(stride), tuple(glob.pixels.shape), glob.pixels.dtype,
+               float(glob.stride))
+        if key not in self._chunk_graphs:
+            if self._pool is None:
+                self._pool = torch.cuda.graph_pool_handle()
+            inputs = (torch.zeros(track_shape, dtype=dtype, device=self.device),
+                      torch.zeros((track_shape[0], 2), dtype=torch.float32, device=self.device),
+                      glob.pixels, glob.origin)
+            body = functools.partial(self._chunk_body, stride=float(stride), glob_stride=float(glob.stride))
+            self._chunk_graphs[key] = StepGraphs(body, self._static, inputs, self._n, self._pool, self._lead,
+                                                 steps=track_shape[0])
+        return self._chunk_graphs[key]
+
+    def prepare_stream(self, example: StreamFrame, sizes) -> None:
+        """On the card with graphs: capture now (after init) the ROI step's
+        graph for every chunk size in `sizes`, for tracking views and a
+        global view shaped as `example`'s (one frame's, unstacked), so that
+        no capture lands inside a stream. Elsewhere nothing to do."""
+        if not self.graphs:
+            return
+        tv = example.track
+        glob = self._glob_entry(example.glob.pixels.shape, example.glob.pixels.dtype)
+        gview = FrameView(glob[0], glob[1], example.glob.stride)
+        for c in sizes:
+            self._chunk_graphs_for((c, *tv.pixels.shape), tv.pixels.dtype, tv.stride, gview)
+
+    def _advance_chunk(self, chunk: StreamFrame) -> torch.Tensor:
+        """C steps on a chunk (tracking pixels [C, h, w, 3] and origins
+        [C, 2], on the device or staged; one global view) -> its [C, 10]
+        rows on the device, enqueued, not waited for. On the card with
+        graphs: one replay, the rows the graph's buffer, valid until its
+        next replay. Frame i draws the noise of frame index idx + i, as C
+        single steps would."""
+        if self._state is None:
+            raise RuntimeError("call init() or resume() first")
+        if self._lead:
+            raise ValueError("ROI streaming steps a single filter")
+        tv = chunk.track
+        c, dev = tv.pixels.shape[0], self.device
+        seed, idx = int(self._seed), int(self._frame_idx)
+        noises = [draw_step_noise(seed, idx + i, self._n, dev) for i in range(c)]
+        reseeds = ([draw_reseed_noise(seed, idx + i, self._n, dev) for i in range(c)]
+                   if self._n_after > 0 else None)
+        glob = self._glob_view(chunk.glob)
+        if self.graphs:
+            sg = self._chunk_graphs_for(tv.pixels.shape, tv.pixels.dtype, tv.stride, glob)
+            for buf, src in zip(sg.inputs, (tv.pixels, tv.origin)):
+                buf.copy_(src, non_blocking=True)
+                self.staging.copied(src)
+            for i, noise in enumerate(noises):
+                for dst, src in zip(sg.noise, noise):
+                    dst[i].copy_(src)
+                if reseeds is not None:
+                    sg.reseed[i].copy_(reseeds[i])
+            rows = sg.replay()
+            if not self._donate:
+                self._state = clone_state(self._static)
+        else:
+            pixels, origin = (x.to(dev, non_blocking=True) for x in (tv.pixels, tv.origin))
+            self.staging.copied(tv.pixels)
+            self.staging.copied(tv.origin)
+            noise = StepNoise(*(torch.stack(x) for x in zip(*noises)))
+            reseed = None if reseeds is None else torch.stack(reseeds)
+            self._state, rows = self._chunk_body(self._state, pixels, origin, glob.pixels, glob.origin, noise, reseed,
+                                                 None, stride=tv.stride, glob_stride=glob.stride)
+        self._frame_idx = self._frame_idx + c
+        return rows
+
+    def step_chunk_packed(self, chunk: StreamFrame) -> torch.Tensor:
+        """Track C ROI frames in one dispatch (one graph replay on the card)
+        -> [C, 10] f32 rows on the device, a frame's packed TrackOutput a
+        row (pack_track_output's layout); a copy, which later steps leave
+        alone. chunk.track: stacked views, pixels [C, h, w, 3] and origins
+        [C, 2]; chunk.glob: one global view, copied to the device only when
+        it is not the tensor the last step read. Waits for nothing on the
+        card."""
+        return self._advance_chunk(chunk).clone()
+
+    def step_chunk_device(self, chunk: StreamFrame) -> TrackOutput:
+        """step_chunk_packed as a TrackOutput with a leading C axis."""
+        return unpack_track_output(self.step_chunk_packed(chunk))
+
     def _read(self, row: torch.Tensor) -> np.ndarray:
         """The row on the host (on the card: one copy into pinned memory and
         one wait, a stream synchronize, which torch's sync debug mode counts)."""
@@ -961,9 +1141,9 @@ class _GraphStepper:
         return self._row_buf.numpy().copy()
 
     def stage(self, frame) -> torch.Tensor:
-        """A host frame on its way to the device: on the card, copied into a
-        pinned slot of `staging` (its copy to the device then needs no
-        wait). A tensor passes through."""
+        """A host array (a frame, a ROI crop or stack, origins) on its way to
+        the device: on the card, copied into a pinned slot of `staging` (its
+        copy to the device then needs no wait). A tensor passes through."""
         if isinstance(frame, torch.Tensor):
             return frame
         if self.device.type != "cuda":
@@ -973,16 +1153,25 @@ class _GraphStepper:
     def _banks(self) -> int | None:
         return self._lead[0] if self._lead else None
 
-    def step_device(self, frame_dev: torch.Tensor) -> TrackOutput:
-        """Track one frame already on the device (or staged by ``stage``)
-        -> TrackOutput on the device (a copy of the step's output; [K, ...]
-        for K banks). Waits for nothing on the card."""
+    def step_device(self, frame_dev) -> TrackOutput:
+        """Track one frame already on the device (or staged by ``stage``),
+        or one StreamFrame, -> TrackOutput on the device (a copy of the
+        step's output; [K, ...] for K banks). Waits for nothing on the card."""
         return unpack_track_output(self.step_packed(frame_dev), self._banks())
 
-    def step_packed(self, frame_dev: torch.Tensor) -> torch.Tensor:
+    def step_packed(self, frame_dev) -> torch.Tensor:
         """step_device with the output packed on the device into one f32
         row, [10] ([10 K] for K banks, pack_track_output's layout), packed
-        inside the same graph; a copy, which later steps leave alone."""
+        inside the same graph; a copy, which later steps leave alone. A
+        StreamFrame (one ROI frame) runs as a chunk of one, with its own
+        graph."""
+        if isinstance(frame_dev, StreamFrame):
+            tv = frame_dev.track
+            one = StreamFrame(FrameView(tv.pixels[None], tv.origin[None], tv.stride), frame_dev.glob)
+            row = self.step_chunk_packed(one)[0]
+            self.staging.copied(tv.pixels)  # staged slots: their copies are enqueued
+            self.staging.copied(tv.origin)
+            return row
         return self._advance(frame_dev).clone()
 
     def track_clip_device(self, frames_dev: torch.Tensor) -> TrackOutput:
