@@ -89,10 +89,23 @@ Phases, each timed and printed:
                 switching under a forced fps_target; d. a crop-mode ROI
                 stream at ViT-B/16 through K2, and K2 on a window resampled
                 from a strided ROI view against its plain version.
-  7. times    — K1, its plain version and torch's scaled_dot_product_attention
+  7. bench    — runtime/benchmark.py's run_benchmark (the bench command's
+                harness) over the five BASELINE configs of
+                tools/port_bench_evals.py with small counts (stage 4,
+                measure 20, latency 8): one line a config; backend cuda, the
+                device span from CUDA events and at most the host-clock p50,
+                the MFU in (0, 1) against the H100 basis of its dtype, K1
+                launches by shape (eval1 runs f32: the port sends every
+                attention on the card to K1), no global scan on eval5's
+                device-staged run; then eval3 (ViT-L/16, 4096 particles,
+                cells, 1080p needle) through Tracker.run on 30 frames: K1
+                24 a frame at [1, 16, 196, 64], the RMSE within the JAX
+                package's worst plus 2 px.
+  8. times    — K1, its plain version and torch's scaled_dot_product_attention
                 (a yardstick the port never calls) on fused-qkv views at the
                 dense, crop (B 1024 and B 1), re-detection, banked (B 8),
-                multi-stream (B 4) and eval5 (B 1 and B 25, 16 heads) shapes; K2, its
+                multi-stream (B 4) and eval5 (B 1 and B 25, 16 heads) shapes
+                in bf16, and the dense shape in f32 (eval1's); K2, its
                 plain version and cuBLAS's product alone on sampled tokens
                 (a yardstick the port never calls) at the crop path's N 1024
                 and N 1 (tools/port_k2_times.py), and over 8 windows of 1024
@@ -111,6 +124,7 @@ import importlib.util
 import io
 import itertools
 import json
+import math
 import re
 import statistics
 import subprocess
@@ -138,6 +152,7 @@ from vitparticlefiltertracker_tpu_torch.ops import patchify_window as pw
 from vitparticlefiltertracker_tpu_torch.ops.patchify import crop_sample_coords
 from vitparticlefiltertracker_tpu_torch import cli
 from vitparticlefiltertracker_tpu_torch.runtime import banked, step_graph
+from vitparticlefiltertracker_tpu_torch.runtime.benchmark import run_benchmark
 from vitparticlefiltertracker_tpu_torch.runtime.streaming import stream_track
 from vitparticlefiltertracker_tpu_torch.runtime.tracker import Tracker, build_tracker_fns, step_branches
 
@@ -330,6 +345,21 @@ CROP_ROI_RUNTIME = {"stream_roi": 320, "stream_roi_stride": 2, "stream_chunk": 4
                     "stream_glob_every": 4}
 JAX_CROP_ROI_RMSE_PX = (0.912, 0.873, 0.844, 1.008)
 CROP_ROI_RMSE_BOUND_PX = max(JAX_CROP_ROI_RMSE_PX) + 2.0
+
+# The bench phase: runtime/benchmark.py's run_benchmark over the five
+# BASELINE configs, as tools/port_bench_evals.py runs them (its dicts, each
+# held equal to its file in configs/ by a CPU test), with small counts.
+_bench_evals = _load_tool("port_bench_evals")
+BENCH_COUNTS = dict(warmup=4, measure_frames=20, latency_frames=8, stage_frames=4)
+# eval3 (configs/eval3-tpu-needle-1080p.yaml: ViT-L/16 on random init, 4096
+# particles, cells, 1080p needle) tracked through Tracker.run on 30 frames.
+# tools/port_rmse_reference.py --config configs/eval3-tpu-needle-1080p.yaml
+# --checkpoint "" --frames 30 (the JAX package on the CPU, clip seed 0; the
+# random weights and the noise both follow filter.seed): RMSE over filter
+# seeds 0-3. The bound is the worst plus 2 px, as on the other paths.
+EVAL3_FRAMES = 30
+JAX_EVAL3_RMSE_PX = (12.853, 80.855, 106.645, 98.496)
+EVAL3_RMSE_BOUND_PX = max(JAX_EVAL3_RMSE_PX) + 2.0
 
 CHECK_SHAPES = [(1, 12, t, 64) for t in (128, 130, 196, 197, 389, 3600)] + [(49, 12, 196, 64)]
 # The banked path's forward (8 windows) and the multi-stream path's (4).
@@ -1546,6 +1576,76 @@ def run_crop_roi(crop_path: dict) -> dict:
     return {**run, "k2_roi_view_max_abs_err": k2_err}
 
 
+BENCH_KEYS = ("fps", "fps_serving", "p50_ms", "p99_ms", "p50_device_ms", "p50_device_source", "rtt_ms",
+              "est_gflops_per_frame", "achieved_tflops", "mfu", "peak_basis", "peak_memory_mib", "steps")
+
+
+def run_bench(i: int) -> dict:
+    """BASELINE config i (tools/port_bench_evals.py's) through run_benchmark
+    on the card with BENCH_COUNTS, the launch counts set to 0 just before
+    and read just after: backend cuda, the device span from CUDA events,
+    finite and at most the step's host-clock p50, the MFU in (0, 1) where
+    the card has a peak; K1 launches by shape, 12 or 24 a forward: one
+    forward (all banks at once) at init and a step, one more on each step
+    whose state was lost where the config gates it (the probe), no global
+    scan (the moving clips never stay lost for redetect_global_after
+    frames, so that IF node is never taken)."""
+    path = _bench_evals.EVALS[i - 1][0]
+    cfg = _bench_evals.config(i)
+    reset_counts()
+    r = run_benchmark(cfg, verbose=False, device="cuda", **BENCH_COUNTS)
+    counts = read_counts()
+    name = Path(path).stem
+    dev_ms = r["p50_device_ms"]
+    check(r["config"]["backend"] == "cuda", f"{name}: backend {r['config']['backend']}")
+    check(r["p50_device_source"] == "cuda_events", f"{name}: device span from {r['p50_device_source']}")
+    check(math.isfinite(dev_ms) and 0 < dev_ms <= r["p50_ms"],
+          f"{name}: device span {dev_ms} ms finite and at most p50 {r['p50_ms']} ms")
+    check(all(math.isfinite(r[k]) and r[k] > 0 for k in ("fps", "fps_serving", "p50_ms", "p99_ms", "rtt_ms")),
+          f"{name}: rates and times finite")
+    if r["peak_tflops"] is not None:
+        check(0 < r["mfu"] < 1, f"{name}: MFU {r['mfu']} in (0, 1) against {r['peak_basis']}")
+    spec = VitSpec.from_config(cfg.model)
+    depth, shape = cfg.model.depth, (max(1, cfg.runtime.banks), cfg.model.heads, spec.seq_len)
+    launches = counts["k1_shapes"].get(shape, 0)
+    least = depth * (1 + r["steps"])
+    most = depth * (1 + 2 * r["steps"]) if step_branches(cfg)[0] else least
+    check(set(counts["k1_shapes"]) == {shape} and least <= launches <= most and launches % depth == 0,
+          f"{name}: K1 launches by (B, H, T) {counts['k1_shapes']}: {depth} a forward at {shape}, "
+          f"{least} to {most}")
+    check(counts["k2_launches"] == 0, f"{name}: no K2 launch")
+    probes = launches // depth - 1 - r["steps"]
+    line = {k: r[k] for k in BENCH_KEYS}
+    print(f"  {name}: " + json.dumps({**line, "k1_shapes": {str(k): v for k, v in counts["k1_shapes"].items()},
+                                      "probes": probes}), flush=True)
+    return {**line, "config": r["config"], "k1_shapes": counts["k1_shapes"], "probes": probes}
+
+
+def run_eval3_track() -> dict:
+    """eval3 through Tracker.run on EVAL3_FRAMES frames of its 1080p needle
+    clip on the card (ViT-L/16 on the port's JAX-exact random init, 4096
+    particles, cells): K1 24 a frame at [1, 16, 196, 64], positions finite,
+    the RMSE within the JAX package's worst plus 2 px."""
+    cfg = _bench_evals.config(3)
+    src = open_source(cfg.io.source, EVAL3_FRAMES, tuple(cfg.io.frame_size), seed=cfg.filter.seed)
+    tracker = Tracker(cfg, device="cuda")
+    reset_counts()
+    recs = list(tracker.run(src))
+    counts = read_counts()
+    want = {EVAL5_DENSE_SHAPE[:3]: cfg.model.depth * EVAL3_FRAMES}
+    check(counts["k1_shapes"] == want, f"eval3: K1 launches by shape {counts['k1_shapes']} == {want}")
+    pos = np.array([r["position"] for r in recs])
+    check(len(recs) == EVAL3_FRAMES - 1 and bool(np.all(np.isfinite(pos))), "eval3: a finite record a step")
+    rmse = float(np.sqrt(np.mean(np.linalg.norm(pos - src.truth[1:], axis=1) ** 2)))
+    lost = sum(r["lost"] for r in recs)
+    print(f"  eval3 tracked on {EVAL3_FRAMES} frames of 1080x1920 needle: RMSE {rmse:.3f} px (bound "
+          f"{EVAL3_RMSE_BOUND_PX:.3f}: the JAX package on the CPU, filter seeds 0-3, {JAX_EVAL3_RMSE_PX}, + 2), "
+          f"{lost} lost; K1 {counts['k1_shapes']}; step median "
+          f"{statistics.median(r['step_ms'] for r in recs[5:]):.3f} ms", flush=True)
+    check(rmse <= EVAL3_RMSE_BOUND_PX, f"eval3: RMSE {rmse} px within {EVAL3_RMSE_BOUND_PX} px")
+    return {"rmse_px": rmse, "lost": lost, "k1_shapes": counts["k1_shapes"]}
+
+
 def check_if_node() -> dict:
     """The IF-node helper (csrc/graph_if.cu, step_graph.capture_if) against
     its plain version, the host's branch (step_graph.run_if_host): a
@@ -1598,16 +1698,16 @@ def check_if_node() -> dict:
     return {"taken": taken}
 
 
-def time_kernels() -> dict:
+def time_kernels(shapes=TIME_SHAPES, dtype=torch.bfloat16) -> dict:
     """K1, its plain version and sdpa on the fused-qkv views the main path
-    passes, bf16. Each is timed on the card (CUDA graph replay, the numbers
+    passes, in `dtype`. Each is timed on the card (CUDA graph replay, the numbers
     kept) and as an eager loop of launches (which the host's launch rate can
     bound at small shapes); interleaved plain, kernel, library, kernel,
     plain in each."""
     sdpa = torch.nn.functional.scaled_dot_product_attention
     rows = {}
-    for shape in TIME_SHAPES:
-        q, k, v = qkv(shape, torch.bfloat16, seed=7, layout="fused")
+    for shape in shapes:
+        q, k, v = qkv(shape, dtype, seed=7, layout="fused")
         fns = {"plain": lambda: attention.reference_attention(q, k, v),
                "k1": lambda: attention.flash_attention(q, k, v), "sdpa": lambda: sdpa(q, k, v)}
         order = ("plain", "k1", "sdpa", "k1", "plain")
@@ -1617,12 +1717,12 @@ def time_kernels() -> dict:
             dev[name].append(time_graph(fns[name]))
         for name in order:
             eager[name].append(time_eager(fns[name])[0])
-        bound, by = attention_bound_ms(shape, torch.bfloat16)
+        bound, by = attention_bound_ms(shape, dtype)
         rows[shape] = {"ms": min(dev["k1"]), "plain_ms": min(dev["plain"]), "library_ms": dev["sdpa"][0],
                        "bound_ms": bound, "bound_by": by, "eager_ms": min(eager["k1"]),
                        "eager_plain_ms": min(eager["plain"]), "eager_library_ms": eager["sdpa"][0]}
         fmt = lambda xs: "/".join(f"{x:.4f}" for x in xs)  # noqa: E731
-        print(f"  {str(shape):18s} bf16 fused views, device (graph): K1 {fmt(dev['k1'])} ms, plain "
+        print(f"  {str(shape):18s} {str(dtype).removeprefix('torch.')} fused views, device (graph): K1 {fmt(dev['k1'])} ms, plain "
               f"{fmt(dev['plain'])} ms, sdpa {fmt(dev['sdpa'])} ms; eager loop: K1 {fmt(eager['k1'])}, plain "
               f"{fmt(eager['plain'])}, sdpa {fmt(eager['sdpa'])} ms; bound {bound:.5f} ms ({by})", flush=True)
     return rows
@@ -1774,7 +1874,13 @@ def main() -> int:
     phase("stream, roi", t0)
 
     t0 = time.perf_counter()
+    bench = {Path(path).stem: run_bench(i) for i, (path, *_) in enumerate(_bench_evals.EVALS, start=1)}
+    eval3 = run_eval3_track()
+    phase("bench", t0)
+
+    t0 = time.perf_counter()
     times = time_kernels()
+    times_f32 = time_kernels([DENSE_SHAPE], torch.float32)
     k2_times = time_window_patchify(K2_MAIN)
     k2_one_times = time_window_patchify(K2_ONE)
     k2_window_times = time_window_patchify_windows()
@@ -1796,7 +1902,15 @@ def main() -> int:
                                         ("banked", BANKED_SHAPE, banked_path),
                                         ("multistream", STREAMS_SHAPE, streams_path),
                                         ("eval5-roi-c4", EVAL5_DENSE_SHAPE, eval5),
-                                        ("eval5-roi-teleport-c4", EVAL5_REDETECT_SHAPE, teleport))]
+                                        ("eval5-roi-teleport-c4", EVAL5_REDETECT_SHAPE, teleport),
+                                        ("bench eval2", DENSE_SHAPE, bench["eval2-tpu-occlusion"]),
+                                        ("bench eval3", EVAL5_DENSE_SHAPE, bench["eval3-tpu-needle-1080p"]),
+                                        ("bench eval4", BANKED_SHAPE, bench["eval4-tpu-multiobject-720p"]),
+                                        ("bench eval5", EVAL5_DENSE_SHAPE, bench["eval5-tpu-streaming-4k"]))]
+    # eval1 runs f32: K1 at the dense shape in f32, timed in f32.
+    k1_rows.append(dict(**k1_common, path="bench eval1", shape=list(DENSE_SHAPE), dtype="float32",
+                        launches=bench["eval1-cpu-synthetic"]["k1_shapes"].get(DENSE_SHAPE[:3], 0),
+                        max_abs_err=errs[(DENSE_SHAPE, torch.float32, "fused")], **times_f32[DENSE_SHAPE]))
     k2_rows = [dict(name="gather_patchify_window", route="cuda",
                     source="vitparticlefiltertracker_tpu_torch/csrc/window_patchify.cu",
                     replaces="vitparticlefiltertracker_tpu/ops/patchify_pallas.py:59",
@@ -1827,6 +1941,8 @@ def main() -> int:
                                      for label, run in (("eval5-roi-c4", eval5), ("eval5-roi-teleport-c4", teleport),
                                                         ("adaptive", adaptive), ("crop-roi", crop_roi))},
                       "chunk_equals_steps": chunk_eq,
+                      "bench": {name: {k: v for k, v in b.items() if k != "k1_shapes"} for name, b in bench.items()},
+                      "eval3_track": {k: v for k, v in eval3.items() if k != "k1_shapes"},
                       "k2_8_windows_x_1024": {**k2_window_times,
                                               "max_abs_err": k2_window_errs[(8, 1024, torch.bfloat16)]}}))
     print(f"[phase] total: {time.perf_counter() - t_start:.2f} s", flush=True)

@@ -513,3 +513,63 @@ def test_chunked_roi_stream_submitter_waits_for_nothing(cuda_device):
     assert where["loop"] == 0 and where["final"] == 1
     assert stats["dispatches"] == {4: 5, 1: 2} and stats["staging_waits"] == 0
     assert sorted(r["frame"] for r in recs) == list(range(1, 23))
+
+
+def test_run_benchmark_on_the_card(cuda_device, tmp_path):
+    """The bench harness on eval2 (tools/port_bench_evals.py's config) with
+    small counts: the device span from CUDA events, at most the host-clock
+    p50, an MFU in (0, 1) against the card's bf16 basis, and the offline
+    phase's trace in runtime.profile_dir."""
+    import chip_smoke
+    from vitparticlefiltertracker_tpu_torch.runtime.benchmark import run_benchmark
+
+    cfg = chip_smoke._bench_evals.config(2)
+    cfg.runtime.profile_dir = str(tmp_path)
+    r = run_benchmark(cfg, warmup=2, measure_frames=10, latency_frames=4, stage_frames=2, verbose=False)
+    assert len(list(tmp_path.glob("*.json"))) == 1
+    assert r["config"]["backend"] == "cuda" and r["config"]["device"] == torch.cuda.get_device_name(0)
+    assert r["p50_device_source"] == "cuda_events" and 0 < r["p50_device_ms"] <= r["p50_ms"]
+    assert r["peak_memory_mib"] > 0
+    if "H100" in torch.cuda.get_device_name(0):
+        assert r["peak_tflops"] == 989.0 and 0 < r["mfu"] < 1
+
+
+def test_branch_launches_count_after_the_tracker_is_gone(cuda_device):
+    """The probe's launches (an IF-node body) count at the next
+    settle_counts although the tracker that ran them was dropped before it,
+    as run_benchmark drops its own: K1 launches by shape equal one forward
+    at init, one a step and one a lost step."""
+    import gc
+
+    import chip_smoke
+    from vitparticlefiltertracker_tpu_torch.io.video import open_source
+    from vitparticlefiltertracker_tpu_torch.models.vit import VitSpec
+    from vitparticlefiltertracker_tpu_torch.runtime.tracker import Tracker
+
+    cfg = Config.from_dict(copy.deepcopy(chip_smoke.TINY_TELEPORT))
+    src = open_source(cfg.io.source, cfg.io.num_frames, tuple(cfg.io.frame_size))
+    chip_smoke.reset_counts()
+    recs = list(Tracker(cfg, device="cuda").run(src))
+    gc.collect()
+    counts = chip_smoke.read_counts()
+    probes = sum(r["lost"] for r in recs[:-1])
+    assert probes > 0
+    t = VitSpec.from_config(cfg.model).seq_len
+    assert counts["k1_shapes"] == {(1, cfg.model.heads, t): cfg.model.depth * (1 + len(recs) + probes)}
+
+
+def test_trace_reads_device_time_by_kernel(cuda_device, tmp_path):
+    """utils/profiling.py on the card: trace() dumps a chrome trace, and
+    device_time_by_kernel finds K1's kernel with a device time."""
+    from vitparticlefiltertracker_tpu_torch.utils.profiling import device_time_by_kernel, trace
+
+    q, k, v = _qkv_views((1, 12, 196, 64), torch.bfloat16, "fused", seed=3, device=cuda_device)
+    attention.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    with trace(str(tmp_path)) as prof:
+        for _ in range(4):
+            attention.flash_attention(q, k, v)
+        torch.cuda.synchronize()
+    assert len(list(tmp_path.glob("*.json"))) == 1
+    times = device_time_by_kernel(prof)
+    assert any("attn_" in name and ms > 0 for name, ms in times.items()), sorted(times)

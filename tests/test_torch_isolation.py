@@ -1,6 +1,8 @@
-"""The port stands alone: with jax, ml_dtypes, yaml and the JAX package made
-unimportable, every module of vitparticlefiltertracker_tpu_torch and
-chip_smoke.py imports, and the tracker runs two CPU steps."""
+"""The port stands alone: with jax, ml_dtypes, yaml, cv2, imageio and the
+JAX package made unimportable, every module of
+vitparticlefiltertracker_tpu_torch and chip_smoke.py imports, and the
+tracker runs two CPU steps (cv2 and imageio are imported only inside the
+readers and the overlay sink that use them)."""
 
 import os
 import subprocess
@@ -10,7 +12,7 @@ ROOT = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))
 
 SCRIPT = r"""
 import sys
-for name in ("jax", "jaxlib", "ml_dtypes", "yaml", "orbax", "vitparticlefiltertracker_tpu"):
+for name in ("jax", "jaxlib", "ml_dtypes", "yaml", "orbax", "cv2", "imageio", "vitparticlefiltertracker_tpu"):
     sys.modules[name] = None
 import importlib, pkgutil
 import vitparticlefiltertracker_tpu_torch as pkg
@@ -33,7 +35,8 @@ cfg = Config.from_dict(chip_smoke.TINY_HEAD_REDETECT)
 src = open_source(cfg.io.source, 6, tuple(cfg.io.frame_size))
 recs = list(Tracker(cfg, device="cpu").run(src))
 assert len(recs) == 5, recs
-loaded = [m for m in ("jax", "ml_dtypes", "yaml", "vitparticlefiltertracker_tpu") if sys.modules.get(m) is not None]
+loaded = [m for m in ("jax", "ml_dtypes", "yaml", "cv2", "imageio", "vitparticlefiltertracker_tpu")
+          if sys.modules.get(m) is not None]
 assert not loaded, loaded
 print("OK", len(names))
 """

@@ -320,10 +320,20 @@ def test_unknown_source_rejected():
 
 @pytest.mark.parametrize("source", ["clip.mp4", "camera:0"])
 def test_unported_sources_name_the_roadmap(source):
-    """A source the JAX package reads and the port does not yet raises
-    NotImplementedError naming ROADMAP.md, not the unknown-source error."""
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        open_source(source)
+    """Video files and cameras, the last sources the port lacked, now
+    dispatch as in the JAX package: a missing video file raises
+    FileNotFoundError, camera:0 opens a CameraSource (its reader,
+    tests/test_torch_io_video.py), neither the unknown-source error."""
+    from vitparticlefiltertracker_tpu.io.video import open_source as j_open_source
+
+    if source.startswith("camera:"):
+        src, ref = open_source(source, 3), j_open_source(source, 3)
+        assert type(src).__name__ == type(ref).__name__ == "CameraSource"
+        assert (src.index, len(src)) == (ref.index, len(ref)) == (0, 3)
+    else:
+        for fn in (open_source, j_open_source):
+            with pytest.raises(FileNotFoundError):
+                fn(source)
 
 
 @pytest.mark.parametrize("source", ["native-synthetic:", "feed.rgb24"])

@@ -1,14 +1,16 @@
 """Command line: ``python -m vitparticlefiltertracker_tpu_torch track --config config.yaml``.
 
-Subcommands: track (default), stream (the decode -> track pipeline with
-trailing readback) and serve (K videos batched in one step). Each writes
-the same JSONL records as the JAX package's command of that name. Runs on
-the card unless ``--device cpu`` is given.
+Subcommands: track (default), bench (the benchmark harness: one JSON line),
+stream (the decode -> track pipeline with trailing readback) and serve (K
+videos batched in one step). Each prints or writes what the JAX package's
+command of that name does. Runs on the card unless ``--device cpu`` is
+given.
 """
 
 from __future__ import annotations
 
 import argparse
+import json
 import os
 import sys
 import time
@@ -22,7 +24,7 @@ def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="vpt-torch", description="ViT + particle-filter tracker (PyTorch / CUDA port)"
     )
-    p.add_argument("command", nargs="?", default="track", choices=["track", "stream", "serve"])
+    p.add_argument("command", nargs="?", default="track", choices=["track", "bench", "stream", "serve"])
     p.add_argument("--config", "-c", default="", help="path to config.yaml")
     p.add_argument(
         "--set",
@@ -51,16 +53,16 @@ def load(args, implicit_config: bool = False) -> Config:
 def cmd_track(cfg: Config, device: str = "cuda", quiet: bool = False) -> int:
     """Track io.source and write one JSONL record a frame; with
     runtime.banks > 1, a MultiTracker over the source's targets (or its one
-    box, tiled) writes one record a bank a frame."""
-    from vitparticlefiltertracker_tpu_torch.io.sink import JsonlSink
+    box, tiled) writes one record a bank a frame. io.overlay names a video
+    the tracked boxes are drawn into (every bank's with banks)."""
+    from vitparticlefiltertracker_tpu_torch.io.sink import JsonlSink, OverlaySink
 
-    if cfg.io.overlay:
-        raise NotImplementedError("io.overlay is not ported yet; see ROADMAP.md")
     banks = cfg.runtime.banks
     if cfg.io.resume_state and banks > 1:
         raise ValueError("io.resume_state supports a single tracker (runtime.banks == 1)")
     source = _open(cfg, cfg.io.source, cfg.filter.seed)
     sink = JsonlSink(cfg.io.output)
+    overlay = OverlaySink(cfg.io.overlay) if cfg.io.overlay else None
     t_start = time.perf_counter()
     count = 0
     frames_iter = iter(source)
@@ -75,9 +77,12 @@ def cmd_track(cfg: Config, device: str = "cuda", quiet: bool = False) -> int:
         tracker = MultiTracker(cfg, device=device)
         tracker.init(frame0, banked_bboxes(bbox, banks))
         for i, frame in enumerate(frames_iter):
-            for rec in tracker.step(frame):
+            recs = tracker.step(frame)
+            for rec in recs:
                 rec["frame"] = i + 1
                 sink.write(rec)
+            if overlay is not None:
+                overlay.write_multi(frame, recs)
             count += 1
     else:
         from vitparticlefiltertracker_tpu_torch.runtime.tracker import Tracker
@@ -93,6 +98,8 @@ def cmd_track(cfg: Config, device: str = "cuda", quiet: bool = False) -> int:
             rec = tracker.step(frame)
             rec["frame"] = base + i + 1
             sink.write(rec)
+            if overlay is not None:
+                overlay.write(frame, rec)
             count += 1
         if cfg.io.save_state:
             tracker.save(cfg.io.save_state)
@@ -100,8 +107,19 @@ def cmd_track(cfg: Config, device: str = "cuda", quiet: bool = False) -> int:
                 print(f"saved state to {cfg.io.save_state}", file=sys.stderr)
     wall = time.perf_counter() - t_start
     sink.close()
+    if overlay is not None:
+        overlay.close()
     if not quiet and count:
         print(f"tracked {count} frames in {wall:.2f}s ({count / wall:.1f} fps)", file=sys.stderr)
+    return 0
+
+
+def cmd_bench(cfg: Config, device: str = "cuda", quiet: bool = False) -> int:
+    """The benchmark harness (runtime/benchmark.py) on the config's source:
+    one JSON line on stdout; its progress on stderr unless quiet."""
+    from vitparticlefiltertracker_tpu_torch.runtime.benchmark import run_benchmark
+
+    print(json.dumps(run_benchmark(cfg, verbose=not quiet, device=device)))
     return 0
 
 
@@ -211,7 +229,7 @@ def cmd_serve(cfg: Config, device: str = "cuda", quiet: bool = False) -> int:
     return 0
 
 
-COMMANDS = {"track": cmd_track, "stream": cmd_stream, "serve": cmd_serve}
+COMMANDS = {"track": cmd_track, "bench": cmd_bench, "stream": cmd_stream, "serve": cmd_serve}
 
 
 def main(argv=None) -> int:

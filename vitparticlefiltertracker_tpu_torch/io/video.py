@@ -1,7 +1,8 @@
-"""Input sources: synthetic clips, image sequences, raw RGB24 files and the
-native ring's sources (io/native.py) — the port's own copy of that part of
-the JAX package's ``io/video.py``. All sources yield RGB uint8 [H, W, 3]
-numpy arrays.
+"""Input sources: synthetic clips, image sequences, video files, cameras,
+raw RGB24 files and the native ring's sources (io/native.py) — the port's
+own copy of the JAX package's ``io/video.py``. All sources yield RGB uint8
+[H, W, 3] numpy arrays. OpenCV and imageio are imported only inside the
+readers that use them.
 """
 
 from __future__ import annotations
@@ -62,6 +63,64 @@ class ImageSequenceSource:
         return len(self.paths)
 
 
+class VideoFileSource:
+    """Decoded video file: OpenCV when it is installed and opens the file,
+    imageio otherwise."""
+
+    def __init__(self, path: str, num_frames: int = 0):
+        if not os.path.exists(path):
+            raise FileNotFoundError(path)
+        self.path = path
+        self.num_frames = num_frames
+        self._len = 0
+        try:
+            import cv2
+
+            cap = cv2.VideoCapture(path)
+            # imageio also takes the files cv2's build cannot open.
+            self._use_cv2 = cap.isOpened()
+            if self._use_cv2:
+                self._len = int(cap.get(cv2.CAP_PROP_FRAME_COUNT))
+            cap.release()
+        except ImportError:
+            self._use_cv2 = False
+
+    def _iter_cv2(self) -> Iterator[np.ndarray]:
+        import cv2
+
+        cap = cv2.VideoCapture(self.path)
+        if not cap.isOpened():
+            raise RuntimeError(f"cannot decode {self.path!r}")
+        try:
+            count = 0
+            while True:
+                ok, frame = cap.read()
+                if not ok:
+                    return
+                yield np.ascontiguousarray(frame[..., ::-1])  # BGR -> RGB
+                count += 1
+                if self.num_frames and count >= self.num_frames:
+                    return
+        finally:
+            cap.release()
+
+    def _iter_imageio(self) -> Iterator[np.ndarray]:
+        import imageio.v3 as iio
+
+        count = 0
+        for frame in iio.imiter(self.path):
+            yield np.ascontiguousarray(frame[..., :3], dtype=np.uint8)
+            count += 1
+            if self.num_frames and count >= self.num_frames:
+                return
+
+    def __iter__(self) -> Iterator[np.ndarray]:
+        return self._iter_cv2() if self._use_cv2 else self._iter_imageio()
+
+    def __len__(self) -> int:
+        return self.num_frames or self._len
+
+
 class RawMemmapSource:
     """Pure-Python packed-RGB24 reader (np.memmap): the fallback for
     `*.rgb24` sources when the native library is unavailable."""
@@ -80,8 +139,34 @@ class RawMemmapSource:
         return self._n
 
 
-def _not_ported(source: str, what: str, item: str):
-    return NotImplementedError(f"source {source!r}: {what} is not ported yet; see ROADMAP.md (open items §1, {item})")
+class CameraSource:
+    """Live camera feed (`camera:<index>`) through OpenCV."""
+
+    def __init__(self, index: int, num_frames: int = 0):
+        self.index = index
+        self.num_frames = num_frames
+
+    def __iter__(self) -> Iterator[np.ndarray]:
+        import cv2
+
+        cap = cv2.VideoCapture(self.index)
+        if not cap.isOpened():
+            raise RuntimeError(f"cannot open camera {self.index}")
+        try:
+            count = 0
+            while True:
+                ok, frame = cap.read()
+                if not ok:
+                    return
+                yield np.ascontiguousarray(frame[..., ::-1])  # BGR -> RGB
+                count += 1
+                if self.num_frames and count >= self.num_frames:
+                    return
+        finally:
+            cap.release()
+
+    def __len__(self) -> int:
+        return self.num_frames
 
 
 def open_source(
@@ -91,13 +176,12 @@ def open_source(
     seed: int = 0,
 ):
     """Dispatch on the config's io.source string, in the JAX package's order:
-    cameras, native sources, synthetic clips, image globs, video files. The
-    port reads all but cameras and video files, which raise
-    NotImplementedError; a source no reader takes raises ValueError. Native
-    sources (`native-synthetic:...`, `*.rgb24`) fall back to the pure-Python
-    ones, with a warning, when the native library cannot be built."""
+    cameras, native sources, synthetic clips, image globs, video files; a
+    source no reader takes raises ValueError. Native sources
+    (`native-synthetic:...`, `*.rgb24`) fall back to the pure-Python ones,
+    with a warning, when the native library cannot be built."""
     if source.startswith("camera:"):
-        raise _not_ported(source, "a camera", "I/O remainder")
+        return CameraSource(int(source.split(":", 1)[1]), num_frames)
     if source.startswith("native-synthetic:") or source.endswith(".rgb24"):
         from vitparticlefiltertracker_tpu_torch.io import native
 
@@ -124,5 +208,5 @@ def open_source(
     if "*" in source or "?" in source or ext in IMAGE_EXTS:
         return ImageSequenceSource(source, num_frames)
     if ext in VIDEO_EXTS:
-        raise _not_ported(source, "a video file", "I/O remainder")
+        return VideoFileSource(source, num_frames)
     raise ValueError(f"cannot infer source type from {source!r}")

@@ -110,16 +110,42 @@ def run_if_always(pred: torch.Tensor, body: Callable[[], None]) -> None:
 # body(state, *inputs, noise, reseed, run_if) -> (new state, f32 rows)
 StepBody = Callable[..., tuple[object, torch.Tensor]]
 
-# Every StepGraphs alive, for settle_counts.
-_LIVE: "weakref.WeakSet[StepGraphs]" = weakref.WeakSet()
 _MAX_BRANCHES = 2  # a step's: the probe and the scan
+
+
+class _Tally:
+    """One StepGraphs' branch counters: how often each body ran (`taken`,
+    on the card), the launches each adds, and the runs already counted. It
+    outlives its graphs until settle_counts has counted it after they are
+    gone, so the branch launches of a tracker dropped before a settle count."""
+
+    def __init__(self, owner: "StepGraphs", taken: torch.Tensor):
+        self.owner = weakref.ref(owner)
+        self.taken = taken
+        self.branch_counts: list[list] = []
+        self.settled = [0] * taken.numel()
+
+    def settle(self) -> None:
+        if not self.branch_counts:
+            return
+        taken = self.taken.tolist()
+        for i, delta in enumerate(self.branch_counts):
+            add_counts(delta, taken[i] - self.settled[i])
+        self.settled = taken
+
+
+# Every StepGraphs' tally, until counted after its graphs are gone.
+_TALLIES: list[_Tally] = []
 
 
 def settle_counts() -> None:
     """Add to the kernel wrappers' counts the launches of every branch body
-    that ran since the last call (reads each graph's counters: one wait)."""
-    for graphs in list(_LIVE):
-        graphs.settle()
+    that ran since the last call, also in graphs no longer alive (reads each
+    graph's counters: one wait)."""
+    for tally in list(_TALLIES):
+        tally.settle()
+        if tally.owner() is None:
+            _TALLIES.remove(tally)
 
 
 def capture_if(pred: torch.Tensor, body: Callable[[], None], body_stream: torch.cuda.Stream, body_pool) -> None:
@@ -186,8 +212,8 @@ class StepGraphs:
         self._body_pool = torch.cuda.graph_pool_handle()
         self._pool_refs = [0]
         self.taken = torch.zeros(self._max_branches, dtype=torch.int64, device=dev)
-        self._settled = [0] * self._max_branches
-        self.branch_counts: list[list] = []
+        self._tally = _Tally(self, self.taken)
+        self.branch_counts = self._tally.branch_counts
         stream = torch.cuda.Stream(dev)
         before = read_counts()
         # Warm-up on a copy of the state, on the capture stream, with every
@@ -212,7 +238,9 @@ class StepGraphs:
         restore_counts(before)
         if self._pool_refs[0]:
             weakref.finalize(self, _release_pool, dev.index, self._body_pool, self._pool_refs)
-        _LIVE.add(self)
+        if any(t.owner() is None for t in _TALLIES):
+            settle_counts()  # count and drop the tallies of graphs gone since the last settle
+        _TALLIES.append(self._tally)
 
     def _warm_if(self, pred: torch.Tensor, body: Callable[[], None]) -> None:
         from vitparticlefiltertracker_tpu_torch.ops._build import graph_if_library
@@ -247,12 +275,3 @@ class StepGraphs:
         self.graph.replay()
         add_counts(self.counts)
         return self.row
-
-    def settle(self) -> None:
-        """Count the branch bodies' launches of the replays since the last call."""
-        if not self.branch_counts:
-            return
-        taken = self.taken.tolist()
-        for i, delta in enumerate(self.branch_counts):
-            add_counts(delta, taken[i] - self._settled[i])
-        self._settled = taken
