@@ -101,7 +101,30 @@ Phases, each timed and printed:
                 cells, 1080p needle) through Tracker.run on 30 frames: K1
                 24 a frame at [1, 16, 196, 64], the RMSE within the JAX
                 package's worst plus 2 px.
-  8. times    — K1, its plain version and torch's scaled_dot_product_attention
+  8. train    — feature training (training/). a. tests/test_training.py's
+                tiny f32 config: one train step on the card against the CPU
+                on the same injected scene batch and draws (loss, metrics,
+                every gradient leaf), the trainer's plain attention on the
+                card against the CPU, and K1's refusal of an input that
+                requires grad. b. configs/train-head.yaml at full width
+                (ViT-B/16 with a 2-block head, B 32, canvas 288, window 224,
+                bf16 over f32 masters, every term of the objective): the
+                step's ms on the card (CUDA events, median after warm-up),
+                pairs/s, peak memory and host waits (none) in its own loop,
+                the trunk bit-equal to its start; then train_features for 30
+                steps with the probe (5 clips x 48 frames, 512 particles) at
+                steps 0 and 30: no host wait inside a step, K1 launched by
+                the probe only (by shape), the trunk bit-equal to the seeded
+                init, a head-only file; the probe after a weight change
+                against a fresh probe on the new weights; the file served
+                by the robust path on the teleport clip, its trunk
+                regenerated bit-equal. c. configs/train-features.yaml (the
+                whole backbone) for 10 steps without the probe: the step's
+                ms, the bf16 file read through config.yaml's model.checkpoint
+                and 30 frames of moving-square tracked on it with K1. The
+                outputs go to a temporary directory; nothing under
+                checkpoints/ or docs/ changes.
+  9. times    — K1, its plain version and torch's scaled_dot_product_attention
                 (a yardstick the port never calls) on fused-qkv views at the
                 dense, crop (B 1024 and B 1), re-detection, banked (B 8),
                 multi-stream (B 4) and eval5 (B 1 and B 25, 16 heads) shapes
@@ -146,7 +169,7 @@ from vitparticlefiltertracker_tpu_torch.io.synthetic import teleport_times
 from vitparticlefiltertracker_tpu_torch.io.video import open_source
 from vitparticlefiltertracker_tpu_torch.models import jax_random
 from vitparticlefiltertracker_tpu_torch.models import params as vit_params
-from vitparticlefiltertracker_tpu_torch.models.vit import VitSpec
+from vitparticlefiltertracker_tpu_torch.models.vit import VitSpec, vit_forward_tokens
 from vitparticlefiltertracker_tpu_torch.ops import _build, attention
 from vitparticlefiltertracker_tpu_torch.ops import patchify_window as pw
 from vitparticlefiltertracker_tpu_torch.ops.patchify import crop_sample_coords
@@ -155,6 +178,14 @@ from vitparticlefiltertracker_tpu_torch.runtime import banked, step_graph
 from vitparticlefiltertracker_tpu_torch.runtime.benchmark import run_benchmark
 from vitparticlefiltertracker_tpu_torch.runtime.streaming import stream_track
 from vitparticlefiltertracker_tpu_torch.runtime.tracker import Tracker, build_tracker_fns, step_branches
+from vitparticlefiltertracker_tpu_torch.training.data import make_pair_batch
+from vitparticlefiltertracker_tpu_torch.training.objective import draw_loss
+from vitparticlefiltertracker_tpu_torch.training.probe import make_probe
+from vitparticlefiltertracker_tpu_torch.training.train import (
+    _train_embed_spec,
+    build_train_step,
+    train_features,
+)
 
 ROOT = Path(__file__).resolve().parent
 
@@ -360,6 +391,50 @@ BENCH_COUNTS = dict(warmup=4, measure_frames=20, latency_frames=8, stage_frames=
 EVAL3_FRAMES = 30
 JAX_EVAL3_RMSE_PX = (12.853, 80.855, 106.645, 98.496)
 EVAL3_RMSE_BOUND_PX = max(JAX_EVAL3_RMSE_PX) + 2.0
+
+# The train phase (training/). (a) tests/test_training.py's tiny_train_cfg,
+# one step on the card against the CPU on one injected batch and its draws:
+# the loss to rtol 1e-4 (tests/test_training.py:117-119), the metrics to
+# 1e-6 plus that, every gradient leaf to 2e-5 (the CPU tests' tolerance of
+# the port against the JAX package), the plain attention's forward as the
+# trainer runs it to TOL (f32 on the tiny ViT, bf16 at the head run's
+# [32, 12, 196, 64]).
+TINY_TRAIN = {
+    "model": {"variant": "custom", "depth": 2, "dim": 64, "heads": 2, "mlp_dim": 128, "patch_size": 16,
+              "image_size": 64, "dtype": "float32", "use_flash_attention": False},
+    "train": {"steps": 8, "batch_size": 4, "canvas": 96, "window": 64, "lr": 1e-3, "warmup": 2, "log_every": 4,
+              "checkpoint_out": ""},
+}
+TRAIN_LOSS_RTOL, TRAIN_METRIC_ATOL, TRAIN_GRAD_ATOL = 1e-4, 1e-6, 2e-5
+TRAIN_ATTENTION_SHAPE = (32, 12, 196, 64)
+# (b) configs/train-head.yaml and (c) configs/train-features.yaml at full
+# width (a CPU test holds these dicts equal to load_config of those files
+# plus the overrides). Cut: the steps (6000 -> 30, with the probe at the
+# last; 8000 -> 10, no probe) and nothing else: batch 32, canvas 288,
+# window 224, bf16 over f32 masters, every term of the objective, the
+# probe's 5 clips x 48 frames at 512 particles. The outputs go to a
+# temporary directory (checkpoint_out and metrics_out, set at run time).
+TRAIN_HEAD_CONFIG = {
+    "model": {"variant": "vit-b16", "head_depth": 2, "head_blend": 0.5, "image_size": 224, "dtype": "bfloat16",
+              "use_flash_attention": False, "scan_unroll": 1},
+    "train": {"steps": 30, "batch_size": 32, "canvas": 288, "window": 0, "lookalike_frac": 0.6, "lr": 4.0e-4,
+              "warmup": 300, "tau": 0.07, "dtype": "bfloat16", "distractor_margin": 0.35,
+              "distractor_weight": 4.0, "distractor_centered_weight": 2.0, "distractor_absent_weight": 2.0,
+              "blur_prob": 0.5, "blur_sigma": 1.2, "eval_every": 30, "eval_frames": 48,
+              "eval_clips": ["moving-square", "photometric", "rotation", "lookalikes", "lookalikes+blur"],
+              "checkpoint_out": "checkpoints/vit_b16_head.npz", "checkpoint_dtype": "float32",
+              "metrics_out": "docs/train_metrics_head.jsonl", "log_every": 30},
+}
+TRAIN_FEATURES_CONFIG = {
+    "model": {"variant": "vit-b16", "image_size": 224, "dtype": "bfloat16", "use_flash_attention": False,
+              "scan_unroll": 1},
+    "train": {"steps": 10, "batch_size": 32, "canvas": 288, "window": 0, "lr": 3.0e-4, "warmup": 200,
+              "tau": 0.07, "dtype": "bfloat16", "eval_every": 0, "checkpoint_out": "checkpoints/vit_b16_tracking.npz",
+              "checkpoint_dtype": "bfloat16", "metrics_out": "docs/train_metrics_b16.jsonl", "log_every": 10},
+}
+TRAIN_WARMUP_STEPS = 3  # before the timed steps of a run's own loop
+TRAIN_TIMED_STEPS = {"head": 8, "features": 5}
+TRAIN_TRACK_FRAMES = 30  # (c)'s checkpoint through config.yaml on moving-square
 
 CHECK_SHAPES = [(1, 12, t, 64) for t in (128, 130, 196, 197, 389, 3600)] + [(49, 12, 196, 64)]
 # The banked path's forward (8 windows) and the multi-stream path's (4).
@@ -1646,6 +1721,304 @@ def run_eval3_track() -> dict:
     return {"rmse_px": rmse, "lost": lost, "k1_shapes": counts["k1_shapes"]}
 
 
+def _to(tup, dev):
+    return type(tup)(*(x.to(dev) for x in tup))
+
+
+def check_train_parity() -> dict:
+    """(a) One train step of TINY_TRAIN on the card against the CPU, the
+    same injected SceneBatch and LossDraws (drawn on the CPU): the loss,
+    every metric and every gradient leaf; the plain attention's forward as
+    the trainer runs it, on the card against the CPU; and K1's refusal of an
+    input that requires grad."""
+    cfg = Config.from_dict(copy.deepcopy(TINY_TRAIN))
+    tr = cfg.train
+    gen = pf.make_generator(tr.seed ^ 0x7A11, 0, torch.device("cpu"))
+    batch = make_pair_batch(gen, tr.batch_size, tr.canvas, tr.lookalike_frac, tr.blur_prob, tr.blur_sigma)
+    draws = draw_loss(gen, tr.batch_size, tr.num_random_negatives, tr.cloud_particles)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        init_fn, step_fn = build_train_step(cfg, dev)
+        params, _ = init_fn()
+        loss, metrics, grads = step_fn.grads(params, 0, _to(batch, dev), _to(draws, dev))
+        out[dev] = (float(loss), {k: float(v) for k, v in metrics.items()}, {k: g.cpu() for k, g in grads.items()},
+                    params)
+    (l_cpu, m_cpu, g_cpu, p_cpu), (l_gpu, m_gpu, g_gpu, p_gpu) = out["cpu"], out["cuda"]
+    loss_rel = abs(l_gpu - l_cpu) / abs(l_cpu)
+    metric_err = max(abs(m_gpu[k] - v) for k, v in m_cpu.items())
+    metric_ok = all(abs(m_gpu[k] - v) <= TRAIN_METRIC_ATOL + TRAIN_LOSS_RTOL * abs(v) for k, v in m_cpu.items())
+    grad_err = {k: float((g_gpu[k] - g).abs().max()) for k, g in g_cpu.items()}
+    worst = max(grad_err, key=grad_err.get)
+    print(f"  train step, tiny f32 config (B {tr.batch_size}, canvas {tr.canvas}, window {tr.window}), card vs CPU: "
+          f"loss {l_gpu:.6f} / {l_cpu:.6f} (relative {loss_rel:.2e}, tol {TRAIN_LOSS_RTOL}); metrics {metric_err:.2e} "
+          f"(tol {TRAIN_METRIC_ATOL} + rtol {TRAIN_LOSS_RTOL}); {len(grad_err)} gradient leaves, "
+          f"largest error {grad_err[worst]:.2e} at {worst} (tol {TRAIN_GRAD_ATOL})", flush=True)
+    check(set(m_gpu) == set(m_cpu) and set(g_gpu) == set(g_cpu), "train step: the same metrics and leaves")
+    check(loss_rel <= TRAIN_LOSS_RTOL, f"train step loss: card {l_gpu} vs CPU {l_cpu}")
+    check(metric_ok, f"train step metrics: card {m_gpu} vs CPU {m_cpu}")
+    check(grad_err[worst] <= TRAIN_GRAD_ATOL, f"train step gradient {worst}: {grad_err[worst]}")
+    # The plain attention through the trainer's ViT spec (no K1), f32.
+    es = _train_embed_spec(cfg)
+    x = torch.randn((2, tr.window, tr.window, 3), generator=torch.Generator().manual_seed(1))
+    before = attention.flash_attention.launches
+    fwd = {dev: vit_forward_tokens(p, x.to(dev), es.vit).detach().cpu() for dev, p in (("cpu", p_cpu),
+                                                                                       ("cuda", p_gpu))}
+    vit_err = float((fwd["cuda"] - fwd["cpu"]).abs().max())
+    q, k, v = qkv(TRAIN_ATTENTION_SHAPE, torch.bfloat16, seed=14, layout="fused")
+    att_err = float((attention.reference_attention(q, k, v).cpu().float()
+                     - attention.reference_attention(q.cpu(), k.cpu(), v.cpu()).float()).abs().max())
+    check(attention.flash_attention.launches == before, "the trainer's ViT launched K1")
+    print(f"  the trainer's attention (plain, differentiable): tiny ViT forward f32 card vs CPU {vit_err:.2e} "
+          f"(tol {TOL[torch.float32]}); {TRAIN_ATTENTION_SHAPE} bf16 card vs CPU {att_err:.2e} "
+          f"(tol {TOL[torch.bfloat16]}); no K1 launch", flush=True)
+    check(vit_err <= TOL[torch.float32] and att_err <= TOL[torch.bfloat16], "the trainer's attention, card vs CPU")
+    refused = []
+    for fn in (attention.flash_attention, attention.multi_head_attention):
+        try:
+            fn(q.detach().requires_grad_(), k, v)
+        except RuntimeError as e:
+            refused.append("no backward" in str(e))
+    check(refused == [True, True], f"K1's entry points refuse an input that requires grad ({refused})")
+    print("  flash_attention and multi_head_attention refuse a CUDA input that requires grad", flush=True)
+    return {"loss_rel_err": loss_rel, "grad_max_abs_err": grad_err[worst], "vit_fwd_err": vit_err,
+            "attention_bf16_err": att_err}
+
+
+def time_train_steps(cfg: Config, label: str, steps: int) -> dict:
+    """The train step at cfg's full width on the card in its own loop:
+    TRAIN_WARMUP_STEPS, then `steps` each between CUDA events (the median
+    its ms), the host's waits across them (none may land: no step logs),
+    the peak memory over all (above what the process held before the
+    run: the earlier phases' tensors stay out), and the frozen leaves
+    against their initial values, bit for bit."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    init_fn, step_fn = build_train_step(cfg, "cuda")
+    params, opt = init_fn()
+    frozen = {k: v.detach().clone() for k, v in vit_params._flatten(params).items() if not v.requires_grad}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(TRAIN_WARMUP_STEPS):
+        step_fn(params, opt, i)
+    torch.cuda.synchronize()
+    events = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)) for _ in range(steps)]
+
+    def run():
+        for j, (a, b) in enumerate(events):
+            a.record()
+            step_fn(params, opt, TRAIN_WARMUP_STEPS + j)
+            b.record()
+
+    stacks = []
+    t0 = time.perf_counter()
+    waits = count_waits(run, stacks)
+    host_ms = (time.perf_counter() - t0) * 1e3 / steps
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+    ms = [a.elapsed_time(b) for a, b in events]
+    med = statistics.median(ms)
+    peak = (torch.cuda.max_memory_allocated() - base) / 2**20
+    tr = cfg.train
+    pairs = tr.batch_size / med * 1e3
+    kept = all(torch.equal(v, vit_params._flatten(params)[k]) for k, v in frozen.items())
+    trained = sum(v.numel() for v in opt.leaves.values())
+    print(f"  {label}: {steps} steps after {TRAIN_WARMUP_STEPS} warm-up, B {tr.batch_size}, canvas {tr.canvas}, "
+          f"window {_train_embed_spec(cfg).s_img}, {tr.dtype}: {med:.2f} ms a step on the card (CUDA events, "
+          f"median; {'/'.join(f'{x:.2f}' for x in ms)}), {pairs:.1f} pairs/s; host issue {host_ms:.2f} ms a step, "
+          f"wall {wall_ms:.2f} ms; peak memory {peak:.1f} MiB; {waits} host waits; {trained / 1e6:.2f} M trained "
+          f"numbers, {len(frozen)} frozen leaves {'bit-equal to their start' if kept else 'CHANGED'}", flush=True)
+    if waits:
+        for stack in stacks:
+            print(f"  a wait, at:\n{stack}", flush=True)
+    check(waits == 0, f"{label}: {waits} host waits across steps that neither log nor probe")
+    check(kept, f"{label}: the frozen leaves are unchanged")
+    check(all(math.isfinite(x) for x in ms), f"{label}: step times")
+    return {"step_ms": med, "step_ms_runs": ms, "pairs_per_s": pairs, "host_issue_ms": host_ms, "wall_ms": wall_ms,
+            "peak_memory_mib": peak, "waits": waits}
+
+
+def _train_cfg(base: dict, tmp: str, name: str) -> Config:
+    d = copy.deepcopy(base)
+    d["train"]["checkpoint_out"] = str(Path(tmp) / f"{name}.npz")
+    d["train"]["metrics_out"] = str(Path(tmp) / f"{name}.jsonl")
+    return Config.from_dict(d)
+
+
+def _run_train_features(cfg: Config, label: str) -> tuple[dict, list, list, dict, float]:
+    """train_features on the card (the entry point of the train command),
+    the launch counts set to 0 just before and read just after, the host's
+    waits counted by stack: none inside a step (every one is the probe's,
+    the metrics' readback at the log step, set-up or the checkpoint's)."""
+    lines, stacks = [], []
+    result = {}
+    reset_counts()
+    t0 = time.perf_counter()
+    count_waits(lambda: result.update(params=train_features(cfg, log=lines.append, device="cuda")), stacks)
+    seconds = time.perf_counter() - t0
+    counts = read_counts()
+    in_step = [s for s in stacks if re.search(r'training/train\.py", line \d+, in step_fn', s)]
+    if in_step:
+        print(f"  a wait inside a train step, at:\n{in_step[0]}", flush=True)
+    check(not in_step, f"{label}: {len(in_step)} host waits inside train steps")
+    rows = [json.loads(line) for line in lines if line.startswith("{")]
+    print(f"  {label}: train_features {seconds:.2f} s, {len(stacks)} host waits (none inside a step); log: "
+          + " | ".join(lines), flush=True)
+    return result["params"], rows, lines, counts, seconds
+
+
+def _tree_stats(*dirs: str) -> dict:
+    return {str(p): (p.stat().st_size, p.stat().st_mtime_ns) for d in dirs for p in sorted((ROOT / d).rglob("*"))
+            if p.is_file()}
+
+
+def run_train_head(tmp: str) -> dict:
+    """(b) configs/train-head.yaml at full width: the step's time, pairs/s,
+    memory and waits in its own loop; then train_features with the probe
+    at step 0 and at the last step: no wait inside a step, K1 launched by
+    the probe only, the trunk bit-equal to the seeded init, a head-only
+    file; the last probe, after the weight change, against a fresh probe on
+    the trained weights (hazard 2);
+    the file served by the robust path on the teleport clip, its trunk
+    regenerated bit-equal."""
+    cfg = _train_cfg(TRAIN_HEAD_CONFIG, tmp, "head")
+    tr = cfg.train
+    timing = time_train_steps(cfg, "head training", TRAIN_TIMED_STEPS["head"])
+    params, rows, lines, counts, seconds = _run_train_features(cfg, "head training")
+    clips = [f"probe_{c}" for c in tr.eval_clips]
+    check([r["step"] for r in rows] == [0, tr.steps], f"head training: probes at steps 0 and {tr.steps}")
+    check(all(set(clips) <= set(r) and all(math.isfinite(r[c]) for c in clips) for r in rows),
+          "head training: a finite RMSE for every probe clip")
+    check(math.isfinite(rows[-1]["loss"]) and rows[-1]["grad_norm"] > 0, "head training: loss and gradient")
+    depth = cfg.model.depth + cfg.model.head_depth
+    k1 = counts["k1_shapes"]
+    check(counts["k2_launches"] == 0 and set(k1) <= {DENSE_SHAPE[:3], REDETECT_SHAPE[:3]}
+          and k1.get(DENSE_SHAPE[:3], 0) >= 2 * depth * len(clips) * tr.eval_frames
+          and all(n % depth == 0 for n in k1.values()),
+          f"head training: K1 launches by shape {k1}, the probes' ({depth} a forward), no K2")
+    print(f"  head training: K1 launches by (B, H, T) during train_features (the two probes): {k1}", flush=True)
+    # The trunk: the seeded init, bit for bit; the file: head only.
+    spec = _train_embed_spec(cfg).vit
+    seeded = vit_params.init_vit_params(vit_params.trunk_key(cfg.filter.seed), spec, "cuda")
+    flat, want = vit_params._flatten(params), vit_params._flatten(seeded)
+    trunk = [k for k in want if not k.startswith("head/")]
+    check(all(torch.equal(flat[k].cpu(), want[k].cpu()) for k in trunk),
+          f"head training: the {len(trunk)} trunk leaves bit-equal to the seeded init")
+    check(any(not torch.equal(flat[k].cpu(), want[k].cpu()) for k in want if k.startswith("head/")),
+          "head training: the head moved")
+    with np.load(tr.checkpoint_out) as z:
+        files = list(z.files)
+        seed = int(z["__vpt_trunk_seed__"]) if "__vpt_trunk_seed__" in files else None
+    check(seed == cfg.filter.seed and all(k.startswith(("head/", "__vpt")) for k in files),
+          f"head training: a head-only file with __vpt_trunk_seed__ {seed}")
+    print(f"  head training: the {len(trunk)} trunk leaves bit-equal to the seeded init; "
+          f"{Path(tr.checkpoint_out).name}: {len([k for k in files if k.startswith('head/')])} head leaves, "
+          f"__vpt_trunk_seed__ {seed}, {Path(tr.checkpoint_out).stat().st_size / 2**20:.1f} MiB", flush=True)
+    # Hazard 2: train_features' probe captured its trackers' graphs on the
+    # start weights (step 0); its last probe, after the weights changed, must
+    # score what a probe built fresh on the trained weights scores (rebinding
+    # would have replayed the step-0 weights: the step-0 numbers again).
+    fresh = make_probe(cfg, clips=tuple(tr.eval_clips), frames=tr.eval_frames, num_particles=tr.eval_particles,
+                       device="cuda")
+    first = fresh(params)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    again = fresh(params)
+    probe_s = time.perf_counter() - t0
+    print(f"  probe ({len(clips)} clips x {tr.eval_frames} frames, {tr.eval_particles} particles): {probe_s:.3f} s "
+          f"with its graphs captured; a fresh probe on the trained weights {json.dumps(first)}; train_features' "
+          f"probes (RMSE px, 2 decimals) at step 0 {json.dumps({k: rows[0][k] for k in clips})}, at step "
+          f"{tr.steps} {json.dumps({k: rows[-1][k] for k in clips})}", flush=True)
+    check(again == first, "the probe repeats itself on the same weights")
+    logged = max(abs(round(first[k], 2) - rows[-1][k]) for k in clips)
+    check(logged <= 0.01 + 1e-9, f"train_features' last probe == a fresh probe on its weights ({logged} px)")
+    check(any(rows[0][k] != rows[-1][k] for k in clips), "train_features' last probe saw the trained weights")
+    # The head file served by the robust path.
+    rcfg = copy.deepcopy(ROBUST_CONFIG)
+    rcfg["model"]["checkpoint"] = tr.checkpoint_out
+    rcfg = Config.from_dict(rcfg)
+    tracker = Tracker(rcfg, device="cuda")
+    served = vit_params._flatten(tracker.vit_params)
+    check(all(torch.equal(served[k], flat[k].to(served[k].device, served[k].dtype)) for k in flat),
+          "the robust path's weights == the trained tree (the trunk regenerated from the file's seed), cast")
+    src = open_source(rcfg.io.source, rcfg.io.num_frames, tuple(rcfg.io.frame_size), seed=rcfg.filter.seed)
+    reset_counts()
+    recs = list(tracker.run(src))
+    rc = read_counts()
+    pos = np.array([r["position"] for r in recs])
+    check(len(recs) == rcfg.io.num_frames - 1 and bool(np.all(np.isfinite(pos))), "robust path on the new head: "
+          "a finite record a step")
+    check(rc["k1_shapes"].get(DENSE_SHAPE[:3], 0) >= depth * len(recs) and rc["k2_launches"] == 0,
+          f"robust path on the new head: K1 {rc['k1_shapes']}")
+    err = np.linalg.norm(pos - src.truth[1:], axis=1)[teleport_times(rcfg.io.num_frames)[1] + 3:]
+    rmse = float(np.sqrt(np.mean(err**2)))
+    lost = sum(r["lost"] for r in recs)
+    print(f"  the new head file through the robust path (configs/robust-head.yaml, teleport, {len(recs)} steps): "
+          f"trunk regenerated bit-equal, K1 {rc['k1_shapes']}, {lost} lost, RMSE after the reappearance {rmse:.3f} px "
+          f"(the committed head: {ROBUST_RMSE_RANGE[0]}-{ROBUST_RMSE_RANGE[1]} in JAX)", flush=True)
+    return {**timing, "train_features_s": seconds, "probe_s": probe_s, "probe_rmse_px": first,
+            "probe_rmse_step0_px": {k: rows[0][k] for k in clips}, "k1_shapes": k1, "robust_k1_shapes": rc["k1_shapes"],
+            "robust_rmse_px": rmse, "robust_lost": lost, "last_log": rows[-1]}
+
+
+def run_train_features_path(tmp: str) -> dict:
+    """(c) configs/train-features.yaml at full width, no probe: the step's
+    time in its own loop, train_features for its steps, the bf16 file read
+    through config.yaml's model.checkpoint, and 30 frames of moving-square
+    tracked on it with K1."""
+    cfg = _train_cfg(TRAIN_FEATURES_CONFIG, tmp, "features")
+    tr = cfg.train
+    timing = time_train_steps(cfg, "full-backbone training", TRAIN_TIMED_STEPS["features"])
+    params, rows, lines, counts, seconds = _run_train_features(cfg, "full-backbone training")
+    check([r["step"] for r in rows] == [tr.steps] and math.isfinite(rows[-1]["loss"]),
+          "full-backbone training: one finite log line at the last step")
+    check(counts["launches"] == 0 and counts["k2_launches"] == 0, "full-backbone training: no kernel launch (no probe)")
+    loaded = vit_params.load_params(tr.checkpoint_out)
+    leaves = vit_params._flatten(loaded)
+    check(all(v.dtype == torch.bfloat16 for v in leaves.values()) and "__trunk_seed__" not in loaded,
+          "full-backbone training: a full bf16 file")
+    flat = vit_params._flatten(params)
+    check(all(torch.equal(leaves[k], flat[k].to(torch.bfloat16).cpu()) for k in flat),
+          "full-backbone training: the file holds the trained tree, cast")
+    d = copy.deepcopy(SMOKE_CONFIG)
+    d["model"]["checkpoint"] = tr.checkpoint_out
+    d["io"]["num_frames"] = TRAIN_TRACK_FRAMES
+    tcfg = Config.from_dict(d)
+    src = open_source(tcfg.io.source, TRAIN_TRACK_FRAMES, tuple(tcfg.io.frame_size), seed=tcfg.filter.seed)
+    tracker = Tracker(tcfg, device="cuda")
+    reset_counts()
+    recs = list(tracker.run(src))
+    rc = read_counts()
+    pos = np.array([r["position"] for r in recs])
+    probes = sum(r["lost"] for r in recs[:-1]) if step_branches(tcfg)[0] else 0
+    want = {DENSE_SHAPE[:3]: tcfg.model.depth * (1 + len(recs) + probes)}
+    check(len(recs) == TRAIN_TRACK_FRAMES - 1 and bool(np.all(np.isfinite(pos))), "the trained backbone tracks: "
+          "a finite record a step")
+    check(rc["k1_shapes"] == want, f"the trained backbone tracks: K1 {rc['k1_shapes']} == {want}")
+    rmse = float(np.sqrt(np.mean(np.linalg.norm(pos - src.truth[1:], axis=1) ** 2)))
+    print(f"  the bf16 full-backbone file through config.yaml: {len(recs)} steps of moving-square, K1 "
+          f"{rc['k1_shapes']}, RMSE {rmse:.3f} px, {sum(r['lost'] for r in recs)} lost", flush=True)
+    return {**timing, "train_features_s": seconds, "k1_shapes": rc["k1_shapes"], "track_rmse_px": rmse,
+            "last_log": rows[-1]}
+
+
+def run_train_phase() -> dict:
+    """(a), (b) and (c), the outputs under a temporary directory; nothing
+    under checkpoints/ or docs/ changes."""
+    before = _tree_stats("checkpoints", "docs")
+    with tempfile.TemporaryDirectory(prefix="vpt-train-") as tmp:
+        t0 = time.perf_counter()
+        parity = check_train_parity()
+        t1 = time.perf_counter()
+        head = run_train_head(tmp)
+        t2 = time.perf_counter()
+        features = run_train_features_path(tmp)
+        print(f"  train phase: (a) {t1 - t0:.2f} s, (b) {t2 - t1:.2f} s, (c) {time.perf_counter() - t2:.2f} s",
+              flush=True)
+    check(_tree_stats("checkpoints", "docs") == before, "nothing under checkpoints/ or docs/ changed")
+    print("  nothing under checkpoints/ or docs/ changed", flush=True)
+    return {"parity": parity, "head": head, "features": features}
+
+
 def check_if_node() -> dict:
     """The IF-node helper (csrc/graph_if.cu, step_graph.capture_if) against
     its plain version, the host's branch (step_graph.run_if_host): a
@@ -1879,6 +2252,10 @@ def main() -> int:
     phase("bench", t0)
 
     t0 = time.perf_counter()
+    train = run_train_phase()
+    phase("train", t0)
+
+    t0 = time.perf_counter()
     times = time_kernels()
     times_f32 = time_kernels([DENSE_SHAPE], torch.float32)
     k2_times = time_window_patchify(K2_MAIN)
@@ -1907,6 +2284,18 @@ def main() -> int:
                                         ("bench eval3", EVAL5_DENSE_SHAPE, bench["eval3-tpu-needle-1080p"]),
                                         ("bench eval4", BANKED_SHAPE, bench["eval4-tpu-multiobject-720p"]),
                                         ("bench eval5", EVAL5_DENSE_SHAPE, bench["eval5-tpu-streaming-4k"]))]
+    # The train phase: K1 in the head run's probes (the trainer's own step
+    # runs the plain attention), and the trained files served by the robust
+    # path and by config.yaml's dense tracker.
+    head, features = train["head"], train["features"]
+    for path, shape, shapes in (("train probe (head)", DENSE_SHAPE, head["k1_shapes"]),
+                                ("train probe (head), lookalikes scan", REDETECT_SHAPE, head["k1_shapes"]),
+                                ("robust, trained head file", DENSE_SHAPE, head["robust_k1_shapes"]),
+                                ("robust, trained head file, scan", REDETECT_SHAPE, head["robust_k1_shapes"]),
+                                ("dense, trained backbone file", DENSE_SHAPE, features["k1_shapes"])):
+        if shape is DENSE_SHAPE or shapes.get(shape[:3], 0):
+            k1_rows.append(dict(**k1_common, path=path, shape=list(shape), launches=shapes.get(shape[:3], 0),
+                                max_abs_err=errs[(shape, torch.bfloat16, "fused")], **times[shape]))
     # eval1 runs f32: K1 at the dense shape in f32, timed in f32.
     k1_rows.append(dict(**k1_common, path="bench eval1", shape=list(DENSE_SHAPE), dtype="float32",
                         launches=bench["eval1-cpu-synthetic"]["k1_shapes"].get(DENSE_SHAPE[:3], 0),
@@ -1943,6 +2332,9 @@ def main() -> int:
                       "chunk_equals_steps": chunk_eq,
                       "bench": {name: {k: v for k, v in b.items() if k != "k1_shapes"} for name, b in bench.items()},
                       "eval3_track": {k: v for k, v in eval3.items() if k != "k1_shapes"},
+                      "train": {"parity": train["parity"],
+                                **{name: {k: v for k, v in run.items() if "k1_shapes" not in k}
+                                   for name, run in (("head", head), ("features", features))}},
                       "k2_8_windows_x_1024": {**k2_window_times,
                                               "max_abs_err": k2_window_errs[(8, 1024, torch.bfloat16)]}}))
     print(f"[phase] total: {time.perf_counter() - t_start:.2f} s", flush=True)

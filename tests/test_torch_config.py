@@ -95,6 +95,23 @@ def test_chip_smoke_eval5_config_is_eval5_plus_overrides():
         1600, 288, 4)
 
 
+@pytest.mark.parametrize("name,overrides", [
+    ("TRAIN_HEAD_CONFIG", ["train.steps=30", "train.eval_every=30", "train.log_every=30"]),
+    ("TRAIN_FEATURES_CONFIG", ["train.steps=10", "train.eval_every=0", "train.log_every=10"]),
+])
+def test_chip_smoke_train_configs_are_the_train_yamls_plus_overrides(name, overrides):
+    """chip_smoke.py's train phase: configs/train-head.yaml and
+    configs/train-features.yaml with the steps cut (and the probe at the last
+    step, or none), in both packages' loaders."""
+    import chip_smoke
+
+    path = os.path.join(ROOT, "configs", "train-head.yaml" if name == "TRAIN_HEAD_CONFIG" else "train-features.yaml")
+    want = jconfig.load_config(path, overrides).to_dict()
+    assert tconfig.load_config(path, overrides).to_dict() == want
+    assert tconfig.Config.from_dict(getattr(chip_smoke, name)).to_dict() == want
+    assert want["train"]["batch_size"] == 32 and want["model"]["variant"] == "vit-b16"
+
+
 @pytest.mark.parametrize("name", ["config.yaml", "configs/robust-head.yaml"])
 def test_json_config_reads_as_its_yaml(name, tmp_path):
     """The same sections as a .json file load without a YAML parser (as

@@ -573,3 +573,69 @@ def test_trace_reads_device_time_by_kernel(cuda_device, tmp_path):
     assert len(list(tmp_path.glob("*.json"))) == 1
     times = device_time_by_kernel(prof)
     assert any("attn_" in name and ms > 0 for name, ms in times.items()), sorted(times)
+
+
+def test_flash_attention_refuses_inputs_that_require_grad(cuda_device):
+    """K1 writes through ctypes into a tensor with no grad_fn: both entry
+    points raise on an input that requires grad (a gradient would be cut
+    silently), and launch nothing."""
+    q, k, v = _qkv_views((1, 12, 196, 64), torch.bfloat16, "fused", seed=3, device=cuda_device)
+    before = attention.flash_attention.launches
+    for fn in (attention.flash_attention, attention.multi_head_attention):
+        with pytest.raises(RuntimeError, match="no backward"):
+            fn(q.detach().requires_grad_(), k, v)
+    assert attention.flash_attention.launches == before
+    with torch.no_grad():
+        attention.flash_attention(q.detach().requires_grad_(), k, v)  # no gradient asked for
+    assert attention.flash_attention.launches == before + 1
+
+
+def test_load_weights_reaches_the_captured_step_graphs(cuda_device):
+    """Tracker.load_weights after the step graph was captured on other
+    weights: track_clip_device equals a fresh tracker built on the new ones.
+    Binding a new tree to vit_params instead leaves the graph reading the
+    old tensors."""
+    import chip_smoke
+    from vitparticlefiltertracker_tpu_torch.io.video import open_source
+    from vitparticlefiltertracker_tpu_torch.models import params as tparams
+    from vitparticlefiltertracker_tpu_torch.models.vit import VitSpec
+    from vitparticlefiltertracker_tpu_torch.runtime.tracker import Tracker
+
+    cfg = Config.from_dict(copy.deepcopy(chip_smoke.TINY_NO_RESAMPLE))
+    spec = VitSpec.from_config(cfg.model)
+    w1, w2 = (tparams.init_vit_params(tparams.jax_random.key(s), spec, "cuda") for s in (1, 2))
+    src = open_source(cfg.io.source, cfg.io.num_frames, tuple(cfg.io.frame_size))
+    clip = torch.from_numpy(np.stack(src.frames[1:])).cuda()
+
+    def run(tracker):
+        tracker.init(src.frames[0], src.init_bbox)
+        return chip_smoke.pack_rows(tracker.track_clip_device(clip))
+
+    own = lambda w: {g: (own(x) if isinstance(x, dict) else x.clone()) for g, x in w.items()}  # noqa: E731
+    want = run(Tracker(cfg, vit_params=w2, device="cuda"))
+    loaded = Tracker(cfg, vit_params=own(w1), device="cuda")
+    first = run(loaded)
+    loaded.load_weights(w2)
+    got = run(loaded)
+    np.testing.assert_allclose(got[:, :2], want[:, :2], rtol=0, atol=chip_smoke.GRAPH_POS_TOL_PX)
+    assert np.array_equal(got[:, 8:], want[:, 8:])
+    rebound = Tracker(cfg, vit_params=own(w1), device="cuda")
+    run(rebound)
+    rebound.vit_params = tparams.resolve_vit_params(cfg, w2, "cuda")
+    stale = run(rebound)
+    # The rebound tracker's graph still reads the tensors it was captured on,
+    # which nothing holds any more: the old weights, or whatever their freed
+    # memory holds by then (NaN in one run on the card).
+    assert not np.allclose(stale[:, :2], want[:, :2], rtol=0, atol=chip_smoke.GRAPH_POS_TOL_PX)
+    assert np.abs(first[:, :2] - want[:, :2]).max() > 1.0  # the two weights track apart
+
+
+def test_train_step_on_the_card_matches_the_cpu(cuda_device):
+    """One f32 train step of the tiny config on the card against the CPU on
+    the same injected batch and draws: loss, metrics, every gradient leaf;
+    the trainer's attention forward; K1's refusal (chip_smoke's train
+    phase (a))."""
+    import chip_smoke
+
+    out = chip_smoke.check_train_parity()
+    assert out["grad_max_abs_err"] <= chip_smoke.TRAIN_GRAD_ATOL

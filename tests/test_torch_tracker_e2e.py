@@ -246,14 +246,18 @@ def test_norm_folded_embed_weights_fold_pixel_normalization():
 def test_tracker_spec_in_crop_mode_matches_jax():
     """Crop mode embeds crop_size crops, so Tracker.spec.image_size is the
     crop size (vit-t16 at image_size 128 in crop mode: 32), as in the JAX
-    package's Tracker. Every field the two specs share is equal."""
+    package's Tracker. Every field the two specs share is equal, but
+    use_flash_attention: the port's tracker spec keeps it True whatever the
+    config says (every tracker attention on the card runs K1); only its
+    trainer's spec sets it False."""
     d = {"model": {"variant": "vit-t16", "image_size": 128, "dtype": "float32",
                    "use_flash_attention": False, "checkpoint": ""},
          "filter": {"num_particles": 64}, "tracker": {"mode": "crop"}}
     want = jtr.Tracker(JConfig.from_dict(copy.deepcopy(d))).spec
     got = ttr.Tracker(TConfig.from_dict(copy.deepcopy(d)), device="cpu").spec
     assert got.image_size == want.image_size == 32
-    shared = set(got._fields) & set(want._fields) - {"dtype"}
+    assert got.use_flash_attention is True
+    shared = set(got._fields) & set(want._fields) - {"dtype", "use_flash_attention"}
     assert {f: getattr(got, f) for f in shared} == {f: getattr(want, f) for f in shared}
 
 

@@ -1,8 +1,9 @@
 """Command line: ``python -m vitparticlefiltertracker_tpu_torch track --config config.yaml``.
 
 Subcommands: track (default), bench (the benchmark harness: one JSON line),
-stream (the decode -> track pipeline with trailing readback) and serve (K
-videos batched in one step). Each prints or writes what the JAX package's
+stream (the decode -> track pipeline with trailing readback), train
+(feature training, config section ``train:``) and serve (K videos batched in
+one step). Each prints or writes what the JAX package's
 command of that name does. Runs on the card unless ``--device cpu`` is
 given.
 """
@@ -24,7 +25,7 @@ def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="vpt-torch", description="ViT + particle-filter tracker (PyTorch / CUDA port)"
     )
-    p.add_argument("command", nargs="?", default="track", choices=["track", "bench", "stream", "serve"])
+    p.add_argument("command", nargs="?", default="track", choices=["track", "bench", "stream", "train", "serve"])
     p.add_argument("--config", "-c", default="", help="path to config.yaml")
     p.add_argument(
         "--set",
@@ -229,7 +230,17 @@ def cmd_serve(cfg: Config, device: str = "cuda", quiet: bool = False) -> int:
     return 0
 
 
-COMMANDS = {"track": cmd_track, "bench": cmd_bench, "stream": cmd_stream, "serve": cmd_serve}
+def cmd_train(cfg: Config, device: str = "cuda", quiet: bool = False) -> int:
+    """Train the ViT's appearance features (training/, config section
+    ``train:``): metrics lines on stderr unless quiet, the checkpoint to
+    train.checkpoint_out."""
+    from vitparticlefiltertracker_tpu_torch.training.train import train_features
+
+    train_features(cfg, log=(lambda s: None) if quiet else None, device=device)
+    return 0
+
+
+COMMANDS = {"track": cmd_track, "bench": cmd_bench, "stream": cmd_stream, "train": cmd_train, "serve": cmd_serve}
 
 
 def main(argv=None) -> int:

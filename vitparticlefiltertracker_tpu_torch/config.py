@@ -233,7 +233,9 @@ class RuntimeConfig:
 
 @dataclass
 class TrainConfig:
-    """Feature training settings (training is not ported yet)."""
+    """Feature training settings (training/train.py's train_features, the
+    train command): steps, the scene batch, AdamW, the objective's terms,
+    freezing, the tracking probe and the checkpoint written."""
 
     steps: int = 2000
     batch_size: int = 32

@@ -16,6 +16,7 @@ from __future__ import annotations
 from typing import Callable, NamedTuple
 
 import torch
+import torch.utils.checkpoint
 
 from vitparticlefiltertracker_tpu_torch.models.vit import VitSpec, vit_forward_tokens
 from vitparticlefiltertracker_tpu_torch.ops.image import (
@@ -81,6 +82,8 @@ def make_dense_embedder(
     center: torch.Tensor,  # [..., 2] (x, y) search-window center, frame px
     side: torch.Tensor,  # [...] window side, frame px
     es: DenseEmbedSpec,
+    *,
+    remat: bool = False,
 ) -> Callable:
     """One ViT forward on the search window (on the K windows of centers
     [K, 2], at B = K); the returned pool() ROI-pools any number of box sets
@@ -89,12 +92,23 @@ def make_dense_embedder(
 
     pool(boxes_xy [..., M, 2], boxes_wh [..., M, 2])
         -> (emb [..., M, D] or [..., M, R*R, D], in_window [..., M])
+
+    remat (training only): the window forward keeps no activation for the
+    backward pass and is computed again there (torch.utils.checkpoint), as
+    the JAX package's ``jax.checkpoint``: the trainer embeds four windows a
+    scene pair, and their saved activations would dominate its memory.
     """
     spec = es.vit
     grid = es.s_img // es.patch
     lead = center.shape[:-1]
     window = normalize_window(view_extract_window_mxu(_as_view(frame_f32), center, side, es.s_img))
-    feat = vit_forward_tokens(prm, window.reshape(-1, *window.shape[-3:]), spec)
+    window = window.reshape(-1, *window.shape[-3:])
+    if remat:
+        # The forward draws nothing random, so no RNG state is kept for the rerun.
+        feat = torch.utils.checkpoint.checkpoint(vit_forward_tokens, prm, window, spec, use_reentrant=False,
+                                                 preserve_rng_state=False)
+    else:
+        feat = vit_forward_tokens(prm, window, spec)
     feat = feat.reshape(*lead, grid, grid, spec.out_dim)
     mean_emb = feat.reshape(*lead, -1, spec.out_dim).mean(dim=-2)
     # Each window's center and side against its own boxes [..., M, 2].

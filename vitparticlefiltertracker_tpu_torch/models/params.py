@@ -1,11 +1,11 @@
-"""ViT weights: the repo's npz checkpoint reader, random init, and the
-inference cast — the port of the JAX package's ``models/params.py``.
+"""ViT weights: the repo's npz checkpoint reader and writer, random init, and
+the inference cast — the port of the JAX package's ``models/params.py``.
 
 The npz format is the JAX package's ``__vpt_format__`` v2: leaves keyed by
 "/"-joined paths, fused ``wqkv`` columns head-major, and bfloat16 leaves
-stored as uint16 with a ``__vpt_dtypes__`` JSON sidecar. The reader uses
-numpy only and turns bfloat16-as-uint16 into ``torch.bfloat16`` by a bit
-view, so every leaf is bit-identical to what the JAX reader gives.
+stored as uint16 with a ``__vpt_dtypes__`` JSON sidecar. The reader and
+the writer use numpy only and move bfloat16 through uint16 by a bit view,
+so a file round-trips bit for bit with the JAX package's reader and writer.
 
 Random init draws JAX's threefry numbers (``models/jax_random.py``), so one
 seed gives the JAX package's weights. A head-only file (``__vpt_trunk_seed__``)
@@ -47,6 +47,56 @@ def leaf_to_torch(arr: np.ndarray, dtype_name: str | None = None) -> torch.Tenso
         raise ValueError(f"unsupported stored dtype {dtype_name!r} ({arr.dtype})")
     bits = np.ascontiguousarray(arr).view(np.int16)
     return torch.from_numpy(bits).view(_TORCH_DTYPES[dtype_name])
+
+
+def _flatten(tree: dict, prefix: str = "") -> dict:
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_flatten(v, f"{prefix}{k}/"))
+        else:
+            out[f"{prefix}{k}"] = v
+    return out
+
+
+def leaf_to_numpy(x: torch.Tensor) -> tuple[np.ndarray, str | None]:
+    """One leaf -> (stored array, sidecar dtype name or None): a bfloat16 or
+    float16 leaf as its 16 bits in a uint16 array (never converted through
+    floats), as the JAX package stores an ml_dtypes leaf."""
+    x = x.detach().to("cpu").contiguous()
+    for name, dt in _TORCH_DTYPES.items():
+        if x.dtype == dt:
+            return x.view(torch.int16).numpy().view(np.uint16), name
+    return x.numpy(), None
+
+
+def save_params(path: str, params: dict, trunk_seed: int | None = None) -> None:
+    """Write a parameter tree as the repo's npz checkpoint (format v2), the
+    file the JAX package's ``save_params`` writes: leaves keyed by
+    "/"-joined paths, bfloat16 leaves as uint16 named in the
+    ``__vpt_dtypes__`` sidecar, and ``__vpt_format__``.
+
+    trunk_seed: a head-only file. Only the ``head`` subtree is written, with
+    ``__vpt_trunk_seed__``; a reader regenerates the trunk as the seeded
+    random init (load_or_init). The caller vouches that the trunk is that
+    init (true for head training, whose trunk is frozen).
+    """
+    if not path.endswith(".npz"):
+        raise ValueError(f"{path}: the port writes .npz checkpoints only")
+    if trunk_seed is not None:
+        if "head" not in params:
+            raise ValueError("a trunk_seed save needs a 'head' subtree")
+        params = {"head": params["head"]}
+    flat, dtypes = {}, {}
+    for k, v in _flatten(params).items():
+        flat[k], name = leaf_to_numpy(v)
+        if name is not None:
+            dtypes[k] = name
+    if trunk_seed is not None:
+        flat["__vpt_trunk_seed__"] = np.asarray(int(trunk_seed))
+    flat["__vpt_format__"] = np.asarray(FORMAT_VERSION)
+    flat["__vpt_dtypes__"] = np.frombuffer(json.dumps(dtypes).encode(), dtype=np.uint8)
+    np.savez(path, **flat)
 
 
 def load_params(path: str, device: torch.device | str = "cpu") -> dict:

@@ -5,8 +5,10 @@ Parameters are the same nested dict as in the JAX package (blocks stacked on
 a leading depth axis), holding torch tensors. Layer norm takes its statistics
 in f32 whatever the compute dtype; the fused ``wqkv`` columns are laid out
 head-major (h, 3, hd); GELU is the exact (erf) form. Attention goes through
-``ops.attention.multi_head_attention``: kernel K1 on CUDA tensors, the plain
-version on CPU tensors.
+``ops.attention.multi_head_attention`` (kernel K1 on CUDA tensors, the plain
+version on CPU tensors; forward only), or, in a spec with
+``use_flash_attention`` False (the trainer's), through the plain version on
+any device, which autograd differentiates.
 """
 
 from __future__ import annotations
@@ -15,7 +17,11 @@ from typing import NamedTuple
 
 import torch
 
-from vitparticlefiltertracker_tpu_torch.ops.attention import multi_head_attention, split_fused_qkv
+from vitparticlefiltertracker_tpu_torch.ops.attention import (
+    multi_head_attention,
+    reference_attention,
+    split_fused_qkv,
+)
 
 
 class VitSpec(NamedTuple):
@@ -32,6 +38,11 @@ class VitSpec(NamedTuple):
     # Dense tracking needs translation-equivariant token features, so the
     # tracker turns position embeddings off (see the JAX VitSpec).
     use_pos_embed: bool = True
+    # False: attention as the plain, differentiable torch composition
+    # (reference_attention), as the JAX package's trainer sets it; True:
+    # ops.attention.multi_head_attention (K1 on the card, forward only).
+    # from_config leaves it True: every tracker attention on the card is K1.
+    use_flash_attention: bool = True
     # Residual head: head_depth extra blocks continue the trunk's stream
     # before its final LN, with their own LN; encode_tokens then returns
     # concat(trunk, head) [B, T, 2 * dim]. 0 = no head.
@@ -99,7 +110,8 @@ def _block(x: torch.Tensor, p: dict, spec: VitSpec) -> torch.Tensor:
     # Fused qkv columns are head-major (h, 3, hd), as in the JAX package; q,
     # k and v are [B, H, T, hd] views of it. On the card K1 reads them in
     # place and writes [B, T, H, hd] memory, so the reshape below is a view.
-    o = multi_head_attention(*split_fused_qkv(qkv, h))  # [B, H, T, hd]
+    attend = multi_head_attention if spec.use_flash_attention else reference_attention
+    o = attend(*split_fused_qkv(qkv, h))  # [B, H, T, hd]
     o = o.transpose(1, 2).reshape(b, t, d)
     x = x + (o @ p["attn"]["wo"].to(dtype) + p["attn"]["bo"].to(dtype))
 

@@ -5,7 +5,9 @@ the JAX package's Pallas ``_flash_kernel``. ``reference_attention`` is the
 plain PyTorch version of the same function. ``multi_head_attention`` sends a
 CUDA tensor to the kernel and a CPU tensor to the plain version; there is no
 size gate and no fallback: on a CUDA tensor the kernel launches or the call
-raises.
+raises. The kernel has no backward (neither has the JAX package's): both
+entry points raise on inputs that require grad, and training computes its
+attention with ``reference_attention``, chosen by its ViT spec.
 
 The kernel takes strided views, so the ViT hands it q, k and v as views of
 its fused qkv activation [B, T, H, 3, 64] (``split_fused_qkv``) and gets the
@@ -146,6 +148,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.
     """
     if not (q.is_cuda and k.is_cuda and v.is_cuda):
         raise ValueError("flash_attention takes CUDA tensors; use reference_attention on the CPU")
+    _refuse_grad(q, k, v)
     out = empty_attention_output(q)
     dev = q.device
     plan = launch_plan(q, k, v, out, sm_count(dev))
@@ -170,9 +173,23 @@ flash_attention.launches = 0
 flash_attention.shapes = Counter()
 
 
+def _refuse_grad(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+    """K1 is forward only (as the JAX package's Pallas kernel): its output
+    has no grad_fn, so a gradient through it would silently be cut. Raise
+    instead; training takes the plain version through its spec
+    (VitSpec.use_flash_attention False)."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        raise RuntimeError(
+            "flash_attention has no backward: inputs that require grad must go through "
+            "reference_attention (VitSpec.use_flash_attention=False, as the trainer's spec sets it)"
+        )
+
+
 def multi_head_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """Dispatch on where the tensors lie: CUDA -> kernel K1 (output in
-    [B, T, H, d] memory), CPU -> plain."""
+    [B, T, H, d] memory), CPU -> plain. Forward only on both: inputs that
+    require grad (with grad mode on) raise, whatever their device."""
+    _refuse_grad(q, k, v)
     if q.is_cuda:
         return flash_attention(q, k, v)
     return reference_attention(q, k, v)

@@ -926,6 +926,34 @@ class _GraphStepper:
         self._seed = np.zeros(lead, np.int64)
         self._frame_idx = np.zeros(lead, np.int64)
 
+    def load_weights(self, vit_params: dict) -> None:
+        """Replace the weights by copying ``resolve_vit_params(cfg,
+        vit_params)`` into the tensors the tracker holds, leaf by leaf (same
+        names, shapes and dtypes, or ValueError). The step graphs captured so
+        far read those tensors, so their next replays use the new weights;
+        binding a new tree to ``vit_params`` would leave them reading the old
+        ones. A tracker built on a caller's tensors (a float32 tree on its
+        device is used as given) writes into them."""
+        from vitparticlefiltertracker_tpu_torch.models.params import resolve_vit_params
+
+        def copy_into(dst: dict, src: dict, path: str) -> None:
+            if set(dst) != set(src):
+                raise ValueError(f"load_weights: leaves under {path or '/'} differ: {sorted(dst)} != {sorted(src)}")
+            for k, d in dst.items():
+                s = src[k]
+                if isinstance(d, dict):
+                    copy_into(d, s, f"{path}/{k}")
+                elif k == "pos_embed" and not path and d.shape != s.shape and self.cfg.tracker.mode == "dense":
+                    continue  # dense mode never reads it: a tree trained at another window size loads
+                elif d.shape != s.shape or d.dtype != s.dtype:
+                    raise ValueError(f"load_weights: {path}/{k} is {tuple(s.shape)} {s.dtype}, the tracker holds "
+                                     f"{tuple(d.shape)} {d.dtype}")
+                elif d.data_ptr() != s.data_ptr():
+                    d.copy_(s)
+
+        with torch.no_grad():
+            copy_into(self.vit_params, resolve_vit_params(self.cfg, vit_params, self.device), "")
+
     # -- state ---------------------------------------------------------------
     @property
     def state(self) -> TrackerState | None:
