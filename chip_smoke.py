@@ -124,15 +124,35 @@ Phases, each timed and printed:
                 and 30 frames of moving-square tracked on it with K1. The
                 outputs go to a temporary directory; nothing under
                 checkpoints/ or docs/ changes.
-  9. times    — K1, its plain version and torch's scaled_dot_product_attention
+  9. mesh     — the multi-GPU path (parallel/mesh.py) at world size 1: a
+                one-rank NCCL group over a file store in a temporary
+                directory and make_mesh(1, 1, 1), each path against its
+                mesh=None twin: (a) config.yaml's dense path on 60 frames
+                (records bitwise or within GRAPH_POS_TOL_PX, the host's
+                waits, a replay profiled), (b) eval3 at full width
+                (ViT-L/16, 4096 particles, 1080p; its RMSE bound), (c) the
+                robust path, whose IF-node bodies (probe, scan) hold the
+                forward's all-reduces, (d) eval4 banked through
+                MultiTracker, (e) configs/train-head.yaml through
+                build_train_step(mesh=make_data_mesh(1)) for 3 steps (loss
+                and weights bitwise). The collectives are counted as the
+                kernels are (a gather a scoring pass, 2 all-reduces a block
+                of every forward; one replay's tally of (a) and (b)) and the
+                step medians of both twins printed in turns.
+ 10. times    — K1, its plain version and torch's scaled_dot_product_attention
                 (a yardstick the port never calls) on fused-qkv views at the
                 dense, crop (B 1024 and B 1), re-detection, banked (B 8),
                 multi-stream (B 4) and eval5 (B 1 and B 25, 16 heads) shapes
+                and at a rank's heads under "model" 2 ([1, 6 | 8, 196, 64])
                 in bf16, and the dense shape in f32 (eval1's); K2, its
                 plain version and cuBLAS's product alone on sampled tokens
                 (a yardstick the port never calls) at the crop path's N 1024
-                and N 1 (tools/port_k2_times.py), and over 8 windows of 1024
-                boxes. Device times are of one call inside a CUDA graph.
+                and N 1 (tools/port_k2_times.py), at a rank's N 512 and 256
+                on a particle mesh of 2 and 4 cards, and over 8 windows of
+                1024 boxes. Device times are of one call inside a CUDA
+                graph. The kernels line lists the shapes only a mesh of
+                several cards gives with 0 launches and the path they
+                belong to.
 
 Prints a JSON line of kernel numbers, then as its last line
 {"ok": true, "device": {...}}. Any failed check raises and exits non-zero.
@@ -174,6 +194,7 @@ from vitparticlefiltertracker_tpu_torch.ops import _build, attention
 from vitparticlefiltertracker_tpu_torch.ops import patchify_window as pw
 from vitparticlefiltertracker_tpu_torch.ops.patchify import crop_sample_coords
 from vitparticlefiltertracker_tpu_torch import cli
+from vitparticlefiltertracker_tpu_torch.parallel import mesh as pmesh
 from vitparticlefiltertracker_tpu_torch.runtime import banked, step_graph
 from vitparticlefiltertracker_tpu_torch.runtime.benchmark import run_benchmark
 from vitparticlefiltertracker_tpu_torch.runtime.streaming import stream_track
@@ -184,6 +205,7 @@ from vitparticlefiltertracker_tpu_torch.training.probe import make_probe
 from vitparticlefiltertracker_tpu_torch.training.train import (
     _train_embed_spec,
     build_train_step,
+    make_data_mesh,
     train_features,
 )
 
@@ -450,18 +472,22 @@ WIDE_CHECK_SHAPES = [(6000, 12, 4, 64)]
 LAYOUTS = ("fused", "contiguous")
 TOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}  # as tests/test_attention.py
 DENSE_SHAPE, CROP_SHAPE, CROP_ONE_SHAPE, REDETECT_SHAPE = (1, 12, 196, 64), (1024, 12, 4, 64), (1, 12, 4, 64), (49, 12, 196, 64)
+# K1 under "model" tensor parallelism over 2 cards: H / 2 heads a rank (ViT-B/16, ViT-L/16).
+TP_SHAPES = [(1, 6, 196, 64), (1, 8, 196, 64)]
+CHECK_SHAPES += TP_SHAPES
 TIME_SHAPES = [DENSE_SHAPE, CROP_SHAPE, CROP_ONE_SHAPE, REDETECT_SHAPE, BANKED_SHAPE, STREAMS_SHAPE, EVAL5_DENSE_SHAPE,
-               EVAL5_REDETECT_SHAPE]
+               EVAL5_REDETECT_SHAPE, *TP_SHAPES]
 
 # K2 checks: every combination, each once with a randn window and raw
 # weights and once with a 0..255 window and normalization-folded weights.
 # N reaches every edge of the launch plan's tiles: one box (4 or 9 rows in
 # one 16-row tile), 3, a 64-row tile exactly (16 at crop 32), one row past
 # it, 33, crop-mode re-detection's 49 tile centres, the crop path's 1024
-# and eval5's 16384 particles (both on the wide tile); D 100 goes to the
+# and eval5's 16384 particles (both on the wide tile), and a rank's share
+# of 1024 on a particle mesh of 2 and 4 cards (512, 256); D 100 goes to the
 # scalar kernel (D % 8 != 0); 768 fills two of the
 # wide tile's 384 columns, 192 and 1024 leave the last one ragged.
-K2_NS = (1, 3, 16, 17, 33, 49, 1024, 16384)
+K2_NS = (1, 3, 16, 17, 33, 49, 256, 512, 1024, 16384)
 K2_CROPS = ((32, 16), (48, 16))  # (crop, patch)
 K2_SWINS = (64, 256)
 K2_DIMS = (100, 192, 768, 1024)
@@ -799,21 +825,26 @@ def check_banked_small(cfg_dict: dict, kind: str, k: int, label: str) -> None:
 
 
 def reset_counts() -> None:
-    """Every kernel wrapper's launch counts to 0 (after the launches of the
-    graphs' branch bodies so far are added, so that none lands later)."""
+    """Every kernel wrapper's launch counts, and the mesh's collective
+    counts, to 0 (after the launches of the graphs' branch bodies so far are
+    added, so that none lands later)."""
     step_graph.settle_counts()
     attention.flash_attention.launches = 0
     attention.flash_attention.shapes = Counter()
     pw.gather_patchify_window.launches = 0
     pw.gather_patchify_window.sizes = Counter()
+    for fn in (pmesh.all_gather, pmesh.all_reduce):
+        fn.launches = 0
+        fn.shapes = Counter()
 
 
 def read_counts() -> dict:
     """The launch counts, with those of the graphs' branch bodies that ran
-    (one wait, to read the graphs' counters)."""
+    (one wait, to read the graphs' counters); the collectives issued."""
     step_graph.settle_counts()
     return {"launches": attention.flash_attention.launches, "k1_shapes": dict(attention.flash_attention.shapes),
-            "k2_launches": pw.gather_patchify_window.launches, "k2_sizes": dict(pw.gather_patchify_window.sizes)}
+            "k2_launches": pw.gather_patchify_window.launches, "k2_sizes": dict(pw.gather_patchify_window.sizes),
+            "all_gathers": pmesh.all_gather.launches, "all_reduces": pmesh.all_reduce.launches}
 
 
 # Graph against eager, same weights, same draws: the same kernels on the same
@@ -2171,6 +2202,229 @@ def time_window_patchify_windows(windows: int = 8, n: int = 1024) -> dict:
             "bound_by": by}
 
 
+# -- the mesh phase: the port's multi-GPU path at world size 1 ------------------------
+
+MESH_TRAIN_STEPS = 3  # (e)'s steps, at step indices 0..2 (the rate ramps from 0 at index 0)
+
+
+def replay_tally(tracker) -> dict:
+    """What one replay of the tracker's (first) step graph adds to the
+    counts outside its branches, as StepGraphs.counts holds them: K1
+    launches and the collectives the capture recorded."""
+    sg = next(iter(tracker._step_graphs.values()))
+    at = {f: i for i, (f, _) in enumerate(step_graph._COUNTED)}
+    return {"k1": sg.counts[at[attention.flash_attention]][0], "all_gathers": sg.counts[at[pmesh.all_gather]][0],
+            "all_reduces": sg.counts[at[pmesh.all_reduce]][0],
+            "branch_all_reduces": [b[at[pmesh.all_reduce]][0] for b in sg.branch_counts]}
+
+
+def profile_replay(tracker, frame) -> dict:
+    """torch.profiler over one step_packed (one replay) of the tracker: its
+    device events by kind. At world size 1 NCCL moves no data between
+    ranks: an all-gather into another buffer is a device copy and an
+    in-place all-reduce enqueues nothing, so the collectives are held by
+    the tally (replay_tally); the profile says what reached the card."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from vitparticlefiltertracker_tpu_torch.utils.profiling import device_kernels
+
+    tracker.step_packed(frame)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        tracker.step_packed(frame)
+        torch.cuda.synchronize()
+    rows = device_kernels(prof)
+    nccl = sum(v.calls for k, v in rows.items() if "nccl" in k.lower())
+    copies = sum(v.calls for k, v in rows.items() if "memcpy" in k.lower())
+    return {"device_events": sum(v.calls for v in rows.values()), "nccl_kernels": nccl, "copies": copies,
+            "device_ms": sum(v.ms for v in rows.values())}
+
+
+def compare_records(got: list[dict], want: list[dict], label: str) -> dict:
+    """A mesh run's records against its mesh=None twin's: bitwise, or within
+    GRAPH_POS_TOL_PX with `lost` and `resampled` equal (and the reason
+    printed)."""
+    check(len(got) == len(want), f"{label}: record counts {len(got)} == {len(want)}")
+    worst, bitwise = 0.0, True
+    for i, (a, b) in enumerate(zip(got, want)):
+        check(a["lost"] == b["lost"] and a["resampled"] == b["resampled"], f"{label} step {i + 1}: flags")
+        worst = max(worst, float(np.abs(np.subtract(a["position"], b["position"])).max()))
+        bitwise &= all(a[k] == b[k] for k in a if k not in ("step_ms", "frame"))
+    check(worst <= GRAPH_POS_TOL_PX, f"{label}: mesh positions within {GRAPH_POS_TOL_PX} px of mesh=None ({worst})")
+    if not bitwise:
+        print(f"  {label}: not bitwise (max position diff {worst:.2e} px): a GEMM captured in another graph may "
+              "take another cuBLAS algorithm (its workspace is per stream), as between graph and eager", flush=True)
+    return {"bitwise": bitwise, "max_pos_diff_px": worst}
+
+
+def mesh_twin_runs(label: str, make, src, turns=("plain", "mesh", "mesh", "plain"), n_after: int = 0) -> list[dict]:
+    """Tracker.run over `src` for each turn, make(mesh?) building the
+    tracker; the counts set to 0 just before each run and read just after."""
+    runs = []
+    for kind in turns:
+        tracker = make(kind == "mesh")
+        reset_counts()
+        recs, steps = [], []
+        for rec in tracker.run(src):
+            recs.append(rec)
+            if n_after > 0:
+                steps.append(scan_accepted(tracker.state, n_after))
+        runs.append({"kind": kind, "recs": recs, "steps": steps, "tracker": tracker, **read_counts()})
+    return runs
+
+
+def check_mesh_twins(label: str, runs: list[dict], depth: int, gathers_a_step: int = 1) -> dict:
+    """The mesh runs against the plain ones: records, K1 launches by shape
+    equal; the collectives the design implies (a gather a scoring pass, 2
+    all-reduces a block of every forward: twice K1's launches); the step
+    medians of both in turns."""
+    plain = [r for r in runs if r["kind"] == "plain"]
+    mesh = [r for r in runs if r["kind"] == "mesh"]
+    out = compare_records(mesh[0]["recs"], plain[0]["recs"], label)
+    for m in mesh:
+        steps = len(m["recs"])
+        check(m["k1_shapes"] == plain[0]["k1_shapes"] and m["k2_sizes"] == plain[0]["k2_sizes"],
+              f"{label}: launches by shape on the mesh {m['k1_shapes']} == without {plain[0]['k1_shapes']}")
+        check(m["all_gathers"] == gathers_a_step * steps,
+              f"{label}: {m['all_gathers']} all-gathers == {gathers_a_step} a step x {steps}")
+        check(m["all_reduces"] == 2 * m["launches"] > 0,
+              f"{label}: {m['all_reduces']} all-reduces == 2 a block of every forward (K1 {m['launches']})")
+    for p in plain:
+        check(p["all_gathers"] == p["all_reduces"] == 0, f"{label}: no collective without a mesh")
+    med = [statistics.median(r["recs"][i]["step_ms"] for i in range(5, len(r["recs"]))) for r in runs]
+    p_med = statistics.median(m for m, r in zip(med, runs) if r["kind"] == "plain")
+    m_med = statistics.median(m for m, r in zip(med, runs) if r["kind"] == "mesh")
+    tally = replay_tally(mesh[0]["tracker"])
+    print(f"  {label}: records on make_mesh(1, 1, 1) == mesh=None ({'bitwise' if out['bitwise'] else 'within tol'}); "
+          f"collectives {mesh[0]['all_gathers']} all-gathers, {mesh[0]['all_reduces']} all-reduces; one replay: "
+          f"{tally}; step ms, median after 5, turns {'/'.join(r['kind'] for r in runs)}: "
+          f"{'/'.join(f'{m:.3f}' for m in med)}; mesh {m_med:.3f}, mesh=None {p_med:.3f}", flush=True)
+    return {**out, "step_ms_median": m_med, "plain_step_ms_median": p_med, "turn_medians_ms": med,
+            "all_gathers": mesh[0]["all_gathers"], "all_reduces": mesh[0]["all_reduces"], "replay": tally,
+            "k1_shapes": mesh[0]["k1_shapes"], "launches": mesh[0]["launches"]}
+
+
+def run_mesh_dense(main_path: dict, mesh) -> dict:
+    """(a) config.yaml's dense path (ViT-B/16, 1024 particles) on 60 frames:
+    mesh and mesh=None in turns; host waits on the mesh tracker; a replay
+    profiled."""
+    cfg, prm, src = main_path["cfg"], main_path["prm"], main_path["src"]
+    runs = mesh_twin_runs("mesh (a) dense", lambda m: Tracker(cfg, vit_params=prm, device="cuda",
+                                                               mesh=mesh if m else None), src)
+    out = check_mesh_twins("mesh (a) dense", runs, cfg.model.depth)
+    check(out["replay"]["all_gathers"] == 1 and out["replay"]["all_reduces"] == 2 * cfg.model.depth,
+          f"mesh (a): one replay holds 1 all-gather and {2 * cfg.model.depth} all-reduces ({out['replay']})")
+    tracker = runs[1]["tracker"]
+    out.update(check_waits(tracker, list(src)[1:], 0, "mesh (a) dense"))
+    out["profile"] = profile_replay(tracker, torch.from_numpy(src.frames[1]).cuda())
+    print(f"  mesh (a): one replay profiled: {out['profile']}", flush=True)
+    return out
+
+
+def run_mesh_eval3(mesh) -> dict:
+    """(b) eval3 at full width (ViT-L/16, 4096 particles, cells, 1080p
+    needle): Tracker(cfg, mesh=make_mesh(1, 1, 1)) and mesh=None on
+    EVAL3_FRAMES frames in turns, the RMSE held as run_eval3_track holds it."""
+    cfg = _bench_evals.config(3)
+    src = open_source(cfg.io.source, EVAL3_FRAMES, tuple(cfg.io.frame_size), seed=cfg.filter.seed)
+    prm = vit_params.resolve_vit_params(cfg, None, "cuda")
+    runs = mesh_twin_runs("mesh (b) eval3", lambda m: Tracker(cfg, vit_params=prm, device="cuda",
+                                                               mesh=mesh if m else None), src)
+    out = check_mesh_twins("mesh (b) eval3", runs, cfg.model.depth)
+    check(out["replay"]["all_gathers"] == 1 and out["replay"]["all_reduces"] == 2 * cfg.model.depth,
+          f"mesh (b): one replay holds 1 all-gather and {2 * cfg.model.depth} all-reduces ({out['replay']})")
+    for r in runs:
+        pos = np.array([x["position"] for x in r["recs"]])
+        r["rmse"] = float(np.sqrt(np.mean(np.linalg.norm(pos - src.truth[1:], axis=1) ** 2)))
+        check(r["rmse"] <= EVAL3_RMSE_BOUND_PX, f"mesh (b) {r['kind']}: RMSE {r['rmse']} px within "
+              f"{EVAL3_RMSE_BOUND_PX} px")
+    out["rmse_px"] = runs[1]["rmse"]
+    out["profile"] = profile_replay(runs[1]["tracker"], torch.from_numpy(src.frames[1]).cuda())
+    print(f"  mesh (b): RMSE {out['rmse_px']:.3f} px (bound {EVAL3_RMSE_BOUND_PX:.3f}); one replay profiled: "
+          f"{out['profile']}", flush=True)
+    return out
+
+
+def run_mesh_robust(robust_path: dict, mesh) -> dict:
+    """(c) the robust path (configs/robust-head.yaml, teleport gates, 48
+    frames): its probe and scan bodies, IF nodes of the graph, now hold the
+    forward's all-reduces; the mesh run equals mesh=None and takes the
+    branches on the same steps."""
+    cfg, prm, src = robust_path["cfg"], robust_path["prm"], robust_path["src"]
+    n_after = cfg.tracker.redetect_global_after
+    runs = mesh_twin_runs("mesh (c) robust", lambda m: Tracker(cfg, vit_params=prm, device="cuda",
+                                                                mesh=mesh if m else None),
+                          src, turns=("plain", "mesh"), n_after=n_after)
+    out = check_mesh_twins("mesh (c) robust", runs, cfg.model.depth + cfg.model.head_depth)
+    check(runs[1]["steps"] == runs[0]["steps"] and any(s[0] for s in runs[1]["steps"]),
+          "mesh (c): the scans and accepted matches on the same steps as mesh=None, at least one scan")
+    branches = out["replay"]["branch_all_reduces"]
+    check(len(branches) == 2 and all(b > 0 for b in branches),
+          f"mesh (c): both IF-node bodies (probe, scan) hold all-reduces ({branches})")
+    out.update(check_waits(runs[1]["tracker"], list(src)[1:], 0, "mesh (c) robust"))
+    return out
+
+
+def run_mesh_banked(banked_path: dict, mesh) -> dict:
+    """(d) eval4 banked (8 banks x 1024 particles, 720p) through
+    MultiTracker on make_mesh(1, 1, 1): each step's rows also all-gathered
+    over "bank" after the replay."""
+    cfg, prm, src = banked_path["cfg"], banked_path["prm"], banked_path["src"]
+    runs = []
+    for kind in ("plain", "mesh"):
+        tracker = banked.MultiTracker(cfg, vit_params=prm, device="cuda", mesh=mesh if kind == "mesh" else None)
+        reset_counts()
+        tracker.init(src.frames[0], src.init_bbox)
+        steps = [tracker.step(f) for f in src.frames[1:]]
+        runs.append({"kind": kind, "recs": [merge_banks(r) for r in steps], "tracker": tracker, **read_counts()})
+    out = check_mesh_twins("mesh (d) banked", runs, cfg.model.depth, gathers_a_step=2)
+    out.update(check_waits(runs[1]["tracker"], list(src)[1:], 0, "mesh (d) banked"))
+    return out
+
+
+def run_mesh_train() -> dict:
+    """(e) configs/train-head.yaml at full width through build_train_step
+    with mesh=make_data_mesh(1) and without, MESH_TRAIN_STEPS steps each
+    from the same init: loss and weights bitwise equal at each step index;
+    one all-reduce a step."""
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = _train_cfg(TRAIN_HEAD_CONFIG, tmp, "mesh")
+    out = {}
+    for kind in ("plain", "mesh"):
+        init_fn, step_fn = build_train_step(cfg, "cuda", mesh=make_data_mesh(1) if kind == "mesh" else None)
+        params, opt = init_fn()
+        reset_counts()
+        losses = [float(step_fn(params, opt, i)[2]["loss"]) for i in range(MESH_TRAIN_STEPS)]
+        out[kind] = (losses, {k: v.detach().clone() for k, v in vit_params._flatten(params).items()}, read_counts())
+        del params, opt
+    (lp, wp, _), (lm, wm, cm) = out["plain"], out["mesh"]
+    same = lm == lp and all(torch.equal(wm[k], wp[k]) for k in wp)
+    check(same, f"mesh (e): losses {lm} == {lp} and every weight bitwise equal")
+    check(cm["all_reduces"] == MESH_TRAIN_STEPS, f"mesh (e): one all-reduce a step ({cm['all_reduces']})")
+    print(f"  mesh (e) train-head on make_data_mesh(1): {MESH_TRAIN_STEPS} steps, losses {[round(x, 5) for x in lm]} "
+          f"== mesh=None, weights bitwise equal; {cm['all_reduces']} all-reduces", flush=True)
+    return {"losses": lm, "bitwise": same, "all_reduces": cm["all_reduces"]}
+
+
+def run_mesh_phase(main_path: dict, robust_path: dict, banked_path: dict) -> dict:
+    """The mesh phase: a one-rank NCCL group over a file store in a
+    temporary directory, make_mesh(1, 1, 1), paths (a)-(e) each against its
+    mesh=None twin; the group destroyed at the end."""
+    import torch.distributed as dist
+
+    with tempfile.TemporaryDirectory() as tmp:
+        pmesh.init_distributed("cuda", store=f"{tmp}/store")
+        try:
+            mesh = pmesh.make_mesh(1, 1, 1)
+            print(f"  {mesh}; NCCL {'.'.join(map(str, torch.cuda.nccl.version()))}", flush=True)
+            out = {"dense": run_mesh_dense(main_path, mesh), "eval3": run_mesh_eval3(mesh),
+                   "robust": run_mesh_robust(robust_path, mesh), "banked": run_mesh_banked(banked_path, mesh),
+                   "train": run_mesh_train()}
+        finally:
+            dist.destroy_process_group()
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script needs the card",
@@ -2256,11 +2510,16 @@ def main() -> int:
     phase("train", t0)
 
     t0 = time.perf_counter()
+    mesh = run_mesh_phase(main_path, robust_path, banked_path)
+    phase("mesh", t0)
+
+    t0 = time.perf_counter()
     times = time_kernels()
     times_f32 = time_kernels([DENSE_SHAPE], torch.float32)
     k2_times = time_window_patchify(K2_MAIN)
     k2_one_times = time_window_patchify(K2_ONE)
     k2_window_times = time_window_patchify_windows()
+    k2_mesh_times = [(p, m, time_window_patchify(m)) for p, m in ((2, dict(K2_MAIN, n=512)), (4, dict(K2_MAIN, n=256)))]
     phase("times", t0)
 
     # One entry per kernel, main path and shape: K1 at the dense path's
@@ -2300,6 +2559,19 @@ def main() -> int:
     k1_rows.append(dict(**k1_common, path="bench eval1", shape=list(DENSE_SHAPE), dtype="float32",
                         launches=bench["eval1-cpu-synthetic"]["k1_shapes"].get(DENSE_SHAPE[:3], 0),
                         max_abs_err=errs[(DENSE_SHAPE, torch.float32, "fused")], **times_f32[DENSE_SHAPE]))
+    # The mesh phase's paths at world size 1: K1 in every forward of (a) and
+    # (b) (and in the IF bodies of (c)).
+    for path, shape, run in (("mesh (a) dense, make_mesh(1, 1, 1)", DENSE_SHAPE, mesh["dense"]),
+                             ("mesh (b) eval3, make_mesh(1, 1, 1)", EVAL5_DENSE_SHAPE, mesh["eval3"]),
+                             ("mesh (c) robust, make_mesh(1, 1, 1)", DENSE_SHAPE, mesh["robust"]),
+                             ("mesh (c) robust, make_mesh(1, 1, 1), scan", REDETECT_SHAPE, mesh["robust"])):
+        k1_rows.append(dict(**k1_common, path=path, shape=list(shape), launches=run["k1_shapes"].get(shape[:3], 0),
+                            max_abs_err=errs[(shape, torch.bfloat16, "fused")], **times[shape]))
+    # Shapes only a mesh of 2 cards or more gives (this card runs a mesh of
+    # 1): K1 with H / 2 heads under "model" 2, K2 on a rank's N / P boxes.
+    multi_card = [dict(**k1_common, path=f"mesh (1, 1, 2) on 2 cards, {name}: not run on one card",
+                       shape=list(shape), launches=0, max_abs_err=errs[(shape, torch.bfloat16, "fused")],
+                       **times[shape]) for name, shape in zip(("ViT-B/16", "ViT-L/16"), TP_SHAPES)]
     k2_rows = [dict(name="gather_patchify_window", route="cuda",
                     source="vitparticlefiltertracker_tpu_torch/csrc/window_patchify.cu",
                     replaces="vitparticlefiltertracker_tpu/ops/patchify_pallas.py:59",
@@ -2307,6 +2579,10 @@ def main() -> int:
                     launches=crop_path["k2_sizes"].get(m["n"], 0),
                     max_abs_err=k2_errs[(m["n"], m["crop"], m["swin"], m["d"], torch.bfloat16, True)], **kt)
                for m, kt in ((K2_MAIN, k2_times), (K2_ONE, k2_one_times))]
+    multi_card += [{**k2_rows[0], "path": f"crop on a particle mesh of {p} cards: not run on one card",
+                    "shape": [m["n"], m["swin"], m["crop"], m["d"]], "launches": 0,
+                    "max_abs_err": k2_errs[(m["n"], m["crop"], m["swin"], m["d"], torch.bfloat16, True)], **kt}
+                   for p, m, kt in k2_mesh_times]
     # K2 on the crop-mode ROI stream: the main crop shape (its time above),
     # its error on a window resampled from the strided ROI view.
     k2_rows.append({**k2_rows[0], "path": "crop-roi", "launches": crop_roi["k2_sizes"].get(K2_MAIN["n"], 0),
@@ -2335,11 +2611,12 @@ def main() -> int:
                       "train": {"parity": train["parity"],
                                 **{name: {k: v for k, v in run.items() if "k1_shapes" not in k}
                                    for name, run in (("head", head), ("features", features))}},
+                      "mesh": {name: {k: v for k, v in run.items() if k != "k1_shapes"} for name, run in mesh.items()},
                       "k2_8_windows_x_1024": {**k2_window_times,
                                               "max_abs_err": k2_window_errs[(8, 1024, torch.bfloat16)]}}))
     print(f"[phase] total: {time.perf_counter() - t_start:.2f} s", flush=True)
     print(f"card: {smi}")
-    print(json.dumps({"kernels": k1_rows + k2_rows}))
+    print(json.dumps({"kernels": k1_rows + k2_rows + multi_card}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
     return 0

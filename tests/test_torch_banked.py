@@ -444,14 +444,3 @@ def test_banked_track_cli_writes_k_records_a_frame(tmp_path):
                for r in recs)
     with pytest.raises(ValueError, match="banks"):
         tcli.main(argv + ["--set", f"io.resume_state={tmp_path / 'none.npz'}"])
-
-
-def test_banked_mesh_settings_raise():
-    """A device mesh (multi-GPU) is not ported: the banked trackers refuse
-    runtime.mesh_banks, mesh_particles or mesh_model > 1."""
-    for key in ("mesh_banks", "mesh_particles", "mesh_model"):
-        cfg = TConfig.from_dict(_with(MULTI, runtime={"banks": 2, key: 2}))
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tbk.MultiTracker(cfg, device="cpu")
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tbk.MultiStreamTracker(cfg, 2, device="cpu")

@@ -639,3 +639,97 @@ def test_train_step_on_the_card_matches_the_cpu(cuda_device):
 
     out = chip_smoke.check_train_parity()
     assert out["grad_max_abs_err"] <= chip_smoke.TRAIN_GRAD_ATOL
+
+
+@pytest.fixture
+def nccl_mesh(cuda_device, tmp_path):
+    """make_mesh(1, 1, 1) over a one-rank NCCL group (a file store in the
+    test's directory), destroyed after the test."""
+    import torch.distributed as dist
+    from vitparticlefiltertracker_tpu_torch.parallel.mesh import init_distributed, make_mesh
+
+    init_distributed("cuda", store=str(tmp_path / "store"))
+    try:
+        yield make_mesh(1, 1, 1)
+    finally:
+        dist.destroy_process_group()
+
+
+def _mesh_and_plain_runs(cfg_dict, mesh, clip: bool = False):
+    """A tiny tracker through its captured graphs on the card with the
+    one-rank mesh and without: (records or track_clip_device rows, counts,
+    tracker) for each; the host's waits inside track_clip_device with clip."""
+    import chip_smoke
+    from vitparticlefiltertracker_tpu_torch.io.video import open_source
+    from vitparticlefiltertracker_tpu_torch.runtime.tracker import Tracker
+
+    cfg = Config.from_dict(copy.deepcopy(cfg_dict))
+    src = open_source(cfg.io.source, cfg.io.num_frames, tuple(cfg.io.frame_size))
+    prm = Tracker(copy.deepcopy(cfg), device="cpu").vit_params
+    out = {}
+    for m in (None, mesh):
+        tr = Tracker(copy.deepcopy(cfg), vit_params=prm, device="cuda", mesh=m)
+        chip_smoke.reset_counts()
+        if clip:
+            tr.init(src.frames[0], src.init_bbox)
+            frames = torch.from_numpy(np.stack(src.frames[1:])).cuda()
+            torch.cuda.synchronize()
+            outs, stacks = [], []
+            waits = chip_smoke.count_waits(lambda: outs.append(tr.track_clip_device(frames)), stacks)
+            assert waits == 0, stacks
+            recs = chip_smoke.pack_rows(outs[0])
+        else:
+            recs = [{k: v for k, v in r.items() if k != "step_ms"} for r in tr.run(src)]
+        out[m is not None] = (recs, chip_smoke.read_counts(), tr)
+    return out
+
+
+def test_mesh_world_one_dense_step_equals_unsharded(nccl_mesh):
+    """The dense step on make_mesh(1, 1, 1) over NCCL, its collectives
+    captured in the step's graph (1 all-gather of the scores and 2
+    all-reduces a block a replay), gives mesh=None's records."""
+    import chip_smoke
+
+    out = _mesh_and_plain_runs(chip_smoke.TINY, nccl_mesh)
+    (plain, pc, _), (mesh, mc, tr) = out[False], out[True]
+    assert mesh == plain
+    depth = tr.cfg.model.depth
+    assert mc["k1_shapes"] == pc["k1_shapes"] and mc["all_gathers"] == len(mesh)
+    assert mc["all_reduces"] == 2 * mc["launches"] and pc["all_reduces"] == pc["all_gathers"] == 0
+    tally = chip_smoke.replay_tally(tr)
+    assert (tally["all_gathers"], tally["all_reduces"]) == (1, 2 * depth)
+
+
+def test_mesh_world_one_if_bodies_hold_collectives(nccl_mesh):
+    """With the lost gate and re-detection (the head, its automatic blend)
+    the probe's and the scan's IF-node bodies hold the forward's all-reduces
+    over NCCL: captured and replayed, no host wait in track_clip_device, the
+    rows equal mesh=None's."""
+    import chip_smoke
+
+    out = _mesh_and_plain_runs(chip_smoke.TINY_HEAD_REDETECT, nccl_mesh, clip=True)
+    (plain, _, _), (mesh, mc, tr) = out[False], out[True]
+    assert np.array_equal(mesh, plain) and mesh[:, 9].any()
+    assert mc["all_reduces"] == 2 * mc["launches"]
+    assert [b > 0 for b in chip_smoke.replay_tally(tr)["branch_all_reduces"]] == [True, True]
+
+
+def test_mesh_world_one_banked_step_equals_unsharded(nccl_mesh):
+    """MultiTracker on make_mesh(1, 1, 1): the banks' rows all-gathered over
+    "bank" after each replay equal mesh=None's rows."""
+    import chip_smoke
+    from vitparticlefiltertracker_tpu_torch.io.video import open_source
+    from vitparticlefiltertracker_tpu_torch.runtime import banked
+    from vitparticlefiltertracker_tpu_torch.runtime.tracker import Tracker
+
+    d = copy.deepcopy(chip_smoke.TINY_BANKED_REDETECT)
+    d["runtime"] = {"banks": 3}
+    cfg = Config.from_dict(d)
+    src = open_source(cfg.io.source, cfg.io.num_frames, tuple(cfg.io.frame_size))
+    prm = Tracker(copy.deepcopy(cfg), device="cpu").vit_params
+    rows = {}
+    for m in (None, nccl_mesh):
+        tr = banked.MultiTracker(copy.deepcopy(cfg), prm, "cuda", mesh=m)
+        tr.init(src.frames[0], banked.banked_bboxes(src.init_bbox, 3))
+        rows[m is not None] = torch.stack([tr.step_packed(torch.from_numpy(f).cuda()) for f in src.frames[1:]]).cpu()
+    assert torch.equal(rows[True], rows[False])

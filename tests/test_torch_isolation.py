@@ -1,8 +1,9 @@
 """The port stands alone: with jax, ml_dtypes, yaml, cv2, imageio and the
 JAX package made unimportable, every module of
-vitparticlefiltertracker_tpu_torch and chip_smoke.py imports, and the
-tracker runs two CPU steps (cv2 and imageio are imported only inside the
-readers and the overlay sink that use them)."""
+vitparticlefiltertracker_tpu_torch (parallel/ included) and chip_smoke.py
+imports, and the tracker runs two CPU steps, also on a one-rank gloo mesh
+(cv2 and imageio are imported only inside the readers and the overlay sink
+that use them)."""
 
 import os
 import subprocess
@@ -35,6 +36,15 @@ cfg = Config.from_dict(chip_smoke.TINY_HEAD_REDETECT)
 src = open_source(cfg.io.source, 6, tuple(cfg.io.frame_size))
 recs = list(Tracker(cfg, device="cpu").run(src))
 assert len(recs) == 5, recs
+# The mesh (parallel/): one gloo rank, a (1, 1, 1) mesh, its collectives issued.
+assert "vitparticlefiltertracker_tpu_torch.parallel.mesh" in names
+import torch.distributed
+from vitparticlefiltertracker_tpu_torch.parallel import mesh as pm
+cfg = Config.from_dict(chip_smoke.TINY)
+src = open_source(cfg.io.source, 3, tuple(cfg.io.frame_size))
+recs = list(Tracker(cfg, device="cpu", mesh=pm.make_mesh(1, 1, 1, device="cpu")).run(src))
+assert len(recs) == 2 and pm.all_gather.launches == 2 and pm.all_reduce.launches > 0, recs
+torch.distributed.destroy_process_group()
 loaded = [m for m in ("jax", "ml_dtypes", "yaml", "cv2", "imageio", "vitparticlefiltertracker_tpu")
           if sys.modules.get(m) is not None]
 assert not loaded, loaded

@@ -290,13 +290,3 @@ def test_round1_positional_state_loads_like_jax(tmp_path, anchor):
         np.testing.assert_array_equal(b, a, err_msg=k)
     if not anchor:
         np.testing.assert_array_equal(mine["anchor"].numpy(), mine["template"].numpy())
-
-
-@pytest.mark.parametrize("key", ["mesh_particles", "mesh_model"])
-def test_mesh_settings_raise(key):
-    """A device mesh (multi-GPU) is not ported: the Tracker refuses it with
-    a pointer to ROADMAP.md rather than tracking on one device."""
-    d = copy.deepcopy(BASE)
-    d["runtime"] = {key: 2}
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ttr.Tracker(TConfig.from_dict(d), device="cpu")

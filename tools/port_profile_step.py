@@ -52,7 +52,6 @@ from collections import defaultdict
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
 import torch  # noqa: E402
-from torch.autograd import DeviceType  # noqa: E402
 from torch.profiler import ProfilerActivity, profile  # noqa: E402
 
 import numpy as np  # noqa: E402
@@ -63,6 +62,7 @@ from vitparticlefiltertracker_tpu_torch.filters.particle import draw_reseed_nois
 from vitparticlefiltertracker_tpu_torch.io.video import open_source  # noqa: E402
 from vitparticlefiltertracker_tpu_torch.runtime.banked import MultiStreamTracker, MultiTracker  # noqa: E402
 from vitparticlefiltertracker_tpu_torch.runtime.tracker import Tracker  # noqa: E402
+from vitparticlefiltertracker_tpu_torch.utils.profiling import device_kernels  # noqa: E402
 
 
 def main() -> int:
@@ -133,12 +133,9 @@ def main() -> int:
             step(f)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    # Device-side events only (kernels, memcpy, memset): the CPU operators
-    # that launch them report the same device time again.
-    rows = [e for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
-    busy_us = sum(e.self_device_time_total for e in rows)
-    launches = sum(e.count for e in rows)
+    rows = device_kernels(prof)  # name -> (ms, calls), device-side events only
+    busy_us = sum(v.ms for v in rows.values()) * 1e3
+    launches = sum(v.calls for v in rows.values())
     print(f"card: {torch.cuda.get_device_name(0)}; overrides {args.overrides}; "
           f"{'graph replay' if graphs else 'eager'} step")
     print(f"steps {args.frames}: wall {wall_us / args.frames / 1e3:.3f} ms/step (profiler on), "
@@ -148,14 +145,14 @@ def main() -> int:
     # attn_tiled_*_kernel) and K2's (window_patchify_mma_kernel<tile>,
     # window_patchify_scalar_kernel<dtype>).
     for label, marks in (("K1", ("attn_small_kernel", "attn_tiled_")), ("K2", ("window_patchify_",))):
-        mine = [e for e in rows if any(m in e.key for m in marks)]
-        us = sum(e.self_device_time_total for e in mine)
-        print(f"  {label}: {us / args.frames:9.1f} us/step  {sum(e.count for e in mine) / args.frames:6.1f}/step  "
-              f"{100 * us / busy_us:5.1f}%  ({', '.join(sorted({e.key[:60] for e in mine})) or 'not launched'})")
-    rows.sort(key=lambda e: -e.self_device_time_total)
-    for e in rows[: args.top]:
-        print(f"  {e.self_device_time_total / args.frames:9.1f} us/step  {e.count / args.frames:6.1f}/step  "
-              f"{100 * e.self_device_time_total / busy_us:5.1f}%  {e.key[:110]}")
+        mine = {k: v for k, v in rows.items() if any(m in k for m in marks)}
+        us = sum(v.ms for v in mine.values()) * 1e3
+        calls = sum(v.calls for v in mine.values())
+        print(f"  {label}: {us / args.frames:9.1f} us/step  {calls / args.frames:6.1f}/step  "
+              f"{100 * us / busy_us:5.1f}%  ({', '.join(sorted({k[:60] for k in mine})) or 'not launched'})")
+    for k, v in sorted(rows.items(), key=lambda kv: -kv[1].ms)[: args.top]:
+        print(f"  {v.ms * 1e3 / args.frames:9.1f} us/step  {v.calls / args.frames:6.1f}/step  "
+              f"{100 * v.ms * 1e3 / busy_us:5.1f}%  {k[:110]}")
     if graphs:
         print(f"device time of one step, its graph replayed back to back: {replay_ms(tr):.3f} ms")
     if args.banks or args.streams or args.robust:

@@ -36,7 +36,7 @@ from torch.profiler import ProfilerActivity, profile  # noqa: E402
 import chip_smoke  # noqa: E402
 from vitparticlefiltertracker_tpu_torch.config import Config  # noqa: E402
 from vitparticlefiltertracker_tpu_torch.training.train import build_train_step  # noqa: E402
-from vitparticlefiltertracker_tpu_torch.utils.profiling import device_time_by_kernel  # noqa: E402
+from vitparticlefiltertracker_tpu_torch.utils.profiling import device_kernels  # noqa: E402
 
 CONFIGS = {"head": chip_smoke.TRAIN_HEAD_CONFIG, "features": chip_smoke.TRAIN_FEATURES_CONFIG}
 FAMILIES = (("gemm", ("gemm", "cutlass", "sm90_", "sm80_", "cublas", "xmma", "splitk")),
@@ -78,8 +78,9 @@ def profile_config(name: str, args) -> dict:
             step_fn(params, opt, base + j)
         torch.cuda.synchronize()
         prof_wall = (time.perf_counter() - t1) * 1e3
-    by_kernel = device_time_by_kernel(prof)
-    calls = sum(e.count for e in prof.key_averages() if e.key in by_kernel)
+    kernels = device_kernels(prof)
+    by_kernel = {k: v.ms for k, v in kernels.items()}
+    calls = sum(v.calls for v in kernels.values())
     busy = sum(by_kernel.values())
     fams = defaultdict(float)
     for k, ms in by_kernel.items():

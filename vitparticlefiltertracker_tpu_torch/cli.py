@@ -6,6 +6,14 @@ stream (the decode -> track pipeline with trailing readback), train
 one step). Each prints or writes what the JAX package's
 command of that name does. Runs on the card unless ``--device cpu`` is
 given.
+
+On several cards: ``torchrun --nproc-per-node N -m
+vitparticlefiltertracker_tpu_torch track --set runtime.mesh_particles=N``
+(or mesh_banks with runtime.banks, mesh_model; ``train`` goes data-parallel
+over the N ranks). Every rank opens the same deterministic source and runs
+the same steps; rank 0 alone writes the records, state files and the bench
+line. ``stream`` and ``serve`` under a mesh, and a camera or the native
+ring as a mesh's source, are not supported yet (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -51,6 +59,39 @@ def load(args, implicit_config: bool = False) -> Config:
     return cfg.resolve()
 
 
+def _mesh_rank(cfg: Config, device: str, command: str) -> int:
+    """This process's rank when the config (runtime.mesh_*) or the launcher
+    (WORLD_SIZE) spreads the command over ranks, after initialising the
+    process group (which makes the rank's card current); 0 otherwise."""
+    r = cfg.runtime
+    meshed = r.mesh_banks * r.mesh_particles * r.mesh_model > 1
+    if not meshed and int(os.environ.get("WORLD_SIZE", 1)) <= 1:
+        return 0
+    if meshed and command in ("stream", "serve"):
+        raise NotImplementedError(f"the {command} command under a mesh (runtime.mesh_*) needs its frames read once "
+                                  "and broadcast to the ranks; not supported yet (ROADMAP.md §1)")
+    src = cfg.io.source
+    if meshed and (src.startswith(("camera:", "native-synthetic:")) or src.endswith(".rgb24")):
+        raise NotImplementedError(f"io.source {src!r} under a mesh: every rank must read the same frames, which "
+                                  "a camera or the native ring does not give; not supported yet (ROADMAP.md §1)")
+    from vitparticlefiltertracker_tpu_torch.parallel.mesh import init_distributed
+
+    init_distributed(device)
+    import torch.distributed as dist
+
+    return dist.get_rank()
+
+
+class _NullSink:
+    """The sink of a rank other than 0: records are written once, by rank 0."""
+
+    def write(self, rec) -> None:
+        pass
+
+    def close(self) -> None:
+        pass
+
+
 def cmd_track(cfg: Config, device: str = "cuda", quiet: bool = False) -> int:
     """Track io.source and write one JSONL record a frame; with
     runtime.banks > 1, a MultiTracker over the source's targets (or its one
@@ -61,9 +102,11 @@ def cmd_track(cfg: Config, device: str = "cuda", quiet: bool = False) -> int:
     banks = cfg.runtime.banks
     if cfg.io.resume_state and banks > 1:
         raise ValueError("io.resume_state supports a single tracker (runtime.banks == 1)")
+    rank = _mesh_rank(cfg, device, "track")
+    quiet = quiet or rank != 0
     source = _open(cfg, cfg.io.source, cfg.filter.seed)
-    sink = JsonlSink(cfg.io.output)
-    overlay = OverlaySink(cfg.io.overlay) if cfg.io.overlay else None
+    sink = JsonlSink(cfg.io.output) if rank == 0 else _NullSink()
+    overlay = OverlaySink(cfg.io.overlay) if cfg.io.overlay and rank == 0 else None
     t_start = time.perf_counter()
     count = 0
     frames_iter = iter(source)
@@ -120,7 +163,10 @@ def cmd_bench(cfg: Config, device: str = "cuda", quiet: bool = False) -> int:
     one JSON line on stdout; its progress on stderr unless quiet."""
     from vitparticlefiltertracker_tpu_torch.runtime.benchmark import run_benchmark
 
-    print(json.dumps(run_benchmark(cfg, verbose=not quiet, device=device)))
+    rank = _mesh_rank(cfg, device, "bench")
+    result = run_benchmark(cfg, verbose=not quiet and rank == 0, device=device)
+    if rank == 0:
+        print(json.dumps(result))
     return 0
 
 
@@ -159,6 +205,7 @@ def cmd_stream(cfg: Config, device: str = "cuda", quiet: bool = False) -> int:
     from vitparticlefiltertracker_tpu_torch.io.sink import JsonlSink
     from vitparticlefiltertracker_tpu_torch.runtime.streaming import stream_track
 
+    _mesh_rank(cfg, device, "stream")
     source = _open(cfg, cfg.io.source, cfg.filter.seed)
     init_bbox = getattr(source, "init_bbox", None)
     if init_bbox is None:
@@ -193,6 +240,7 @@ def cmd_serve(cfg: Config, device: str = "cuda", quiet: bool = False) -> int:
     from vitparticlefiltertracker_tpu_torch.runtime.banked import MultiStreamTracker
     from vitparticlefiltertracker_tpu_torch.runtime.streaming import FramePump, stream_track
 
+    _mesh_rank(cfg, device, "serve")
     specs = [s.strip() for s in cfg.io.source.split(",") if s.strip()]
     if len(specs) == 1:
         specs = specs * cfg.runtime.streams
@@ -236,7 +284,8 @@ def cmd_train(cfg: Config, device: str = "cuda", quiet: bool = False) -> int:
     train.checkpoint_out."""
     from vitparticlefiltertracker_tpu_torch.training.train import train_features
 
-    train_features(cfg, log=(lambda s: None) if quiet else None, device=device)
+    rank = _mesh_rank(cfg, device, "train")
+    train_features(cfg, log=(lambda s: None) if quiet or rank != 0 else None, device=device)
     return 0
 
 

@@ -8,7 +8,9 @@ head-major (h, 3, hd); GELU is the exact (erf) form. Attention goes through
 ``ops.attention.multi_head_attention`` (kernel K1 on CUDA tensors, the plain
 version on CPU tensors; forward only), or, in a spec with
 ``use_flash_attention`` False (the trainer's), through the plain version on
-any device, which autograd differentiates.
+any device, which autograd differentiates. With ``VitSpec.mesh`` set, the
+blocks run tensor-parallel over the mesh's "model" axis on this rank's
+share of the weights (parallel/mesh.py ``vit_param_shard``).
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ from vitparticlefiltertracker_tpu_torch.ops.attention import (
     reference_attention,
     split_fused_qkv,
 )
+from vitparticlefiltertracker_tpu_torch.parallel.mesh import all_reduce
 
 
 class VitSpec(NamedTuple):
@@ -47,6 +50,12 @@ class VitSpec(NamedTuple):
     # before its final LN, with their own LN; encode_tokens then returns
     # concat(trunk, head) [B, T, 2 * dim]. 0 = no head.
     head_depth: int = 0
+    # A parallel.mesh.Mesh: tensor parallelism over its "model" axis. The
+    # parameters are this rank's (parallel.mesh.vit_param_shard): H / M
+    # heads and mlp_dim / M hidden columns; each block all-reduces its two
+    # row-parallel products over "model" before adding their biases. None:
+    # the whole ViT here.
+    mesh: object = None
 
     @property
     def grid(self) -> int:
@@ -100,9 +109,18 @@ def patchify(images: torch.Tensor, patch_size: int) -> torch.Tensor:
     return x.reshape(b, gh * gw, p * p * c)
 
 
+def _row_parallel(y: torch.Tensor, w: torch.Tensor, bias: torch.Tensor, spec: VitSpec) -> torch.Tensor:
+    """y @ w + bias; under a mesh, y @ w is this rank's partial sum, so the
+    sum over "model" comes first and the (replicated) bias is added once."""
+    y = y @ w.to(spec.dtype)
+    if spec.mesh is not None:
+        y = all_reduce(y, spec.mesh, "model")
+    return y + bias.to(spec.dtype)
+
+
 def _block(x: torch.Tensor, p: dict, spec: VitSpec) -> torch.Tensor:
     b, t, d = x.shape
-    h = spec.heads
+    h = spec.heads if spec.mesh is None else spec.heads // spec.mesh.shape["model"]
     dtype = spec.dtype
 
     y = _layer_norm(x, p["ln1"], dtype, spec.ln_eps)
@@ -112,14 +130,13 @@ def _block(x: torch.Tensor, p: dict, spec: VitSpec) -> torch.Tensor:
     # place and writes [B, T, H, hd] memory, so the reshape below is a view.
     attend = multi_head_attention if spec.use_flash_attention else reference_attention
     o = attend(*split_fused_qkv(qkv, h))  # [B, H, T, hd]
-    o = o.transpose(1, 2).reshape(b, t, d)
-    x = x + (o @ p["attn"]["wo"].to(dtype) + p["attn"]["bo"].to(dtype))
+    o = o.transpose(1, 2).reshape(b, t, -1)
+    x = x + _row_parallel(o, p["attn"]["wo"], p["attn"]["bo"], spec)
 
     y = _layer_norm(x, p["ln2"], dtype, spec.ln_eps)
     y = y @ p["mlp"]["w1"].to(dtype) + p["mlp"]["b1"].to(dtype)
     y = torch.nn.functional.gelu(y, approximate="none")
-    y = y @ p["mlp"]["w2"].to(dtype) + p["mlp"]["b2"].to(dtype)
-    return x + y
+    return x + _row_parallel(y, p["mlp"]["w2"], p["mlp"]["b2"], spec)
 
 
 def _block_params(blocks: dict, i: int) -> dict:

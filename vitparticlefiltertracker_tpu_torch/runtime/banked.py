@@ -18,6 +18,13 @@ frame index. On the card each step of either is one replay of a captured
 CUDA graph (runtime/step_graph.py), as for the single-object Tracker; the
 host keeps each bank's seed and frame index, and the graph's IF nodes run a
 lost-only branch for all banks when any bank's flag on the card needs it.
+
+On a mesh (runtime.mesh_*, parallel/mesh.py) the banks ride "bank": rank b
+holds the contiguous banks ``bank_slice`` gives it, seeded with their
+global indices, so each bank draws what it draws without a mesh; inside a
+bank the particle and model axes work as for the single Tracker; the
+packed rows are all-gathered into the [K, ...] layout, so every rank
+returns every bank.
 """
 
 from __future__ import annotations
@@ -29,6 +36,7 @@ import numpy as np
 import torch
 
 from vitparticlefiltertracker_tpu_torch.config import Config
+from vitparticlefiltertracker_tpu_torch.parallel.mesh import Mesh, bank_slice, make_mesh
 from vitparticlefiltertracker_tpu_torch.runtime.step_graph import clone_state, state_leaves
 from vitparticlefiltertracker_tpu_torch.runtime.tracker import (
     PFState,
@@ -37,6 +45,7 @@ from vitparticlefiltertracker_tpu_torch.runtime.tracker import (
     _GraphStepper,
     build_tracker_fns,
 )
+from vitparticlefiltertracker_tpu_torch.utils.platform import resolve_device
 
 
 def banked_bboxes(init_bbox, banks: int) -> np.ndarray:
@@ -93,13 +102,16 @@ def build_multistream_fns(cfg: Config, num_streams: int = 1) -> _Fns:
     return _checked_fns(cfg.resolve(), num_streams)
 
 
-def _refuse_mesh(cfg: Config) -> None:
+def _config_mesh(cfg: Config, mesh: Mesh | None, width: int, what: str, device) -> tuple[Mesh | None, slice]:
+    """The banked tracker's mesh (the given one, or make_mesh from
+    runtime.mesh_* when their product is above 1) and this rank's banks of
+    `width`; ValueError when the bank axis does not divide them."""
     r = cfg.runtime
-    if r.mesh_banks * r.mesh_particles * r.mesh_model > 1:
-        raise NotImplementedError(
-            f"runtime.mesh_banks {r.mesh_banks} x mesh_particles {r.mesh_particles} x mesh_model "
-            f"{r.mesh_model} (multi-GPU) is not ported yet; see ROADMAP.md (open items §1, Multi-GPU)"
-        )
+    if mesh is None and r.mesh_banks * r.mesh_particles * r.mesh_model > 1:
+        mesh = make_mesh(r.mesh_banks, r.mesh_particles, r.mesh_model, device=resolve_device(device))
+    if mesh is None:
+        return None, slice(0, width)
+    return mesh, bank_slice(mesh, width, what)
 
 
 class MultiTracker(_GraphStepper):
@@ -111,25 +123,27 @@ class MultiTracker(_GraphStepper):
     device: "cuda" (default) or "cpu"; graphs=False runs the step eagerly
     on the card. Each step is one graph replay on the card (see
     runtime/tracker.py:_GraphStepper); ``step`` waits once a step, for its
-    records.
+    records. mesh: a parallel.mesh.Mesh, or None, when runtime.mesh_*
+    makes one; every rank calls the same methods on the same inputs.
     """
 
-    def __init__(self, cfg: Config, vit_params=None, device="cuda", graphs: bool = True):
+    def __init__(self, cfg: Config, vit_params=None, device="cuda", graphs: bool = True, mesh: Mesh | None = None):
         cfg.resolve()
-        _refuse_mesh(cfg)
         self.banks = cfg.runtime.banks
-        self._setup(cfg, vit_params, device, graphs, (self.banks,))
+        mesh, self._mine = _config_mesh(cfg, mesh, self.banks, "runtime.banks", device)
+        width = self._mine.stop - self._mine.start
+        self._setup(cfg, vit_params, device, graphs, (width,), mesh, banks=self.banks)
 
     def init(self, frame, bboxes) -> None:
         """bboxes [K, 4], bank k seeded with filter.seed + k."""
-        seeds = [int(self.cfg.filter.seed) + k for k in range(self.banks)]
-        self._start(frame, np.asarray(bboxes, np.float32).reshape(self.banks, 4), seeds)
+        seeds = [int(self.cfg.filter.seed) + k for k in range(self.banks)][self._mine]
+        self._start(frame, np.asarray(bboxes, np.float32).reshape(self.banks, 4)[self._mine], seeds)
 
     def step(self, frame) -> list[dict[str, Any]]:
         """Track one frame for every bank -> one host-side record a bank
         (the JAX package's keys), after one wait for the card."""
         t0 = time.perf_counter()
-        out = self._read(self._advance(self.stage(frame)))
+        out = self._read(self._all_banks(self._advance(self.stage(frame))))
         ms = (time.perf_counter() - t0) * 1e3
         k = self.banks
         v = out.astype(np.float64)
@@ -154,12 +168,16 @@ class MultiTracker(_GraphStepper):
         frame index 0 and the other banks are untouched. On the card the
         fresh row (lost flag and lost count cleared) is copied into the
         graph's static buffers, which the graph and its branch predicates
-        read in place."""
+        read in place. On a mesh every rank calls it, and the ranks that
+        hold bank k re-target it."""
         if self._state is None:
             raise RuntimeError("call init() first")
         if not 0 <= k < self.banks:
             raise IndexError(f"bank {k} out of range [0, {self.banks})")
         seed = int(self.cfg.filter.seed) + k if seed is None else int(seed)
+        if not self._mine.start <= k < self._mine.stop:
+            return
+        k -= self._mine.start  # this rank's row
         bbox_t = torch.as_tensor(np.asarray(bbox, np.float32).reshape(4), device=self.device)
         fresh = state_leaves(self._fns.init(self.vit_params, self._frame(frame), bbox_t, seed))
         if self.graphs:
@@ -184,17 +202,22 @@ class MultiStreamTracker(_GraphStepper):
     MultiTracker.
     """
 
-    def __init__(self, cfg: Config, num_streams: int, vit_params=None, device="cuda", graphs: bool = True):
+    def __init__(self, cfg: Config, num_streams: int, vit_params=None, device="cuda", graphs: bool = True,
+                 mesh: Mesh | None = None):
         cfg.resolve()
-        _refuse_mesh(cfg)
         self.k = num_streams
-        self._setup(cfg, vit_params, device, graphs, (num_streams,))
+        mesh, mine = _config_mesh(cfg, mesh, num_streams, "num_streams", device)
+        self._setup(cfg, vit_params, device, graphs, (mine.stop - mine.start,), mesh, banks=num_streams)
+        if mesh is not None:
+            self._frame_sl = mine  # each frame batch [K, ...]: this rank's streams
 
     def init(self, frames, bboxes, seeds=None) -> None:
         """frames [K, H, W, 3]; bboxes [K, 4]; seeds [K] (default seed + i)."""
         if seeds is None:
             seeds = [int(self.cfg.filter.seed) + i for i in range(self.k)]
-        self._start(frames, np.asarray(bboxes, np.float32).reshape(self.k, 4), [int(s) for s in seeds])
+        mine = self._frame_sl or slice(0, self.k)
+        self._start(frames[mine], np.asarray(bboxes, np.float32).reshape(self.k, 4)[mine],
+                    [int(s) for s in seeds][mine])
 
     def track_clips_device(self, clips_dev: torch.Tensor):
         """clips_dev [T, K, H, W, 3] -> TrackOutput [T, K]: T batched steps."""

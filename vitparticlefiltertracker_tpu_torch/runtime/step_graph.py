@@ -23,7 +23,9 @@ are captured on a stream of their own, into a memory pool of their own.
 A replay does not call the kernel wrappers, so their launch counts would
 stand still: the graph records what its capture added to the counts outside
 the branches (the capture launches nothing) and adds it again on each
-replay. Each branch body also adds one to a counter on the card when it
+replay. The mesh's collectives (parallel/mesh.py) are counted the same way:
+they are captured on the capture stream (or a body's stream) like any
+kernel, after the warm-up has run each of them once eagerly. Each branch body also adds one to a counter on the card when it
 runs; ``settle_counts`` reads those counters (one wait) and adds each
 body's launches once for every time it ran. Warm-up launches are not
 counted.
@@ -40,9 +42,12 @@ import torch
 from vitparticlefiltertracker_tpu_torch.filters.particle import PFState, StepNoise
 from vitparticlefiltertracker_tpu_torch.ops import attention
 from vitparticlefiltertracker_tpu_torch.ops import patchify_window
+from vitparticlefiltertracker_tpu_torch.parallel import mesh
 
-# Each kernel wrapper with the name of its by-shape Counter.
-_COUNTED = ((attention.flash_attention, "shapes"), (patchify_window.gather_patchify_window, "sizes"))
+# Each counted call (the kernel wrappers, then the mesh's collectives) with
+# the name of its by-shape Counter.
+_COUNTED = ((attention.flash_attention, "shapes"), (patchify_window.gather_patchify_window, "sizes"),
+            (mesh.all_gather, "shapes"), (mesh.all_reduce, "shapes"))
 
 
 def read_counts() -> list[tuple[int, Counter]]:

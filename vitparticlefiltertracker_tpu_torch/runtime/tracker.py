@@ -25,7 +25,9 @@ JAX package.
 The step takes an optional leading bank axis on every state leaf (K
 independent filters, each with its own seed, in one batched step: one ViT
 forward at B = K), which is how ``runtime/banked.py`` gets the JAX
-package's ``vmap`` of this same step.
+package's ``vmap`` of this same step. On a mesh (``parallel/mesh.py``, the
+JAX package's ``runtime.mesh_*``) each rank runs the step with its share of
+the particle scoring and of the ViT, the collectives inside the step.
 """
 
 from __future__ import annotations
@@ -65,17 +67,24 @@ from vitparticlefiltertracker_tpu_torch.ops.image import (
     view_extract_window_mxu,
 )
 from vitparticlefiltertracker_tpu_torch.ops.likelihood import (
+    _cos_to_template,
     auto_blend_target,
     cosine_log_likelihood,
     l2_normalize_split,
     landscape_spread,
-    znormed_log_likelihood,
     znormed_logits_from_cos,
 )
 from vitparticlefiltertracker_tpu_torch.ops.patchify import gather_patchify
 from vitparticlefiltertracker_tpu_torch.ops.patchify_window import (
     window_gather_patchify,
     window_gather_patchify_plain,
+)
+from vitparticlefiltertracker_tpu_torch.parallel.mesh import (
+    Mesh,
+    all_gather,
+    check_tp_divisibility,
+    make_mesh,
+    vit_param_shard,
 )
 from vitparticlefiltertracker_tpu_torch.runtime.step_graph import (
     RunIf,
@@ -236,7 +245,25 @@ def step_branches(cfg: Config) -> tuple[bool, int]:
     return probe, cfg.tracker.redetect_global_after
 
 
-def build_tracker_fns(cfg: Config) -> _Fns:
+def refuse_cross_card_branches(cfg: Config, mesh: Mesh) -> None:
+    """Raise NotImplementedError for a step graph whose IF-node bodies would
+    hold collectives across cards: a "model" axis above 1 puts all-reduces
+    in every ViT forward, and the probe's and the scan's bodies run one.
+    NCCL collectives across cards inside a conditional node fail to capture
+    (on 4 H100s: "CUDA error: invalid argument" at the capture's end; at one
+    rank NCCL moves nothing and the capture holds). The eager step
+    (graphs=False) branches on the host and is not refused."""
+    probe, n_after = step_branches(cfg)
+    if mesh.shape["model"] > 1 and (probe or n_after > 0):
+        raise NotImplementedError(
+            f"runtime.mesh_model {mesh.shape['model']} with the step's lost-only branches (the probe or global "
+            "re-detection): their IF-node bodies would hold all-reduces across cards, which NCCL does not capture "
+            "in a conditional node; use graphs=False, mesh_model 1, or a config without the branches "
+            "(ROADMAP.md §3, F6)"
+        )
+
+
+def build_tracker_fns(cfg: Config, mesh: Mesh | None = None) -> _Fns:
     """Build (init_fn, step_fn, track_clip_fn, track_chunk_fn) for a dense- or
     crop-mode config.
 
@@ -278,20 +305,34 @@ def build_tracker_fns(cfg: Config) -> _Fns:
     nothing (the capture's IF nodes, or one that always runs the body), and
     noise and, with the scan configured, reseed, the step is capturable in
     a CUDA graph: no host read and no copy from host memory runs in it.
+
+    mesh (parallel/mesh.py): the step of one rank of a mesh, its parameters
+    this rank's (vit_param_shard). The ViT runs tensor-parallel over
+    "model"; the per-particle scoring (the fused scorer, or a crop each
+    through K2 and the ViT) runs on this rank's contiguous N / P slice of
+    the particles and its results are all-gathered over "particle"; the
+    state stays whole on every rank, and everything after the scoring runs
+    on the full vectors, as without a mesh. So every rank computes the same
+    state and the same branch predicates.
     """
     t = cfg.tracker
     m = cfg.model
     mode = t.mode
+    n = cfg.filter.num_particles
+    if mesh is not None:
+        check_tp_divisibility(m.heads, m.mlp_dim, mesh.shape["model"])
+        if n % mesh.shape["particle"]:
+            raise ValueError(f"filter.num_particles {n} must divide by the particle axis {mesh.shape['particle']}")
     if mode == "crop":
         # Each crop is its own image of crop_size px, position embeddings on
         # (the first g*g rows of pos_embed).
-        spec = VitSpec.from_config(m)._replace(image_size=t.crop_size)
+        spec = VitSpec.from_config(m)._replace(image_size=t.crop_size, mesh=mesh)
         split = None
     else:
         es = DenseEmbedSpec.from_config(cfg)
+        es = es._replace(vit=es.vit._replace(mesh=mesh))
         split = es.split
     pfp = _pf_params(cfg)
-    n = cfg.filter.num_particles
     temp = cfg.filter.likelihood_temp
     zscale = cfg.filter.likelihood_zscale
     use_znorm = cfg.filter.likelihood == "zcos"
@@ -361,6 +402,19 @@ def build_tracker_fns(cfg: Config) -> _Fns:
         if mode == "dense":
             return make_dense_embedder(prm, view, center, side, es)
         return lambda bxy, bwh: crop_embeddings(prm, view, center, side, bxy, bwh)
+
+    def score_particles(score, boxes_xy, boxes_wh):
+        """score(boxes_xy, boxes_wh) -> per-particle rows ([..., N] tensors,
+        the last the in-window mask). Under a mesh, on this rank's slice of
+        the particles, then all-gathered over "particle" in one collective."""
+        if mesh is None:
+            return score(boxes_xy, boxes_wh)
+        per = n // mesh.shape["particle"]
+        lo = mesh.coords["particle"] * per
+        rows = score(boxes_xy[..., lo:lo + per, :], boxes_wh[..., lo:lo + per, :])
+        local = torch.stack([r.to(torch.float32) for r in rows])  # [R, ..., N / P]
+        whole = all_gather(local, mesh, "particle").movedim(0, -2).reshape(*local.shape[:-1], n)
+        return tuple(w != 0 if r.dtype == torch.bool else w.to(r.dtype) for w, r in zip(whole, rows))
 
     def init_fn(prm, frame, bbox: torch.Tensor, seed, cloud=None) -> TrackerState:
         """bbox: [4] (x, y, w, h) frame px and one seed; or [K, 4] and K
@@ -488,7 +542,7 @@ def build_tracker_fns(cfg: Config) -> _Fns:
             # Two blends from one scoring pass: the gates' cosine at the
             # static blend, the likelihood's at max(running, target) (fast
             # attack), or the static one while lost.
-            cos_f, cos_h, in_win = pool.score_halves(tmpl, boxes_xy, boxes_wh)
+            cos_f, cos_h, in_win = score_particles(functools.partial(pool.score_halves, tmpl), boxes_xy, boxes_wh)
             b_run = torch.where(state.blend >= 0.0, state.blend, ab_init)
             b_static = split[1]
             cos = (1.0 - b_static) * cos_f + b_static * cos_h
@@ -502,7 +556,7 @@ def build_tracker_fns(cfg: Config) -> _Fns:
             cos_loc = (1.0 - b_use) * cos_f + b_use * cos_h
             loglik = znormed_logits_from_cos(cos_loc, zscale, mask=in_win) if use_znorm else temp * cos_loc
         elif mode == "dense":
-            cos, in_win = pool.score(tmpl, boxes_xy, boxes_wh)
+            cos, in_win = score_particles(functools.partial(pool.score, tmpl), boxes_xy, boxes_wh)
             if use_znorm:
                 # Masked stats: out-of-window particles' clamped-edge cosines
                 # must not skew mu/sd.
@@ -510,11 +564,12 @@ def build_tracker_fns(cfg: Config) -> _Fns:
             else:
                 loglik = temp * cos
         else:
-            emb, in_win = pool(boxes_xy, boxes_wh)
-            if use_znorm:
-                loglik, cos = znormed_log_likelihood(emb, tmpl, zscale, mask=in_win, split=split, batch_dims=nb)
-            else:
-                loglik, cos = cosine_log_likelihood(emb, tmpl, temp, split=split, batch_dims=nb)
+            def crop_cos(bxy, bwh):
+                emb, ok = pool(bxy, bwh)
+                return _cos_to_template(emb, tmpl, split, nb), ok
+
+            cos, in_win = score_particles(crop_cos, boxes_xy, boxes_wh)
+            loglik = znormed_logits_from_cos(cos, zscale, mask=in_win) if use_znorm else temp * cos
         loglik = torch.where(in_win, loglik, loglik - 1e4)
 
         out = pf_update(particles, state.pf.log_weights, loglik, noise.resample_u, pfp)
@@ -891,25 +946,44 @@ class _GraphStepper:
     (runtime/step_graph.py), so step_device, step_packed and
     track_clip_device wait for nothing on any config. The eager step
     chooses them on the host (a wait a branch).
+
+    On a mesh (parallel/mesh.py) this object is one rank's: its weights are
+    the rank's "model" shard, its step scores its "particle" slice, and its
+    banks (`lead`) are its "bank" slice; the collectives are captured in the
+    step's graph beside the kernels. The rows it returns hold every bank
+    (all-gathered over "bank" after the step), so every rank returns the
+    same outputs. On CUDA the rank's card is cuda:mesh.local_rank.
     """
 
-    def _setup(self, cfg: Config, vit_params, device, graphs: bool, lead: tuple[int, ...]) -> None:
+    def _setup(self, cfg: Config, vit_params, device, graphs: bool, lead: tuple[int, ...],
+               mesh: Mesh | None = None, banks: int | None = None) -> None:
         from vitparticlefiltertracker_tpu_torch.models.params import resolve_vit_params
 
         self.cfg = cfg
         self.device = resolve_device(device)
-        spec = VitSpec.from_config(cfg.model)
+        self.mesh = mesh
+        if mesh is not None:
+            backend = "nccl" if self.device.type == "cuda" else "gloo"
+            if mesh.backend != backend:
+                raise ValueError(f"a {self.device.type} tracker needs a {backend} mesh, got {mesh.backend}")
+            if self.device.type == "cuda" and self.device.index is None:
+                self.device = torch.device("cuda", mesh.local_rank)
+        spec = VitSpec.from_config(cfg.model)._replace(mesh=mesh)
         if cfg.tracker.mode == "crop":
             spec = spec._replace(image_size=cfg.tracker.crop_size)
         self.spec = spec
-        self._fns = build_tracker_fns(cfg)
-        self.vit_params = resolve_vit_params(cfg, vit_params, self.device)
+        self._fns = build_tracker_fns(cfg, mesh)
+        self.vit_params = self._shard(resolve_vit_params(cfg, vit_params, self.device))
         self.graphs = graphs and self.device.type == "cuda"
+        if self.graphs and mesh is not None:
+            refuse_cross_card_branches(cfg, mesh)
         self._donate = bool(cfg.runtime.donate_state)
         self._n_after = cfg.tracker.redetect_global_after
         self._n = cfg.filter.num_particles
         self._lead = lead
-        self._k = int(np.prod(lead, dtype=np.int64))  # filters a step
+        self._k = int(np.prod(lead, dtype=np.int64))  # filters a step on this rank
+        self._k_all = self._k if banks is None else banks  # filters a step on the mesh
+        self._frame_sl: slice | None = None  # a multi-stream rank's streams of a frame batch
         self._state: TrackerState | None = None
         self._static: TrackerState | None = None  # the graph's state buffers
         self._step_graphs: dict = {}  # (frame shape, dtype) -> StepGraphs
@@ -952,7 +1026,24 @@ class _GraphStepper:
                     d.copy_(s)
 
         with torch.no_grad():
-            copy_into(self.vit_params, resolve_vit_params(self.cfg, vit_params, self.device), "")
+            copy_into(self.vit_params, self._shard(resolve_vit_params(self.cfg, vit_params, self.device)), "")
+
+    def _shard(self, params: dict) -> dict:
+        """This rank's part of a weight tree (the whole tree without a mesh)."""
+        return params if self.mesh is None else vit_param_shard(self.mesh, params)
+
+    def _all_banks(self, row: torch.Tensor) -> torch.Tensor:
+        """A step's [10 K_local] row -> the mesh's [10 K] row in the packed
+        layout (each field's banks in global order): all-gathered over "bank"
+        on a banked tracker's mesh; the row itself otherwise."""
+        if self.mesh is None or not self._lead:
+            return row
+        rows = all_gather(row, self.mesh, "bank")  # [B, 10 K_local]
+        k, fields, i = self._k, [], 0
+        for width in _FIELD_WIDTHS:
+            fields.append(rows[:, i * k:(i + width) * k].reshape(-1))
+            i += width
+        return torch.cat(fields)
 
     # -- state ---------------------------------------------------------------
     @property
@@ -1019,9 +1110,10 @@ class _GraphStepper:
         seeds, idx = self._seed.tolist(), self._frame_idx.tolist()
         noise = draw_step_noise(seeds, idx, self._n, dev)
         reseed = draw_reseed_noise(seeds, idx, self._n, dev) if self._n_after > 0 else None
+        mine = frame if self._frame_sl is None else frame[self._frame_sl]
         if self.graphs:
-            sg = self._graphs_for(frame)
-            sg.inputs[0].copy_(frame, non_blocking=True)
+            sg = self._graphs_for(mine)
+            sg.inputs[0].copy_(mine, non_blocking=True)
             self.staging.copied(frame)
             for dst, src in zip(sg.noise, noise):
                 dst.copy_(src)
@@ -1031,7 +1123,7 @@ class _GraphStepper:
             if not self._donate:
                 self._state = clone_state(self._static)
         else:
-            frame_dev = frame.to(dev, non_blocking=True)
+            frame_dev = mine.to(dev, non_blocking=True)
             self.staging.copied(frame)
             self._state, row = self._body(self._state, frame_dev, noise, reseed, None)
         self._frame_idx = self._frame_idx + 1
@@ -1179,7 +1271,7 @@ class _GraphStepper:
         return self.staging.stage(frame)
 
     def _banks(self) -> int | None:
-        return self._lead[0] if self._lead else None
+        return self._k_all if self._lead else None
 
     def step_device(self, frame_dev) -> TrackOutput:
         """Track one frame already on the device (or staged by ``stage``),
@@ -1200,16 +1292,16 @@ class _GraphStepper:
             self.staging.copied(tv.pixels)  # staged slots: their copies are enqueued
             self.staging.copied(tv.origin)
             return row
-        return self._advance(frame_dev).clone()
+        return self._all_banks(self._advance(frame_dev)).clone()
 
     def track_clip_device(self, frames_dev: torch.Tensor) -> TrackOutput:
         """Track a staged clip [T, ...] (a frame, or K frames, a step) on the
         device -> TrackOutput with a leading T axis, the same as T sequential
         steps: T replays, each row copied into a [T, 10 K] buffer on the
         device. Waits for nothing on the card."""
-        rows = torch.empty((frames_dev.shape[0], 10 * self._k), dtype=torch.float32, device=self.device)
+        rows = torch.empty((frames_dev.shape[0], 10 * self._k_all), dtype=torch.float32, device=self.device)
         for i in range(frames_dev.shape[0]):
-            rows[i].copy_(self._advance(frames_dev[i]))
+            rows[i].copy_(self._all_banks(self._advance(frames_dev[i])))
         return unpack_track_output(rows, self._banks())
 
 
@@ -1222,17 +1314,26 @@ class Tracker(_GraphStepper):
     runtime/banked.py's MultiTracker tracks K). Each step is a graph replay
     on the card (see _GraphStepper); ``step`` waits once a step in any
     config, for its record.
+
+    mesh: a parallel.mesh.Mesh with a "bank" axis of 1, or None, when
+    runtime.mesh_particles * mesh_model > 1 makes one (make_mesh over the
+    default process group, NCCL on the card). Every rank of the mesh makes
+    its Tracker and calls the same methods on the same inputs, and gets the
+    same records.
     """
 
-    def __init__(self, cfg: Config, vit_params=None, device="cuda", graphs: bool = True):
+    def __init__(self, cfg: Config, vit_params=None, device="cuda", graphs: bool = True, mesh: Mesh | None = None):
         cfg.resolve()
+        # runtime.mesh_particles / mesh_model shard the single-object
+        # tracker over ranks: the particle axis over "particle", the ViT
+        # tensor-parallel over "model" (parallel/mesh.py). mesh_banks belongs
+        # to the banked tracker.
         r = cfg.runtime
-        if r.mesh_particles * r.mesh_model > 1:
-            raise NotImplementedError(
-                f"runtime.mesh_particles {r.mesh_particles} x mesh_model {r.mesh_model} (multi-GPU) "
-                "is not ported yet; see ROADMAP.md (open items §1, Multi-GPU)"
-            )
-        self._setup(cfg, vit_params, device, graphs, ())
+        if r.mesh_banks > 1 or (mesh is not None and mesh.shape["bank"] > 1):
+            raise ValueError("runtime.mesh_banks > 1 requires runtime.banks > 1 (the banked MultiTracker)")
+        if mesh is None and r.mesh_particles * r.mesh_model > 1:
+            mesh = make_mesh(1, r.mesh_particles, r.mesh_model, device=resolve_device(device))
+        self._setup(cfg, vit_params, device, graphs, (), mesh)
 
     @_GraphStepper.state.setter
     def state(self, value: TrackerState) -> None:
@@ -1246,9 +1347,14 @@ class Tracker(_GraphStepper):
         self._start(frame, bbox, int(self.cfg.filter.seed))
 
     def save(self, path: str) -> None:
+        """Write the state (the whole state, as without a mesh; on a mesh
+        rank 0 writes it, and every rank returns once it is written)."""
         if self._state is None:
             raise RuntimeError("nothing to save before init()")
-        save_tracker_state(path, self._state)
+        if self.mesh is None or self.mesh.rank == 0:
+            save_tracker_state(path, self._state)
+        if self.mesh is not None:
+            torch.distributed.barrier()
 
     def resume(self, path: str) -> None:
         """Restore a saved state; later steps continue its trajectory. The seed

@@ -17,7 +17,15 @@ the clip and their values back after AdamW's decoupled decay.
 
 Checkpoints are written with models/params.py in the repo's npz format, so
 ``model.checkpoint: <path>`` in any tracker config (either package's) reads
-them. The JAX package's data-parallel mesh is not ported (one card).
+them.
+
+Data parallelism (``make_data_mesh``, ``build_train_step(..., mesh=)``): one
+process a rank, each drawing the whole batch's scene and loss draws from
+the step's generator and rendering and embedding only its B / n slice; the
+summed loss, metrics and gradients are all-reduced over "data" (a mean over
+the global batch) before the clip, so AdamW runs replicated on the same
+gradients on every rank. ``train_features`` goes data-parallel over the
+whole process group when it has more than one rank.
 """
 
 from __future__ import annotations
@@ -29,6 +37,7 @@ import sys
 import time
 
 import torch
+import torch.distributed as dist
 
 from vitparticlefiltertracker_tpu_torch.filters.particle import make_generator
 from vitparticlefiltertracker_tpu_torch.models.embedder import DenseEmbedSpec
@@ -41,8 +50,9 @@ from vitparticlefiltertracker_tpu_torch.models.params import (
     trunk_key,
 )
 from vitparticlefiltertracker_tpu_torch.ops.image import imagenet_stats
-from vitparticlefiltertracker_tpu_torch.training.data import make_pair_batch
-from vitparticlefiltertracker_tpu_torch.training.objective import batch_loss, ring_offsets
+from vitparticlefiltertracker_tpu_torch.parallel.mesh import Mesh, all_reduce, build_mesh
+from vitparticlefiltertracker_tpu_torch.training.data import draw_scene, render_scene
+from vitparticlefiltertracker_tpu_torch.training.objective import batch_loss, draw_loss, ring_offsets
 from vitparticlefiltertracker_tpu_torch.utils.platform import resolve_device
 
 _DECAY_LEAVES = {"wqkv", "wo", "w1", "w2", "kernel"}  # matmul weights only
@@ -144,7 +154,19 @@ def _freeze_plan(cfg, depth: int):
     return (lambda name: not name.startswith(("patch_embed/", "pos_embed"))), n
 
 
-def build_train_step(cfg, device="cuda"):
+def make_data_mesh(n_devices: int, device="cuda") -> Mesh:
+    """One-axis ("data",) mesh over the first n ranks of the default
+    process group (initialised for `device` if it is not yet)."""
+    return build_mesh(("data",), (n_devices,), device, f"{n_devices} data")
+
+
+def _rows(tree, sl: slice):
+    """A batch NamedTuple (SceneBatch, SceneDraws, LossDraws) cut to the
+    samples `sl` along every field's leading batch axis (None stays None)."""
+    return type(tree)(*(None if x is None else x[sl] for x in tree))
+
+
+def build_train_step(cfg, device="cuda", mesh: Mesh | None = None):
     """-> (init_fn, step_fn) on `device` (the card unless "cpu").
 
     init_fn(params=None) -> (params, opt): f32 master weights (the JAX
@@ -159,9 +181,23 @@ def build_train_step(cfg, device="cuda"):
     step_fn.grads(params, step, batch=None, draws=None) -> (loss, metrics,
         grads): the step without the update; grads by leaf name, frozen
         parts zero.
+
+    mesh: a ("data",) mesh (make_data_mesh), or None. Each rank renders and
+    embeds its contiguous B / n slice of the batch the step's generator
+    draws (a given batch or draws are the global batch's, and cut the same
+    way), and loss, metrics and gradients are summed over "data" in one
+    all-reduce and divided by n before the clip: every rank then applies
+    the same update to replicated weights.
     """
     tr = cfg.train
     dev = torch.empty(0, device=resolve_device(device)).device
+    mine = None
+    if mesh is not None:
+        n_data = mesh.shape["data"]
+        if tr.batch_size % n_data:
+            raise ValueError(f"train.batch_size {tr.batch_size} must divide by the data-parallel axis {n_data}")
+        per = tr.batch_size // n_data
+        mine = slice(mesh.coords["data"] * per, (mesh.coords["data"] + 1) * per)
     es = _train_embed_spec(cfg)
     trained, pinned_depth = _freeze_plan(cfg, es.vit.depth)
     kw = dict(
@@ -193,8 +229,19 @@ def build_train_step(cfg, device="cuda"):
 
     def grad_fn(params, step: int, batch=None, draws=None):
         gen = make_generator(tr.seed ^ DATA_STREAM_XOR, step, dev)
+        # The whole batch's draws, in make_pair_batch's and batch_loss's
+        # order, then this rank's slice of each (all of it without a mesh).
+        b_all = tr.batch_size if batch is None else batch.p0.shape[0]
+        sl = slice(0, b_all) if mine is None else mine
         if batch is None:
-            batch = make_pair_batch(gen, tr.batch_size, tr.canvas, tr.lookalike_frac, tr.blur_prob, tr.blur_sigma)
+            scene = draw_scene(gen, tr.batch_size, tr.canvas, tr.lookalike_frac, tr.blur_prob, tr.blur_sigma)
+            batch = render_scene(_rows(scene, sl), tr.canvas, tr.blur_prob)
+        else:
+            batch = _rows(batch, sl)
+        if draws is None:
+            n_cloud = tr.cloud_particles if tr.cloud_weight > 0.0 else 0
+            draws = draw_loss(gen, b_all, tr.num_random_negatives, n_cloud)
+        draws = _rows(draws, sl)
         loss, metrics = batch_loss(params, es, batch, draws, gen, **kw)
         leaves = {k: v for k, v in _flatten(params).items() if v.requires_grad}
         got = torch.autograd.grad(loss, list(leaves.values()), allow_unused=True)
@@ -204,7 +251,23 @@ def build_train_step(cfg, device="cuda"):
             if pinned_depth and k.startswith("blocks/"):
                 g[:pinned_depth] = 0.0
             grads[k] = g
-        return loss.detach(), {k: v.detach() for k, v in metrics.items()}, grads
+        loss, metrics = loss.detach(), {k: v.detach() for k, v in metrics.items()}
+        if mesh is not None:
+            loss, metrics, grads = _data_mean(loss, metrics, grads)
+        return loss, metrics, grads
+
+    def _data_mean(loss, metrics: dict, grads: dict):
+        """The means over the global batch: one all-reduce over "data" of
+        the rank's loss, metrics and gradients, packed into one buffer."""
+        parts = [loss, *metrics.values(), *grads.values()]
+        flat = all_reduce(torch.cat([x.reshape(-1).to(torch.float32) for x in parts]), mesh, "data")
+        flat = flat / mesh.shape["data"]
+        out, i = [], 0
+        for x in parts:
+            out.append(flat[i:i + x.numel()].reshape(x.shape).to(x.dtype))
+            i += x.numel()
+        k = len(metrics)
+        return out[0], dict(zip(metrics, out[1:1 + k])), dict(zip(grads, out[1 + k:]))
 
     def step_fn(params, opt: TrainOptimizer, step: int, batch=None, draws=None):
         loss, metrics, grads = grad_fn(params, step, batch, draws)
@@ -229,8 +292,19 @@ def train_features(cfg, log=None, device="cuda") -> dict:
     tr = cfg.train
     if log is None:
         log = lambda s: print(s, file=sys.stderr)  # noqa: E731
-    dev = torch.empty(0, device=resolve_device(device)).device
-    init_fn, step_fn = build_train_step(cfg, dev)
+    # Data-parallel over every rank of the process group (torchrun), when
+    # there is more than one and they divide the batch.
+    n_dev = dist.get_world_size() if dist.is_initialized() else int(os.environ.get("WORLD_SIZE", 1))
+    mesh = None
+    if n_dev > 1 and tr.batch_size % n_dev == 0:
+        mesh = make_data_mesh(n_dev, resolve_device(device))
+        log(f"data-parallel training over {n_dev} devices")
+    elif n_dev > 1:
+        log(f"train.batch_size {tr.batch_size} not divisible by {n_dev} devices; running single-device")
+    dev = torch.empty(0, device=resolve_device(device)).device  # the rank's card: current since make_data_mesh
+    # Rank 0 of the process group writes the files, with or without a mesh.
+    writer = not dist.is_initialized() or dist.get_rank() == 0
+    init_fn, step_fn = build_train_step(cfg, dev, mesh=mesh)
 
     probe = None
     if tr.eval_every > 0:
@@ -270,9 +344,9 @@ def train_features(cfg, log=None, device="cuda") -> dict:
         # The step-0 probe: the starting weights under the same settings,
         # logged only (never selected).
         log(json.dumps({k: round(v, 2) for k, v in probe(params).items()} | {"step": 0}))
-    if tr.metrics_out:
+    if tr.metrics_out and writer:
         os.makedirs(os.path.dirname(tr.metrics_out) or ".", exist_ok=True)
-    metrics_f = open(tr.metrics_out, "w") if tr.metrics_out else None
+    metrics_f = open(tr.metrics_out, "w") if tr.metrics_out and writer else None
     t0 = time.perf_counter()
     try:
         for i in range(tr.steps):
@@ -299,7 +373,7 @@ def train_features(cfg, log=None, device="cuda") -> dict:
         if best["params"] is not None:
             log(f"checkpoint selection: step {best['step']} (probe_rmse {best['rmse']:.2f}px) of {tr.steps}")
             params = best["params"]
-        if tr.checkpoint_out:
+        if tr.checkpoint_out and writer:
             os.makedirs(os.path.dirname(tr.checkpoint_out) or ".", exist_ok=True)
             to_save = _to_host(params)
             if tr.checkpoint_dtype == "bfloat16":

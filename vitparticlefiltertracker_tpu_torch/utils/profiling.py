@@ -2,9 +2,11 @@
 ``utils/profiling.py``, on ``torch.profiler`` and CUDA events.
 
 ``trace`` dumps a host and device trace when a directory is given and costs
-nothing otherwise; ``device_time_by_kernel`` reads a trace's device time by
-kernel name; ``profiled_step_device_ms`` times a tracker step on the card
-with CUDA events (runtime/benchmark.py's device span).
+nothing otherwise; ``device_kernels`` reads a trace's device time and calls
+by kernel name (the one reader of ``key_averages()`` for the port's profile
+tools), ``device_time_by_kernel`` its times alone; ``profiled_step_device_ms``
+times a tracker step on the card with CUDA events (runtime/benchmark.py's
+device span).
 """
 
 from __future__ import annotations
@@ -13,7 +15,7 @@ import contextlib
 import os
 import statistics
 import time
-from typing import Any, Callable
+from typing import Any, Callable, NamedTuple
 
 import torch
 
@@ -37,15 +39,25 @@ def trace(profile_dir: str = ""):
     prof.export_chrome_trace(os.path.join(profile_dir, f"trace_{os.getpid()}_{time.time_ns()}.json"))
 
 
-def device_time_by_kernel(prof) -> dict[str, float]:
-    """Device time (ms) by kernel name from a finished profile: CUDA events
-    only (kernels, copies, memsets), summed over their calls; the CPU
-    operators that launched them are left out, since they report the same
-    device time again."""
+class KernelTime(NamedTuple):
+    ms: float  # device time, summed over the calls
+    calls: int
+
+
+def device_kernels(prof) -> dict[str, KernelTime]:
+    """Device time (ms) and calls by kernel name from a finished profile:
+    CUDA events only (kernels, copies, memsets), summed over their calls; the
+    CPU operators that launched them are left out, since they report the
+    same device time again."""
     from torch.autograd import DeviceType
 
-    return {e.key: e.self_device_time_total / 1e3 for e in prof.key_averages()
+    return {e.key: KernelTime(e.self_device_time_total / 1e3, e.count) for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0}
+
+
+def device_time_by_kernel(prof) -> dict[str, float]:
+    """device_kernels' device times (ms) by kernel name."""
+    return {k: v.ms for k, v in device_kernels(prof).items()}
 
 
 def profiled_step_device_ms(step: Callable[[int], Any], device: torch.device, steps: int = 24) -> float | None:
