@@ -8,8 +8,9 @@ Run from the root of a checkout, with one NVIDIA Hopper card:
 Phases, each timed and printed:
   1. device   — card name and power limit; TF32 off for f32 matmuls.
   2. build    — nvcc builds kernels K1 (csrc/flash_attn.cu) and K2
-                (csrc/window_patchify.cu) and the IF-node helper of the
-                step's graph (csrc/graph_if.cu) into ctypes .so files, the
+                (csrc/window_patchify.cu), the IF-node helper of the step's
+                graph (csrc/graph_if.cu) and the "model" axis's peer
+                all-reduce (csrc/peer_allreduce.cu) into ctypes .so files, the
                 compiles started together (a cached library comes with its
                 saved ptxas report); prints the ptxas reports, checks that
                 no K2 kernel spills and, with cuobjdump -sass, that K2's
@@ -132,14 +133,32 @@ Phases, each timed and printed:
                 waits, a replay profiled), (b) eval3 at full width
                 (ViT-L/16, 4096 particles, 1080p; its RMSE bound), (c) the
                 robust path, whose IF-node bodies (probe, scan) hold the
-                forward's all-reduces, (d) eval4 banked through
+                forward's peer all-reduces, (d) eval4 banked through
                 MultiTracker, (e) configs/train-head.yaml through
                 build_train_step(mesh=make_data_mesh(1)) for 3 steps (loss
-                and weights bitwise). The collectives are counted as the
-                kernels are (a gather a scoring pass, 2 all-reduces a block
-                of every forward; one replay's tally of (a) and (b)) and the
-                step medians of both twins printed in turns.
- 10. times    — K1, its plain version and torch's scaled_dot_product_attention
+                and weights bitwise), (f) stream_track over (a)'s clip and
+                (g) serve's pipeline over the multistream path's 4 clips,
+                each through rank 0's MeshFeed (bitwise). The collectives
+                are counted as the kernels are (a gather a scoring pass, 2
+                peer all-reduce launches a block of every forward; one
+                replay's tally of (a) and (b)) and the step medians of both
+                twins printed in turns; the peer kernel at one rank timed.
+ 10. peer     — two processes spawned on cuda:0 in a gloo group of two
+                (NCCL refuses two ranks on one card; CUDA IPC works within
+                a card), make_mesh(1, 1, 2): the peer all-reduce kernel over
+                f32 partials into bf16 at [1, 196, 768], [1, 196, 1024]
+                and [49, 196, 768] (and into f32) against its plain version
+                (bitwise), both ranks equal, timed (the two contexts take
+                turns on the card); then the robust path (48 frames of
+                teleport) with the ViT split over "model" 2: the graph run,
+                whose probe and scan IF-node bodies hold the kernel, against
+                the mesh's eager run at every step (GRAPH_POS_TOL_PX), probes
+                and scans fired, the peer launches twice K1's, both ranks'
+                records equal, its distance from the mesh=None twin
+                reported (bf16 products over half the heads round otherwise);
+                in float32 on 8 frames, the first step within
+                GRAPH_POS_TOL_PX of the twin.
+ 11. times    — K1, its plain version and torch's scaled_dot_product_attention
                 (a yardstick the port never calls) on fused-qkv views at the
                 dense, crop (B 1024 and B 1), re-detection, banked (B 8),
                 multi-stream (B 4) and eval5 (B 1 and B 25, 16 heads) shapes
@@ -191,6 +210,7 @@ from vitparticlefiltertracker_tpu_torch.models import jax_random
 from vitparticlefiltertracker_tpu_torch.models import params as vit_params
 from vitparticlefiltertracker_tpu_torch.models.vit import VitSpec, vit_forward_tokens
 from vitparticlefiltertracker_tpu_torch.ops import _build, attention
+from vitparticlefiltertracker_tpu_torch.ops import peer_allreduce as par
 from vitparticlefiltertracker_tpu_torch.ops import patchify_window as pw
 from vitparticlefiltertracker_tpu_torch.ops.patchify import crop_sample_coords
 from vitparticlefiltertracker_tpu_torch import cli
@@ -833,18 +853,20 @@ def reset_counts() -> None:
     attention.flash_attention.shapes = Counter()
     pw.gather_patchify_window.launches = 0
     pw.gather_patchify_window.sizes = Counter()
-    for fn in (pmesh.all_gather, pmesh.all_reduce):
+    for fn in (pmesh.all_gather, pmesh.all_reduce, par.peer_all_reduce):
         fn.launches = 0
         fn.shapes = Counter()
 
 
 def read_counts() -> dict:
     """The launch counts, with those of the graphs' branch bodies that ran
-    (one wait, to read the graphs' counters); the collectives issued."""
+    (one wait, to read the graphs' counters); the collectives issued and the
+    peer all-reduce kernel's launches (by (group size, *shape))."""
     step_graph.settle_counts()
     return {"launches": attention.flash_attention.launches, "k1_shapes": dict(attention.flash_attention.shapes),
             "k2_launches": pw.gather_patchify_window.launches, "k2_sizes": dict(pw.gather_patchify_window.sizes),
-            "all_gathers": pmesh.all_gather.launches, "all_reduces": pmesh.all_reduce.launches}
+            "all_gathers": pmesh.all_gather.launches, "all_reduces": pmesh.all_reduce.launches,
+            "peer_launches": par.peer_all_reduce.launches, "peer_shapes": dict(par.peer_all_reduce.shapes)}
 
 
 # Graph against eager, same weights, same draws: the same kernels on the same
@@ -2210,12 +2232,13 @@ MESH_TRAIN_STEPS = 3  # (e)'s steps, at step indices 0..2 (the rate ramps from 0
 def replay_tally(tracker) -> dict:
     """What one replay of the tracker's (first) step graph adds to the
     counts outside its branches, as StepGraphs.counts holds them: K1
-    launches and the collectives the capture recorded."""
+    launches, the all-gathers and the peer all-reduce kernel's launches the
+    capture recorded (and each branch body's peer launches)."""
     sg = next(iter(tracker._step_graphs.values()))
     at = {f: i for i, (f, _) in enumerate(step_graph._COUNTED)}
     return {"k1": sg.counts[at[attention.flash_attention]][0], "all_gathers": sg.counts[at[pmesh.all_gather]][0],
-            "all_reduces": sg.counts[at[pmesh.all_reduce]][0],
-            "branch_all_reduces": [b[at[pmesh.all_reduce]][0] for b in sg.branch_counts]}
+            "peer_launches": sg.counts[at[par.peer_all_reduce]][0],
+            "branch_peer_launches": [b[at[par.peer_all_reduce]][0] for b in sg.branch_counts]}
 
 
 def profile_replay(tracker, frame) -> dict:
@@ -2287,21 +2310,23 @@ def check_mesh_twins(label: str, runs: list[dict], depth: int, gathers_a_step: i
               f"{label}: launches by shape on the mesh {m['k1_shapes']} == without {plain[0]['k1_shapes']}")
         check(m["all_gathers"] == gathers_a_step * steps,
               f"{label}: {m['all_gathers']} all-gathers == {gathers_a_step} a step x {steps}")
-        check(m["all_reduces"] == 2 * m["launches"] > 0,
-              f"{label}: {m['all_reduces']} all-reduces == 2 a block of every forward (K1 {m['launches']})")
+        check(m["peer_launches"] == 2 * m["launches"] > 0,
+              f"{label}: {m['peer_launches']} peer all-reduce launches == 2 a block of every forward "
+              f"(K1 {m['launches']})")
     for p in plain:
-        check(p["all_gathers"] == p["all_reduces"] == 0, f"{label}: no collective without a mesh")
+        check(p["all_gathers"] == p["peer_launches"] == 0, f"{label}: no collective without a mesh")
     med = [statistics.median(r["recs"][i]["step_ms"] for i in range(5, len(r["recs"]))) for r in runs]
     p_med = statistics.median(m for m, r in zip(med, runs) if r["kind"] == "plain")
     m_med = statistics.median(m for m, r in zip(med, runs) if r["kind"] == "mesh")
     tally = replay_tally(mesh[0]["tracker"])
     print(f"  {label}: records on make_mesh(1, 1, 1) == mesh=None ({'bitwise' if out['bitwise'] else 'within tol'}); "
-          f"collectives {mesh[0]['all_gathers']} all-gathers, {mesh[0]['all_reduces']} all-reduces; one replay: "
+          f"collectives {mesh[0]['all_gathers']} all-gathers, {mesh[0]['peer_launches']} peer all-reduces; one "
+          f"replay: "
           f"{tally}; step ms, median after 5, turns {'/'.join(r['kind'] for r in runs)}: "
           f"{'/'.join(f'{m:.3f}' for m in med)}; mesh {m_med:.3f}, mesh=None {p_med:.3f}", flush=True)
     return {**out, "step_ms_median": m_med, "plain_step_ms_median": p_med, "turn_medians_ms": med,
-            "all_gathers": mesh[0]["all_gathers"], "all_reduces": mesh[0]["all_reduces"], "replay": tally,
-            "k1_shapes": mesh[0]["k1_shapes"], "launches": mesh[0]["launches"]}
+            "all_gathers": mesh[0]["all_gathers"], "peer_launches": mesh[0]["peer_launches"], "replay": tally,
+            "k1_shapes": mesh[0]["k1_shapes"], "launches": mesh[0]["launches"], "peer_shapes": mesh[0]["peer_shapes"]}
 
 
 def run_mesh_dense(main_path: dict, mesh) -> dict:
@@ -2312,8 +2337,9 @@ def run_mesh_dense(main_path: dict, mesh) -> dict:
     runs = mesh_twin_runs("mesh (a) dense", lambda m: Tracker(cfg, vit_params=prm, device="cuda",
                                                                mesh=mesh if m else None), src)
     out = check_mesh_twins("mesh (a) dense", runs, cfg.model.depth)
-    check(out["replay"]["all_gathers"] == 1 and out["replay"]["all_reduces"] == 2 * cfg.model.depth,
-          f"mesh (a): one replay holds 1 all-gather and {2 * cfg.model.depth} all-reduces ({out['replay']})")
+    check(out["replay"]["all_gathers"] == 1 and out["replay"]["peer_launches"] == 2 * cfg.model.depth,
+          f"mesh (a): one replay holds 1 all-gather and {2 * cfg.model.depth} peer all-reduces "
+          f"({out['replay']})")
     tracker = runs[1]["tracker"]
     out.update(check_waits(tracker, list(src)[1:], 0, "mesh (a) dense"))
     out["profile"] = profile_replay(tracker, torch.from_numpy(src.frames[1]).cuda())
@@ -2331,8 +2357,9 @@ def run_mesh_eval3(mesh) -> dict:
     runs = mesh_twin_runs("mesh (b) eval3", lambda m: Tracker(cfg, vit_params=prm, device="cuda",
                                                                mesh=mesh if m else None), src)
     out = check_mesh_twins("mesh (b) eval3", runs, cfg.model.depth)
-    check(out["replay"]["all_gathers"] == 1 and out["replay"]["all_reduces"] == 2 * cfg.model.depth,
-          f"mesh (b): one replay holds 1 all-gather and {2 * cfg.model.depth} all-reduces ({out['replay']})")
+    check(out["replay"]["all_gathers"] == 1 and out["replay"]["peer_launches"] == 2 * cfg.model.depth,
+          f"mesh (b): one replay holds 1 all-gather and {2 * cfg.model.depth} peer all-reduces "
+          f"({out['replay']})")
     for r in runs:
         pos = np.array([x["position"] for x in r["recs"]])
         r["rmse"] = float(np.sqrt(np.mean(np.linalg.norm(pos - src.truth[1:], axis=1) ** 2)))
@@ -2347,8 +2374,8 @@ def run_mesh_eval3(mesh) -> dict:
 
 def run_mesh_robust(robust_path: dict, mesh) -> dict:
     """(c) the robust path (configs/robust-head.yaml, teleport gates, 48
-    frames): its probe and scan bodies, IF nodes of the graph, now hold the
-    forward's all-reduces; the mesh run equals mesh=None and takes the
+    frames): its probe and scan bodies, IF nodes of the graph, hold the
+    forward's peer all-reduces; the mesh run equals mesh=None and takes the
     branches on the same steps."""
     cfg, prm, src = robust_path["cfg"], robust_path["prm"], robust_path["src"]
     n_after = cfg.tracker.redetect_global_after
@@ -2358,9 +2385,9 @@ def run_mesh_robust(robust_path: dict, mesh) -> dict:
     out = check_mesh_twins("mesh (c) robust", runs, cfg.model.depth + cfg.model.head_depth)
     check(runs[1]["steps"] == runs[0]["steps"] and any(s[0] for s in runs[1]["steps"]),
           "mesh (c): the scans and accepted matches on the same steps as mesh=None, at least one scan")
-    branches = out["replay"]["branch_all_reduces"]
+    branches = out["replay"]["branch_peer_launches"]
     check(len(branches) == 2 and all(b > 0 for b in branches),
-          f"mesh (c): both IF-node bodies (probe, scan) hold all-reduces ({branches})")
+          f"mesh (c): both IF-node bodies (probe, scan) hold peer all-reduces ({branches})")
     out.update(check_waits(runs[1]["tracker"], list(src)[1:], 0, "mesh (c) robust"))
     return out
 
@@ -2406,10 +2433,61 @@ def run_mesh_train() -> dict:
     return {"losses": lm, "bitwise": same, "all_reduces": cm["all_reduces"]}
 
 
-def run_mesh_phase(main_path: dict, robust_path: dict, banked_path: dict) -> dict:
+def run_mesh_stream(main_path: dict, mesh) -> dict:
+    """(f) stream_track over the dense path's clip with a graph Tracker on
+    make_mesh(1, 1, 1): rank 0's MeshFeed copies each staged frame into its
+    device buffer and broadcasts it (to itself), then steps; the records
+    bitwise equal to the dense path's Tracker.run graph records (which
+    run_stream holds the mesh=None stream to); K1 and peer launches."""
+    cfg, src = main_path["cfg"], main_path["src"]
+    tracker = Tracker(cfg, vit_params=main_path["prm"], device="cuda", mesh=mesh)
+    recs = []
+    reset_counts()
+    stats = stream_track(tracker, src.frames, src.init_bbox, on_record=recs.append, readback_window=4)
+    counts = read_counts()
+    want = [{k: r[k] for k in STREAM_KEYS} for r in main_path["recs"]]
+    check(len(recs) == len(want) and all({k: r[k] for k in STREAM_KEYS} == w for r, w in zip(recs, want)),
+          f"mesh (f) stream: records == mesh=None Tracker.run's graph records, bitwise ({len(recs)})")
+    check(counts["k1_shapes"] == main_path["k1_shapes"] and counts["peer_launches"] == 2 * counts["launches"],
+          f"mesh (f) stream: K1 {counts['k1_shapes']} as without the mesh, peer launches {counts['peer_launches']}")
+    print(f"  mesh (f) stream on make_mesh(1, 1, 1): {len(recs)} records == the mesh=None graph records (bitwise); "
+          f"{stats['fps']:.1f} frames/s from the first read (wall {stats['wall_s']:.3f} s: init {stats['init_s']} s, "
+          f"submit {stats['submit_s']} s, drain {stats['drain_s']} s); K1 {counts['launches']}, peer all-reduces "
+          f"{counts['peer_launches']}", flush=True)
+    return {"bitwise": True, "frames_per_s": stats["fps"], "peer_launches": counts["peer_launches"]}
+
+
+def run_mesh_serve(main_path: dict, streams_path: dict, mesh) -> dict:
+    """(g) serve's pipeline on make_mesh(1, 1, 1): stream_track over a
+    MultiStreamTracker of STREAMS clips (seeds 0-3, as the multistream path
+    and the serve command) in lockstep; each stream's positions bitwise
+    equal to the multistream path's mesh=None graph rows."""
+    cfg = main_path["cfg"]
+    size = tuple(cfg.io.frame_size)
+    srcs = [open_source(cfg.io.source, FRAMES, size, seed=cfg.filter.seed + i) for i in range(STREAMS)]
+    clips = np.stack([np.stack(x.frames) for x in srcs], axis=1)
+    ms = banked.MultiStreamTracker(cfg, STREAMS, vit_params=main_path["prm"], device="cuda", mesh=mesh)
+    recs = []
+    reset_counts()
+    stats = stream_track(ms, iter(clips), np.stack([x.init_bbox for x in srcs]), on_record=recs.append)
+    counts = read_counts()
+    pos = np.array([r["position"] for r in recs], np.float32)
+    want = streams_path["rows"][:, :2 * STREAMS].reshape(-1, STREAMS, 2)
+    check(pos.shape == want.shape and np.array_equal(pos, want),
+          f"mesh (g) serve: every stream's positions == the multistream path's mesh=None graph rows, bitwise")
+    check(counts["peer_launches"] == 2 * counts["launches"] > 0, f"mesh (g) serve: peer launches {counts}")
+    print(f"  mesh (g) serve's pipeline on make_mesh(1, 1, 1): {STREAMS} streams x {len(recs)} frames == the "
+          f"mesh=None multistream rows (bitwise); wall {stats['wall_s']:.3f} s (init {stats['init_s']} s, submit "
+          f"{stats['submit_s']} s, drain {stats['drain_s']} s); K1 {counts['k1_shapes']}, peer all-reduces "
+          f"{counts['peer_launches']}", flush=True)
+    return {"bitwise": True, "peer_launches": counts["peer_launches"]}
+
+
+def run_mesh_phase(main_path: dict, robust_path: dict, banked_path: dict, streams_path: dict) -> dict:
     """The mesh phase: a one-rank NCCL group over a file store in a
-    temporary directory, make_mesh(1, 1, 1), paths (a)-(e) each against its
-    mesh=None twin; the group destroyed at the end."""
+    temporary directory, make_mesh(1, 1, 1), paths (a)-(g) each against its
+    mesh=None twin; the peer kernel at one rank timed; the group destroyed
+    at the end."""
     import torch.distributed as dist
 
     with tempfile.TemporaryDirectory() as tmp:
@@ -2419,10 +2497,329 @@ def run_mesh_phase(main_path: dict, robust_path: dict, banked_path: dict) -> dic
             print(f"  {mesh}; NCCL {'.'.join(map(str, torch.cuda.nccl.version()))}", flush=True)
             out = {"dense": run_mesh_dense(main_path, mesh), "eval3": run_mesh_eval3(mesh),
                    "robust": run_mesh_robust(robust_path, mesh), "banked": run_mesh_banked(banked_path, mesh),
-                   "train": run_mesh_train()}
+                   "train": run_mesh_train(), "stream": run_mesh_stream(main_path, mesh),
+                   "serve": run_mesh_serve(main_path, streams_path, mesh)}
+            out["peer_times"] = {shape: time_peer_one_rank(mesh.peers, shape) for shape in PEER_SHAPES}
         finally:
             dist.destroy_process_group()
     return out
+
+
+# -- the peer phase: the peer all-reduce kernel across two processes on one card ------
+
+# The kernel's shapes: a B/16 forward's row-parallel output at B 1, the
+# L/16 forward's (eval3's), and the re-detection scan's at B 49.
+PEER_SHAPES = [(1, 196, 768), (1, 196, 1024), (49, 196, 768)]
+PEER_TOL = 0.0  # kernel against its plain version: the same f32 adds in the same order, one rounding
+PEER_TIMEOUT_S = 420  # the phase's two processes, at most
+
+
+def peer_bound_ms(shape, m: int, dtype_in, dtype_out) -> tuple[float, str]:
+    """Least time for one call: the m partials read once, the bias read,
+    the output written once, over the card's memory rate (one card: a
+    peer's partial crosses its memory, not NVLink); no arithmetic to speak
+    of (m adds an element)."""
+    n = math.prod(shape)
+    nbytes = m * n * torch.finfo(dtype_in).bits // 8 + (n + shape[-1]) * torch.finfo(dtype_out).bits // 8
+    return nbytes / PEAK_BYTES_PER_S * 1e3, "bytes"
+
+
+def peer_inputs(shape, m: int, seed: int):
+    """m f32 partials of `shape` and a bf16 bias, from numpy's generator."""
+    rng = np.random.default_rng(seed)
+    parts = torch.from_numpy(rng.normal(size=(m, *shape)).astype(np.float32))
+    bias = torch.from_numpy(rng.normal(size=shape[-1:]).astype(np.float32)).bfloat16()
+    return parts, bias
+
+
+def time_peer_one_rank(group, shape) -> dict:
+    """The peer kernel on a one-rank group (what the world-1 mesh phase
+    runs: the bf16 product in, the bias, one rounding), its plain version
+    and the library call that computes the same function (torch.add of
+    the bf16 product and the bf16 bias: an f32 add rounded once), each as
+    a CUDA graph of calls; its error against the plain version."""
+    parts, bias = peer_inputs(shape, 1, seed=3)
+    x, b = parts[0].bfloat16().cuda(), bias.cuda()
+    out = par.peer_all_reduce(x, b, group)
+    want = par.peer_all_reduce_plain(x[None], b)
+    err = float((out.float() - want.float()).abs().max())
+    check(err <= PEER_TOL, f"peer kernel, one rank, {shape}: max_abs_err {err} <= {PEER_TOL}")
+    lib_err = float((torch.add(x, b).float() - out.float()).abs().max())
+    saved = step_graph.read_counts()
+    ms = time_graph(lambda: par.peer_all_reduce(x, b, group))
+    plain_ms = time_graph(lambda: par.peer_all_reduce_plain(x[None], b))
+    library_ms = time_graph(lambda: torch.add(x, b))
+    step_graph.restore_counts(saved)
+    bound, by = peer_bound_ms(shape, 1, torch.bfloat16, torch.bfloat16)
+    print(f"  peer kernel, one rank, {shape} bf16: {ms:.4f} ms (plain {plain_ms:.4f} ms, torch.add {library_ms:.4f} "
+          f"ms, bound {bound:.5f} ms); max_abs_err {err}, torch.add off the kernel by {lib_err}", flush=True)
+    return {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bound, "bound_by": by,
+            "max_abs_err": err}
+
+
+def _peer_rank(rank: int, store: str, results) -> None:
+    """A process of the peer phase (spawned): its result or its traceback."""
+    try:
+        results.put((rank, True, _peer_rank_run(rank, store)))
+    except Exception:  # noqa: BLE001 - handed to the parent, which fails the phase
+        results.put((rank, False, traceback.format_exc()))
+
+
+def _peer_rank_run(rank: int, store: str) -> dict:
+    import torch.distributed as dist
+    from datetime import timedelta
+
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank, world_size=2,
+                            timeout=timedelta(seconds=PEER_TIMEOUT_S))
+    try:
+        mesh = pmesh.make_mesh(1, 1, 2, device="cuda")
+        return {"kernel": peer_kernel_checks(mesh), "tp_forward": peer_tp_forward(mesh),
+                "robust": peer_robust_run(mesh)}
+    finally:
+        dist.destroy_process_group()
+
+
+def peer_kernel_checks(mesh) -> dict:
+    """On both ranks: the kernel over f32 partials (rank r's is partial r of
+    peer_inputs) at each of PEER_SHAPES, into bf16 with the bias (and at the
+    first shape into f32 with an f32 bias), against the plain version on the same
+    inputs on the card; both ranks' outputs equal; each timed as a CUDA
+    graph of calls replayed by both processes together (the two contexts
+    take turns on the card, so the time is the turns', not NVLink's)."""
+    import torch.distributed as dist
+
+    group, rank = mesh.peers, mesh.coords["model"]
+    out = {}
+    for i, shape in enumerate(PEER_SHAPES):
+        parts, bias = peer_inputs(shape, 2, seed=10 + i)
+        x, b, all_parts = parts[rank].cuda(), bias.cuda(), parts.cuda()
+        for dtype, bias_dev in ((torch.bfloat16, b), *(((torch.float32, b.float()),) if i == 0 else ())):
+            got = par.peer_all_reduce(x, bias_dev, group)
+            want = par.peer_all_reduce_plain(all_parts, bias_dev)
+            err = float((got.float() - want.float()).abs().max())
+            sums = [None, None]
+            dist.all_gather_object(sums, got.float().cpu().numpy().tobytes())
+            check(err <= PEER_TOL and sums[0] == sums[1],
+                  f"peer kernel, 2 ranks, {shape} -> {dtype}: max_abs_err {err} <= {PEER_TOL}, ranks equal")
+            out[(shape, str(dtype))] = {"max_abs_err": err}
+        saved = step_graph.read_counts()
+        ms = time_graph(lambda: par.peer_all_reduce(x, b, group), iters=20, reps=3)
+        plain_ms = time_graph(lambda: par.peer_all_reduce_plain(all_parts, b), iters=20, reps=3)
+        step_graph.restore_counts(saved)
+        bound, by = peer_bound_ms(shape, 2, torch.float32, torch.bfloat16)
+        out[(shape, str(torch.bfloat16))].update(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by)
+    return out
+
+
+PEER_F32_FRAMES = 8  # the float32 split's frames: its first step is what is held
+
+# The bf16 "model" split held against its mesh=None twin at the forward: the
+# split's tokens (relative RMS distance) within TP_BF16_RATIO times the
+# mesh=None bf16 forward's own distance from the f32 forward, both taken in
+# this run. Readings on two CPU ranks (tests/test_torch_mesh.py
+# test_bf16_split_within_the_smokes_rounding_limit): 0.79 sound, 24.6 with
+# the bias added twice, 85.4 with rank 1's partial dropped; the card's is
+# printed by the peer phase. TP_BIAS_STD: every block's biases
+# are drawn at this scale for the check, since the random trunk's are 0 and
+# the trained head's about 0.003, where a bias added twice would not show.
+TP_BF16_RATIO = 1.5
+TP_BIAS_STD = 0.1
+
+
+def with_drawn_biases(prm: dict, seed: int, std: float = TP_BIAS_STD) -> dict:
+    """A copy of a ViT parameter tree whose attention and MLP biases (bqkv,
+    bo, b1, b2; trunk and head blocks) are drawn N(0, std) from numpy's
+    generator for `seed`, on each leaf's device."""
+    rng = np.random.default_rng(seed)
+
+    def draw(blocks: dict) -> dict:
+        return {g: {k: torch.from_numpy(rng.normal(0.0, std, tuple(v.shape)).astype(np.float32)).to(v.device)
+                    if g in ("attn", "mlp") and k.startswith("b") else v for k, v in leaves.items()}
+                for g, leaves in blocks.items()}
+
+    out = dict(prm, blocks=draw(prm["blocks"]))
+    if "head" in prm:
+        out["head"] = dict(prm["head"], blocks=draw(prm["head"]["blocks"]))
+    return out
+
+
+def rel_rms(a: torch.Tensor, b: torch.Tensor) -> float:
+    """||a - b|| / ||b|| in f32."""
+    a, b = a.float(), b.float()
+    return float((a - b).norm() / b.norm())
+
+
+def tp_split_ratio(split: torch.Tensor, twin: torch.Tensor, f32: torch.Tensor) -> tuple[float, float, float]:
+    """The split's distance from its bf16 twin, the twin's from the f32
+    forward, and their ratio (held to TP_BF16_RATIO)."""
+    d, base = rel_rms(split, twin), rel_rms(twin, f32)
+    return d, base, d / base
+
+
+def peer_tp_forward(mesh) -> dict:
+    """On both ranks: ROBUST_CONFIG's ViT (B/16 and its head, bf16) with
+    biases drawn by with_drawn_biases, split over "model" 2 (torch.mm's
+    f32 partials and the peer kernel: what a bf16 tensor-parallel
+    deployment runs) on one seeded 224-px image, against the mesh=None bf16
+    and f32 forwards on the card: the distance within TP_BF16_RATIO of the
+    bf16 forward's own rounding; both ranks' tokens equal."""
+    import hashlib
+
+    import torch.distributed as dist
+
+    cfg_dict = copy.deepcopy(ROBUST_CONFIG)
+    cfg_dict["model"]["checkpoint"] = str(ROOT / HEAD_CHECKPOINT)
+    cfg = Config.from_dict(cfg_dict)
+    spec = VitSpec.from_config(cfg.model)
+    prm = with_drawn_biases(vit_params.load_or_init(cfg.model.checkpoint, spec, cfg.filter.seed, device="cuda"), 11)
+    image = np.random.default_rng(12).normal(size=(1, spec.image_size, spec.image_size, 3)).astype(np.float32)
+    images = torch.from_numpy(image).cuda()
+    twin = vit_forward_tokens(prm, images, spec)
+    f32 = vit_forward_tokens(prm, images, spec._replace(dtype=torch.float32))
+    split = vit_forward_tokens(pmesh.vit_param_shard(mesh, prm), images, spec._replace(mesh=mesh))
+    d, base, ratio = tp_split_ratio(split, twin, f32)
+    digests = [None, None]
+    dist.all_gather_object(digests, hashlib.sha256(split.float().cpu().numpy().tobytes()).hexdigest())
+    check(ratio <= TP_BF16_RATIO and digests[0] == digests[1],
+          f"peer tp forward, bf16 on \"model\" 2: {d:.5f} off the mesh=None bf16 tokens, {ratio:.3f} x the bf16 "
+          f"forward's own {base:.5f} from f32 (<= {TP_BF16_RATIO}); both ranks equal")
+    return {"split_vs_twin": d, "twin_vs_f32": base, "ratio": ratio,
+            "max_abs": float((split.float() - twin.float()).abs().max())}
+
+
+def _robust_runs(mesh, kinds, dtype: str, frames: int) -> dict:
+    """ROBUST_CONFIG (model.dtype `dtype`, `frames` frames of teleport)
+    through Tracker.run for each kind: "twin" (mesh=None, graphs),
+    "eager" (the mesh, graphs=False: branches on the host), "graph" (the
+    mesh, its IF bodies holding the peer kernel) -> records, the steps'
+    (scanned, accepted), counts, and the graph's replay tally."""
+    cfg_dict = copy.deepcopy(ROBUST_CONFIG)
+    cfg_dict["model"].update(checkpoint=str(ROOT / HEAD_CHECKPOINT), dtype=dtype)
+    cfg_dict["io"]["num_frames"] = frames
+    cfg = Config.from_dict(cfg_dict)
+    src = open_source(cfg.io.source, cfg.io.num_frames, tuple(cfg.io.frame_size), seed=cfg.filter.seed)
+    prm = Tracker(cfg, device="cuda").vit_params
+    runs = {}
+    for kind in kinds:
+        tracker = Tracker(cfg, vit_params=prm, device="cuda", mesh=None if kind == "twin" else mesh,
+                          graphs=kind != "eager")
+        reset_counts()
+        recs, steps = [], []
+        for rec in tracker.run(src):
+            recs.append(rec)
+            steps.append(scan_accepted(tracker.state, cfg.tracker.redetect_global_after))
+        runs[kind] = {"recs": recs, "steps": steps, **read_counts(),
+                      "tally": replay_tally(tracker) if kind == "graph" else None}
+    return runs
+
+
+def _off_twin(run: dict, twin: dict) -> tuple[list, float]:
+    """Each step's largest position difference from the twin, and the first
+    step's confidence difference."""
+    by_step = [float(np.abs(np.subtract(a["position"], b["position"])).max()) for a, b in zip(run["recs"], twin["recs"])]
+    return by_step, abs(run["recs"][0]["conf"] - twin["recs"][0]["conf"])
+
+
+def peer_robust_run(mesh) -> dict:
+    """The robust path (ROBUST_CONFIG) with the ViT split over "model" 2
+    across the two processes. bf16, 48 frames of teleport: the mesh=None
+    twin, the mesh eagerly and through the captured graph, whose probe and
+    scan IF-node bodies hold the peer kernel; held: the graph run against
+    the eager run at every step (the smoke's graph-against-eager rule:
+    flags equal, positions within GRAPH_POS_TOL_PX), probes and scans
+    fired, the peer launches twice K1's with both IF bodies holding some,
+    both ranks' records equal; reported: the distance from the twin, where
+    each rank's bf16 products over H / 2 heads and mlp_dim / 2 columns
+    round otherwise than the whole block's (a few ulps at the first step,
+    grown by resampling). float32, PEER_F32_FRAMES frames: the twin and the
+    graph run, the first step held within GRAPH_POS_TOL_PX and 1e-2 in
+    confidence of the twin (a wrong split, a head slice or a bias added
+    twice, shows there)."""
+    import torch.distributed as dist
+
+    runs = _robust_runs(mesh, ("twin", "eager", "graph"), "bfloat16", ROBUST_CONFIG["io"]["num_frames"])
+    g, e, t = runs["graph"], runs["eager"], runs["twin"]
+    worst = 0.0
+    for i, (a, b) in enumerate(zip(g["recs"], e["recs"])):
+        check(a["lost"] == b["lost"] and a["resampled"] == b["resampled"], f"peer robust step {i + 1}: flags")
+        worst = max(worst, float(np.abs(np.subtract(a["position"], b["position"])).max()))
+    check(len(g["recs"]) == len(e["recs"]) == len(t["recs"]) and worst <= GRAPH_POS_TOL_PX,
+          f"peer robust: mesh graph within {GRAPH_POS_TOL_PX} px of mesh eager at every step ({worst})")
+    probes = sum(r["lost"] for r in g["recs"][:-1])
+    scans = sum(s[0] for s in g["steps"])
+    check(probes >= 1 and scans >= 1, f"peer robust: {probes} probes and {scans} scans (at least one each)")
+    check(g["peer_launches"] == 2 * g["launches"] > 0 and g["k1_shapes"] == e["k1_shapes"],
+          f"peer robust: {g['peer_launches']} peer launches == 2 x K1 {g['launches']}; K1 as eager")
+    branches = g["tally"]["branch_peer_launches"]
+    check(len(branches) == 2 and all(x > 0 for x in branches), f"peer robust: IF bodies' peer launches {branches}")
+    everyone = [None, None]
+    dist.all_gather_object(everyone, [r["position"] for r in g["recs"]])
+    check(everyone[0] == everyone[1], "peer robust: both ranks' records equal")
+    by_step, conf = _off_twin(g, t)
+    moved = [i + 1 for i, d in enumerate(by_step) if d > 0]
+    f32 = _robust_runs(mesh, ("twin", "graph"), "float32", PEER_F32_FRAMES)
+    f32_steps, f32_conf = _off_twin(f32["graph"], f32["twin"])
+    check(f32_steps[0] <= GRAPH_POS_TOL_PX and f32_conf <= 1e-2,
+          f"peer robust, float32: first step {f32_steps[0]} px, conf {f32_conf} off the mesh=None twin")
+    return {"graph_vs_eager_max_px": worst, "first_step_px": by_step[0], "first_step_conf": conf,
+            "max_px_off_twin": max(by_step), "first_step_off_twin": moved[0] if moved else None,
+            "f32_first_step_px": f32_steps[0], "f32_first_step_conf": f32_conf, "f32_max_px_off_twin": max(f32_steps),
+            "probes": probes, "scans": scans, "launches": g["launches"], "peer_launches": g["peer_launches"],
+            "peer_shapes": g["peer_shapes"], "k1_shapes": g["k1_shapes"], "branch_peer_launches": branches}
+
+
+def run_peer_phase() -> dict:
+    """Two processes spawned on cuda:0 in a gloo group of two over a file
+    store (NCCL refuses two ranks on one card; only the peer kernel moves
+    data on the card): the kernel against its plain version
+    (peer_kernel_checks), then the robust path on make_mesh(1, 1, 2)
+    captured with the kernel in its IF bodies (peer_robust_run). Every
+    process is joined (or killed) before this returns."""
+    import multiprocessing as mp
+
+    ctx = mp.get_context("spawn")
+    results = ctx.Queue()
+    with tempfile.TemporaryDirectory() as tmp:
+        procs = [ctx.Process(target=_peer_rank, args=(r, f"{tmp}/store", results)) for r in range(2)]
+        for p in procs:
+            p.start()
+        got = {}
+        try:
+            for _ in procs:
+                rank, ok, value = results.get(timeout=PEER_TIMEOUT_S)
+                check(ok, f"peer phase, rank {rank}:\n{value}")
+                got[rank] = value
+        finally:
+            for p in procs:
+                p.join(timeout=30)
+                if p.is_alive():
+                    p.kill()
+                    p.join()
+    r0, r1 = got[0], got[1]
+    for (shape, dtype), row in r0["kernel"].items():
+        if "ms" in row:
+            print(f"  peer kernel, 2 processes on one card, {shape} f32 -> {dtype}: {row['ms']:.4f} ms a call (the "
+                  f"contexts' turns), plain {row['plain_ms']:.4f} ms, bound {row['bound_ms']:.5f} ms; max_abs_err "
+                  f"{row['max_abs_err']}", flush=True)
+    tp = r0["tp_forward"]
+    print(f"  peer tp forward, ViT-B/16 + head in bf16 on \"model\" 2 (biases drawn at {TP_BIAS_STD}): tokens "
+          f"{tp['split_vs_twin']:.5f} (relative RMS; max abs {tp['max_abs']:.4f}) off the mesh=None bf16 forward, "
+          f"which is {tp['twin_vs_f32']:.5f} off the f32 forward: ratio {tp['ratio']:.3f} <= {TP_BF16_RATIO}",
+          flush=True)
+    rb = r0["robust"]
+    check(rb["peer_shapes"] == r1["robust"]["peer_shapes"], "peer phase: both ranks launched alike")
+    print(f"  peer robust on make_mesh(1, 1, 2), 2 processes, bf16: graph == eager within "
+          f"{rb['graph_vs_eager_max_px']:.2e} px at every step; {rb['probes']} probes, {rb['scans']} scans; K1 "
+          f"{rb['launches']}, peer {rb['peer_launches']} {rb['peer_shapes']}; IF bodies' peer launches a replay "
+          f"{rb['branch_peer_launches']}; off the mesh=None twin (reported): first step {rb['first_step_px']:.2e} px "
+          f"/ conf {rb['first_step_conf']:.2e}, then up to {rb['max_px_off_twin']:.3f} px (first off at step "
+          f"{rb['first_step_off_twin']}); float32, {PEER_F32_FRAMES} frames: first step {rb['f32_first_step_px']:.2e} "
+          f"px / conf {rb['f32_first_step_conf']:.2e} off the twin (held to {GRAPH_POS_TOL_PX} px), then up to "
+          f"{rb['f32_max_px_off_twin']:.2e} px", flush=True)
+    return r0
 
 
 def main() -> int:
@@ -2444,7 +2841,7 @@ def main() -> int:
     phase("device", t0)
 
     t0 = time.perf_counter()
-    built = _build.build_libraries(["flash_attn.cu", "window_patchify.cu", "graph_if.cu"])
+    built = _build.build_libraries(["flash_attn.cu", "window_patchify.cu", "graph_if.cu", "peer_allreduce.cu"])
     for source, (_, rec) in built.items():
         print(f"  nvcc build of {source}: {rec['seconds']:.2f} s (built={rec['built']}) -> {rec['so']}")
         for line in rec["ptxas"].splitlines():
@@ -2510,8 +2907,12 @@ def main() -> int:
     phase("train", t0)
 
     t0 = time.perf_counter()
-    mesh = run_mesh_phase(main_path, robust_path, banked_path)
+    mesh = run_mesh_phase(main_path, robust_path, banked_path, streams_path)
     phase("mesh", t0)
+
+    t0 = time.perf_counter()
+    peer = run_peer_phase()
+    phase("peer", t0)
 
     t0 = time.perf_counter()
     times = time_kernels()
@@ -2567,11 +2968,16 @@ def main() -> int:
                              ("mesh (c) robust, make_mesh(1, 1, 1), scan", REDETECT_SHAPE, mesh["robust"])):
         k1_rows.append(dict(**k1_common, path=path, shape=list(shape), launches=run["k1_shapes"].get(shape[:3], 0),
                             max_abs_err=errs[(shape, torch.bfloat16, "fused")], **times[shape]))
-    # Shapes only a mesh of 2 cards or more gives (this card runs a mesh of
-    # 1): K1 with H / 2 heads under "model" 2, K2 on a rank's N / P boxes.
-    multi_card = [dict(**k1_common, path=f"mesh (1, 1, 2) on 2 cards, {name}: not run on one card",
-                       shape=list(shape), launches=0, max_abs_err=errs[(shape, torch.bfloat16, "fused")],
-                       **times[shape]) for name, shape in zip(("ViT-B/16", "ViT-L/16"), TP_SHAPES)]
+    # K1 with H / 2 heads under "model" 2: ViT-B/16's in the peer phase's
+    # robust run (two processes on this card); ViT-L/16's only on a mesh of
+    # 2 cards or more, as K2 on a rank's N / P boxes.
+    b16_tp, l16_tp = TP_SHAPES
+    k1_rows.append(dict(**k1_common, path="peer phase: robust on make_mesh(1, 1, 2), 2 processes on one card",
+                        shape=list(b16_tp), launches=peer["robust"]["k1_shapes"].get(b16_tp[:3], 0),
+                        max_abs_err=errs[(b16_tp, torch.bfloat16, "fused")], **times[b16_tp]))
+    multi_card = [dict(**k1_common, path="mesh (1, 1, 2) on 2 cards, ViT-L/16: not run on one card",
+                       shape=list(l16_tp), launches=0, max_abs_err=errs[(l16_tp, torch.bfloat16, "fused")],
+                       **times[l16_tp])]
     k2_rows = [dict(name="gather_patchify_window", route="cuda",
                     source="vitparticlefiltertracker_tpu_torch/csrc/window_patchify.cu",
                     replaces="vitparticlefiltertracker_tpu/ops/patchify_pallas.py:59",
@@ -2587,7 +2993,36 @@ def main() -> int:
     # its error on a window resampled from the strided ROI view.
     k2_rows.append({**k2_rows[0], "path": "crop-roi", "launches": crop_roi["k2_sizes"].get(K2_MAIN["n"], 0),
                     "max_abs_err": crop_roi["k2_roi_view_max_abs_err"]})
-    check(all(r["launches"] > 0 for r in k1_rows + k2_rows), "every kernel row was launched on its main path")
+    # The peer all-reduce kernel: in the peer phase's robust run (two
+    # processes, "model" 2: f32 partials into bf16) at B 1 and in the scan
+    # at B 49, and on the world-1 mesh phase's paths (one rank: the bf16
+    # product in); L/16 under "model" 2 only on several cards.
+    # library_ms: on one rank torch.add (the bf16 product plus the bias,
+    # rounded once), timed by time_peer_one_rank; across ranks the library
+    # call is NCCL's dist.all_reduce, which refuses two ranks on one card,
+    # so the two-process rows carry None and say where NCCL's times are.
+    peer_common = dict(name="peer_all_reduce", route="cuda",
+                       source="vitparticlefiltertracker_tpu_torch/csrc/peer_allreduce.cu",
+                       replaces="none: XLA's partitioner sums the row-parallel products in the JAX package "
+                                "(vitparticlefiltertracker_tpu/parallel/mesh.py:70 vit_param_sharding)")
+    no_nccl = dict(library_ms=None, library_note="NCCL's dist.all_reduce refuses two ranks on one card; its times "
+                                                 "at these shapes on 4 cards: PERF.md section 6 "
+                                                 "(tools/port_mesh_check.py)")
+    two = peer["robust"]["peer_shapes"]
+    peer_rows = [dict(**peer_common, path=f"peer phase: robust on make_mesh(1, 1, 2), 2 processes on one card{tag}",
+                      shape=list(shape), dtype="float32 -> bfloat16", launches=two.get((2, *shape), 0),
+                      **peer["kernel"][(shape, str(torch.bfloat16))], **no_nccl)
+                 for shape, tag in ((PEER_SHAPES[0], ""), (PEER_SHAPES[2], ", scan"))]
+    for path, shape, run in (("mesh (a) dense, make_mesh(1, 1, 1)", PEER_SHAPES[0], mesh["dense"]),
+                             ("mesh (b) eval3, make_mesh(1, 1, 1)", PEER_SHAPES[1], mesh["eval3"]),
+                             ("mesh (c) robust, make_mesh(1, 1, 1), scan", PEER_SHAPES[2], mesh["robust"])):
+        peer_rows.append(dict(**peer_common, path=path, shape=list(shape), dtype="bfloat16 -> bfloat16",
+                              launches=run["peer_shapes"].get((1, *shape), 0), **mesh["peer_times"][shape]))
+    multi_card.append(dict(**peer_common, path="eval3 (ViT-L/16) on \"model\" 2: several cards, not run on one card",
+                           shape=list(PEER_SHAPES[1]), dtype="float32 -> bfloat16", launches=0,
+                           **peer["kernel"][(PEER_SHAPES[1], str(torch.bfloat16))], **no_nccl))
+    check(all(r["launches"] > 0 for r in k1_rows + k2_rows + peer_rows),
+          "every kernel row was launched on its main path")
     path_keys = ("step_ms_median", "eager_step_ms_median", "turn_medians_ms", "bitwise", "max_pos_diff_px",
                  "rmse_px", "waits_per_step", "waits_in_clip")
     print(json.dumps({"shape_49x12x196x64_bf16": times[REDETECT_SHAPE],
@@ -2611,12 +3046,15 @@ def main() -> int:
                       "train": {"parity": train["parity"],
                                 **{name: {k: v for k, v in run.items() if "k1_shapes" not in k}
                                    for name, run in (("head", head), ("features", features))}},
-                      "mesh": {name: {k: v for k, v in run.items() if k != "k1_shapes"} for name, run in mesh.items()},
+                      "mesh": {name: {k: v for k, v in run.items() if k not in ("k1_shapes", "peer_shapes")}
+                               for name, run in mesh.items() if name != "peer_times"},
+                      "peer_robust": {k: v for k, v in peer["robust"].items() if k not in ("k1_shapes", "peer_shapes")},
+                      "peer_tp_forward": peer["tp_forward"],
                       "k2_8_windows_x_1024": {**k2_window_times,
                                               "max_abs_err": k2_window_errs[(8, 1024, torch.bfloat16)]}}))
     print(f"[phase] total: {time.perf_counter() - t_start:.2f} s", flush=True)
     print(f"card: {smi}")
-    print(json.dumps({"kernels": k1_rows + k2_rows + multi_card}))
+    print(json.dumps({"kernels": k1_rows + k2_rows + peer_rows + multi_card}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
     return 0

@@ -686,8 +686,8 @@ def _mesh_and_plain_runs(cfg_dict, mesh, clip: bool = False):
 
 def test_mesh_world_one_dense_step_equals_unsharded(nccl_mesh):
     """The dense step on make_mesh(1, 1, 1) over NCCL, its collectives
-    captured in the step's graph (1 all-gather of the scores and 2
-    all-reduces a block a replay), gives mesh=None's records."""
+    captured in the step's graph (1 all-gather of the scores and 2 peer
+    all-reduce launches a block a replay), gives mesh=None's records."""
     import chip_smoke
 
     out = _mesh_and_plain_runs(chip_smoke.TINY, nccl_mesh)
@@ -695,23 +695,23 @@ def test_mesh_world_one_dense_step_equals_unsharded(nccl_mesh):
     assert mesh == plain
     depth = tr.cfg.model.depth
     assert mc["k1_shapes"] == pc["k1_shapes"] and mc["all_gathers"] == len(mesh)
-    assert mc["all_reduces"] == 2 * mc["launches"] and pc["all_reduces"] == pc["all_gathers"] == 0
+    assert mc["peer_launches"] == 2 * mc["launches"] and pc["peer_launches"] == pc["all_gathers"] == 0
     tally = chip_smoke.replay_tally(tr)
-    assert (tally["all_gathers"], tally["all_reduces"]) == (1, 2 * depth)
+    assert (tally["all_gathers"], tally["peer_launches"]) == (1, 2 * depth)
 
 
 def test_mesh_world_one_if_bodies_hold_collectives(nccl_mesh):
     """With the lost gate and re-detection (the head, its automatic blend)
-    the probe's and the scan's IF-node bodies hold the forward's all-reduces
-    over NCCL: captured and replayed, no host wait in track_clip_device, the
-    rows equal mesh=None's."""
+    the probe's and the scan's IF-node bodies hold the forward's peer
+    all-reduce launches: captured and replayed, no host wait in
+    track_clip_device, the rows equal mesh=None's."""
     import chip_smoke
 
     out = _mesh_and_plain_runs(chip_smoke.TINY_HEAD_REDETECT, nccl_mesh, clip=True)
     (plain, _, _), (mesh, mc, tr) = out[False], out[True]
     assert np.array_equal(mesh, plain) and mesh[:, 9].any()
-    assert mc["all_reduces"] == 2 * mc["launches"]
-    assert [b > 0 for b in chip_smoke.replay_tally(tr)["branch_all_reduces"]] == [True, True]
+    assert mc["peer_launches"] == 2 * mc["launches"]
+    assert [b > 0 for b in chip_smoke.replay_tally(tr)["branch_peer_launches"]] == [True, True]
 
 
 def test_mesh_world_one_banked_step_equals_unsharded(nccl_mesh):
@@ -733,3 +733,44 @@ def test_mesh_world_one_banked_step_equals_unsharded(nccl_mesh):
         tr.init(src.frames[0], banked.banked_bboxes(src.init_bbox, 3))
         rows[m is not None] = torch.stack([tr.step_packed(torch.from_numpy(f).cuda()) for f in src.frames[1:]]).cpu()
     assert torch.equal(rows[True], rows[False])
+
+
+@pytest.mark.parametrize("shape", [(1, 196, 768), (1, 196, 1024), (49, 196, 768)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_peer_kernel_one_rank_matches_plain(nccl_mesh, shape, dtype):
+    """The peer all-reduce kernel on the one-rank "model" group of
+    make_mesh(1, 1, 1) (the product in the model dtype, the bias, one add)
+    against its plain version, bit for bit; one launch counted."""
+    from chip_smoke import peer_inputs
+    from vitparticlefiltertracker_tpu_torch.ops import peer_allreduce as par
+
+    parts, bias = peer_inputs(shape, 1, seed=4)
+    x, b = parts[0].to(dtype).cuda(), bias.to(dtype).cuda()
+    before = par.peer_all_reduce.launches
+    got = par.peer_all_reduce(x, b, nccl_mesh.peers)
+    assert par.peer_all_reduce.launches == before + 1
+    assert torch.equal(got, par.peer_all_reduce_plain(x[None], b))
+
+
+def test_peer_kernel_two_processes_on_one_card(cuda_device):
+    """Two processes on cuda:0 (a gloo group; CUDA IPC within a card):
+    chip_smoke's peer phase, the kernel over f32 partials at the B/16, L/16
+    and scan shapes against its plain version, bit for bit, both ranks
+    equal, then the robust path on make_mesh(1, 1, 2) with the kernel in
+    its IF bodies (its own checks)."""
+    import chip_smoke
+
+    out = chip_smoke.run_peer_phase()
+    assert all(row["max_abs_err"] == 0.0 for row in out["kernel"].values())
+    assert out["robust"]["graph_vs_eager_max_px"] <= chip_smoke.GRAPH_POS_TOL_PX
+
+
+def test_peer_kernel_refuses_what_it_cannot_take(nccl_mesh):
+    """Inputs outside the kernel's contract raise ValueError before a
+    launch: a length not a multiple of 8, a bias of another length."""
+    from vitparticlefiltertracker_tpu_torch.ops import peer_allreduce as par
+
+    with pytest.raises(ValueError, match="multiples of 8"):
+        par.peer_all_reduce(torch.zeros(3, 5, device="cuda"), torch.zeros(5, device="cuda"), nccl_mesh.peers)
+    with pytest.raises(ValueError, match="bias must be"):
+        par.peer_all_reduce(torch.zeros(2, 8, device="cuda"), torch.zeros(16, device="cuda"), nccl_mesh.peers)

@@ -1,9 +1,9 @@
 """The port stands alone: with jax, ml_dtypes, yaml, cv2, imageio and the
 JAX package made unimportable, every module of
-vitparticlefiltertracker_tpu_torch (parallel/ included) and chip_smoke.py
-imports, and the tracker runs two CPU steps, also on a one-rank gloo mesh
-(cv2 and imageio are imported only inside the readers and the overlay sink
-that use them)."""
+vitparticlefiltertracker_tpu_torch (parallel/ and ops/peer_allreduce.py
+included), chip_smoke.py and tools/port_eval_quality.py import, and the
+tracker runs two CPU steps, also on a one-rank gloo mesh (cv2 and imageio
+are imported only inside the readers and the overlay sink that use them)."""
 
 import os
 import subprocess
@@ -43,8 +43,18 @@ from vitparticlefiltertracker_tpu_torch.parallel import mesh as pm
 cfg = Config.from_dict(chip_smoke.TINY)
 src = open_source(cfg.io.source, 3, tuple(cfg.io.frame_size))
 recs = list(Tracker(cfg, device="cpu", mesh=pm.make_mesh(1, 1, 1, device="cpu")).run(src))
-assert len(recs) == 2 and pm.all_gather.launches == 2 and pm.all_reduce.launches > 0, recs
+by_axis = {ax: sum(n for k, n in pm.all_gather.shapes.items() if k[0] == ax) for ax in ("particle", "model")}
+# A gather of the scores a step; the "model" sums' partials gathered for the peer kernel's plain version.
+assert len(recs) == 2 and by_axis["particle"] == 2 and by_axis["model"] > 0, (recs, by_axis)
 torch.distributed.destroy_process_group()
+# The peer all-reduce's loader and the port's quality tool import without JAX (nothing is built here).
+from vitparticlefiltertracker_tpu_torch.ops import _build, peer_allreduce
+assert callable(_build.peer_allreduce_library) and peer_allreduce.launch_blocks(196 * 768) == 37
+import importlib.util
+spec = importlib.util.spec_from_file_location("port_eval_quality", "tools/port_eval_quality.py")
+tool = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(tool)
+assert tool.GEOMETRIES["eval3"]["particles"] == 4096 and "teleport" in tool.CLIP_OVERRIDES
 loaded = [m for m in ("jax", "ml_dtypes", "yaml", "cv2", "imageio", "vitparticlefiltertracker_tpu")
           if sys.modules.get(m) is not None]
 assert not loaded, loaded

@@ -18,6 +18,7 @@ import subprocess
 import sys
 import zipfile
 
+import chip_smoke
 import jax
 import numpy as np
 import pytest
@@ -147,16 +148,52 @@ def test_init_distributed_one_rank_file_store(tmp_path):
         torch.distributed.destroy_process_group()
 
 
+# The peer all-reduce's plain version on two ranks: (name, ranks, (*lead, K, D), seed).
+PEER_CASES = [("tokens", 2, (1, 5, 64, 64), 0), ("batch", 2, (3, 7, 32, 48), 1)]
+# stream_track on two ranks (rank 0 reads, rank 1 follows): whole frames on a
+# particle mesh; ROI chunks of 2 on it (the ROI spans the 224-px frame, so
+# its origin is (0, 0) whatever the steering: the same inputs as without a
+# mesh), the global view new every other frame; one-frame ROI steps whose
+# global view has the ROI's shape (56 px, and 224 px decimated by 4), with
+# the crops held at the initial box (unsteered, so that both runs crop the
+# same pixels) while the target moves; serve's two streams on "bank".
+STREAM_CASES = [
+    ("stream", dict(cfg_dict=TINY, kind="stream", shape=(1, 2, 1))),
+    ("roi-chunk", dict(cfg_dict=TINY, kind="stream", shape=(1, 2, 1), roi_px=224, glob_stride=4, glob_every=2,
+                       chunk=2, steer_lag=4)),
+    ("roi-glob-as-roi", dict(cfg_dict=TINY, kind="stream", shape=(1, 2, 1), roi_px=56, glob_stride=4, glob_every=2,
+                             steer_lag=0, steer=False)),
+    ("serve", dict(cfg_dict=TINY, kind="serve", shape=(2, 1, 1))),
+]
+NATIVE_SETS = ["io.source=native-synthetic:moving-square", "io.num_frames=6", "io.frame_size=[224,224]",
+               "model.variant=vit-t16", "model.image_size=64", "model.dtype=float32", "filter.num_particles=64"]
+
+
 @pytest.fixture(scope="module")
-def layout():
+def layout(tmp_path_factory):
+    """Two ranks: the axes, a tensor-parallel forward (f32, and bf16 with
+    faults planted), the peer all-reduce's plain version, streams and the
+    track command on a native source; and the same runs without a mesh
+    here."""
     rng = np.random.default_rng(0)
     params = jax.tree.map(np.asarray, j_init_vit_params(jax.random.key(1), JVitSpec(**SPEC)))
     images = rng.normal(size=(2, 32, 32, 3)).astype(np.float32)
     spec = dict(SPEC, dtype=torch.float32)
-    ranks = W.spawn(2, W.mesh_layout, params, spec, images)
+    tp_prm = chip_smoke.with_drawn_biases(bridge.params_from_numpy(params, VitSpec(**spec)), seed=2)
+    tmp = tmp_path_factory.mktemp("native_track")
+    argv = ["track", "--device", "cpu", "--quiet", *(x for v in NATIVE_SETS for x in ("--set", v))]
+    mesh_argv = [*argv, "--set", "runtime.mesh_particles=2", "--set", f"io.output={tmp / 'mesh.jsonl'}"]
+    ranks = W.spawn(2, W.layout_and_streams, params, spec, images, tp_prm, PEER_CASES, STREAM_CASES, mesh_argv)
     want = vit_forward_tokens(bridge.params_from_numpy(params, VitSpec(**spec)), torch.from_numpy(images),
                               VitSpec(**spec)).numpy()
-    return ranks, want
+    from vitparticlefiltertracker_tpu_torch import cli
+
+    assert cli.main([*argv, "--set", f"io.output={tmp / 'one.jsonl'}"]) == 0
+    native = [[json.loads(line) for line in open(tmp / f)] for f in ("mesh.jsonl", "one.jsonl")]
+    streams = {name: W.stream_runs(**dict(kw, shape=None)) for name, kw in STREAM_CASES}
+    x = torch.from_numpy(images)
+    whole = {dt: vit_forward_tokens(tp_prm, x, VitSpec(**spec)._replace(dtype=dt)) for dt in (torch.bfloat16, torch.float32)}
+    return ranks, want, {"streams": streams, "native": native, "bf16_whole": whole}
 
 
 @pytest.mark.parametrize("shape,axis", [((2, 1, 1), "bank"), ((1, 2, 1), "particle"), ((1, 1, 2), "model")])
@@ -165,7 +202,7 @@ def test_mesh_axes_lay_ranks_out_as_jax(layout, shape, axis):
     holds the ranks along it (all_gather in rank order, all_reduce summing),
     the size-1 axes a group of one rank that still gets its collective; each
     call counted once."""
-    ranks, _ = layout
+    ranks, _, _ = layout
     for rank, out in enumerate(ranks):
         got = out[shape]
         assert got["coords"] == dict(zip(tmesh.AXES, (int(c) for c in np.unravel_index(rank, shape))))
@@ -177,7 +214,7 @@ def test_mesh_axes_lay_ranks_out_as_jax(layout, shape, axis):
 
 
 def test_make_mesh_larger_than_the_group_raises(layout):
-    ranks, _ = layout
+    ranks, _, _ = layout
     for out in ranks:
         assert out["too_big"] == "mesh (2 bank x 2 particle x 1 model) needs 4 devices, have 2"
 
@@ -186,10 +223,97 @@ def test_tensor_parallel_vit_forward_matches_whole(layout):
     """The ViT (and its residual head) over (1, 1, 2): heads and MLP columns
     split, the row-parallel products all-reduced before their biases, gives
     the whole forward's tokens; both ranks hold the same tokens."""
-    ranks, want = layout
+    ranks, want, _ = layout
     for out in ranks:
         np.testing.assert_allclose(out["tp_tokens"], want, rtol=1e-5, atol=1e-5)
         np.testing.assert_array_equal(out["tp_tokens"], ranks[0]["tp_tokens"])
+
+
+@pytest.mark.parametrize("plant", ["sound", "bias-twice", "share-dropped"])
+def test_bf16_split_within_the_smokes_rounding_limit(layout, plant):
+    """chip_smoke.py's peer phase holds the bf16 "model" split to its
+    mesh=None twin: the tokens' distance at most TP_BF16_RATIO times the
+    twin's own distance from the f32 forward (biases drawn, so that a bias
+    fault shows). On two CPU ranks a sound split is within it, and a split
+    with a fault planted in the "model" sum is far outside it."""
+    ranks, _, runs = layout
+    twin, f32 = runs["bf16_whole"][torch.bfloat16], runs["bf16_whole"][torch.float32]
+    split = torch.from_numpy(ranks[0]["bf16_plants"][plant])
+    np.testing.assert_array_equal(ranks[1]["bf16_plants"][plant], ranks[0]["bf16_plants"][plant])
+    _, _, ratio = chip_smoke.tp_split_ratio(split, twin, f32)
+    if plant == "sound":
+        assert ratio <= chip_smoke.TP_BF16_RATIO
+    else:
+        assert ratio > 10 * chip_smoke.TP_BF16_RATIO
+
+
+@pytest.mark.parametrize("case", [c[0] for c in PEER_CASES])
+def test_peer_all_reduce_plain_sums_in_rank_order_once(layout, case):
+    """The "model" sum of a row-parallel product (parallel/mesh.py
+    row_parallel_sum; on CPU ranks the peer kernel's plain version): each
+    rank's partial product in f32, summed in rank order, plus the bias,
+    rounded once to bf16; both ranks hold the same bits; against the
+    mesh=None product y @ w + bias within bf16 rounding."""
+    from vitparticlefiltertracker_tpu_torch.ops.peer_allreduce import peer_all_reduce_plain
+
+    ranks, _, _ = layout
+    _, m, shape, seed = next(c for c in PEER_CASES if c[0] == case)
+    y, w, bias = W.peer_inputs(shape, seed)
+    parts = [torch.from_numpy(r["peer"][case]["partial"]) for r in ranks]
+    acc = parts[0] + parts[1]  # f32, rank order
+    want = (acc + bias.float()).bfloat16().float().numpy()
+    np.testing.assert_array_equal(peer_all_reduce_plain(torch.stack(parts), bias).float().numpy(), want)
+    for r in ranks:
+        np.testing.assert_array_equal(r["peer"][case]["sum"], want)
+    whole = (y @ w + bias).float().numpy()
+    np.testing.assert_allclose(want, whole, rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.parametrize("case", [c[0] for c in STREAM_CASES])
+def test_stream_on_a_mesh_records_as_without(layout, case):
+    """stream_track on two ranks: rank 0 alone reads the source and records,
+    rank 1 follows its dispatches (runtime/streaming.py MeshFeed). Rank 0's
+    records are the mesh=None stream's (the sharded tolerance: a particle
+    slice's products round otherwise on the CPU; "bank" splits whole
+    streams); both ranks submit the same dispatches."""
+    ranks, _, runs = layout
+    want = runs["streams"][case]
+    got = [r["streams"][case] for r in ranks]
+    assert got[1]["recs"] == [] and len(got[0]["recs"]) == len(want["recs"]) > 0
+    assert got[0]["dispatches"] == got[1]["dispatches"] == want["dispatches"]
+    assert got[0]["frames"] == got[1]["frames"] == want["frames"]
+    for a, b in zip(got[0]["recs"], want["recs"]):
+        assert a["frame"] == b["frame"] and a["lost"] == b["lost"]
+        np.testing.assert_allclose(a["position"], b["position"], rtol=1e-4, atol=1e-3)
+
+
+def test_track_command_reads_a_native_source_once_on_a_mesh(layout):
+    """`track` with io.source native-synthetic (the native ring) on a
+    particle mesh of two ranks: rank 0 reads the ring and writes the
+    records; they match the one-process run."""
+    ranks, _, runs = layout
+    assert [r["track_rc"] for r in ranks] == [0, 0]
+    got, want = runs["native"]
+    assert [r["frame"] for r in got] == [r["frame"] for r in want] == [1, 2, 3, 4, 5]
+    np.testing.assert_allclose([r["position"] for r in got], [r["position"] for r in want], rtol=1e-4, atol=1e-3)
+
+
+@pytest.mark.parametrize("n,blocks", [(8, 1), (196 * 768, 37), (196 * 1024, 49), (49 * 196 * 768, 128)])
+def test_peer_kernel_grid(n, blocks):
+    """The peer kernel's grid: a vector of 8 elements a thread, 512 threads
+    a block, at most 128 blocks (all resident at once on the card)."""
+    from vitparticlefiltertracker_tpu_torch.ops.peer_allreduce import launch_blocks
+
+    assert launch_blocks(n) == blocks
+
+
+def test_peer_kernel_takes_cuda_tensors_only():
+    """The kernel's wrapper on a CPU tensor raises (the mesh sends CPU
+    tensors to the plain version; there is no fallback)."""
+    from vitparticlefiltertracker_tpu_torch.ops.peer_allreduce import peer_all_reduce
+
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        peer_all_reduce(torch.zeros(8), torch.zeros(8), None)
 
 
 @pytest.fixture(scope="module")
@@ -268,6 +392,27 @@ def test_track_command_under_torchrun_writes_once(tmp_path):
     assert proc.stderr.count("saved state to") == 1 and (tmp_path / "mesh.npz").exists()
 
 
+def test_stream_and_serve_commands_under_torchrun(tmp_path):
+    """`stream` (the native ring as its source, the particle axis over 2)
+    and `serve` (2 streams, one a rank on "bank") under torchrun: rank 0
+    alone reads and writes; its records match the one-process commands'
+    (the sharded tolerance; "bank" splits whole streams)."""
+    from vitparticlefiltertracker_tpu_torch import cli
+
+    for cmd, sets, mesh in (("stream", NATIVE_SETS, "runtime.mesh_particles=2"),
+                            ("serve", CLI_TINY[2:] + ["--set", "runtime.streams=2"], "runtime.mesh_banks=2")):
+        argv = [cmd, "--device", "cpu", "--quiet"]
+        argv += list(sets) if cmd == "serve" else [x for v in sets for x in ("--set", v)]
+        proc = _torchrun([*argv, "--set", mesh, "--set", f"io.output={tmp_path / (cmd + '_mesh.jsonl')}"], tmp_path)
+        assert proc.returncode == 0, proc.stderr[-3000:]
+        assert cli.main([*argv, "--set", f"io.output={tmp_path / (cmd + '_one.jsonl')}"]) == 0
+        got, want = ([json.loads(x) for x in (tmp_path / f"{cmd}_{k}.jsonl").read_text().splitlines()]
+                     for k in ("mesh", "one"))
+        assert [(r["frame"], r.get("stream")) for r in got] == [(r["frame"], r.get("stream")) for r in want]
+        assert len(got) == (5 if cmd == "stream" else 10)
+        np.testing.assert_allclose([r["position"] for r in got], [r["position"] for r in want], rtol=1e-4, atol=1e-3)
+
+
 def test_train_and_bench_commands_under_torchrun(tmp_path):
     """`train` under torchrun goes data-parallel over the ranks (JAX's log
     line, one checkpoint); `bench` on a particle mesh prints one JSON line."""
@@ -293,11 +438,17 @@ def test_train_and_bench_commands_under_torchrun(tmp_path):
     ["serve", "--set", "runtime.mesh_banks=2"],
 ])
 def test_commands_refuse_what_a_mesh_cannot_read_yet(argv):
-    """A camera or the native ring as a mesh's source, and the stream and
-    serve commands under a mesh, raise NotImplementedError pointing to
-    ROADMAP.md, before any process group is made."""
+    """Nothing is refused any more: a camera or the native ring as a mesh's
+    source, and the stream and serve commands under a mesh, are read once
+    on rank 0 and followed by the other ranks (runtime/streaming.py
+    MeshFeed). Each command gets as far as the mesh, which one process
+    cannot hold (ValueError), with no NotImplementedError and before any
+    source is opened."""
     from vitparticlefiltertracker_tpu_torch import cli
 
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        cli.main([*argv, "--device", "cpu"])
-    assert not torch.distributed.is_initialized()
+    try:
+        with pytest.raises(ValueError, match="needs 2 devices, have 1"):
+            cli.main([*argv, "--device", "cpu"])
+    finally:
+        if torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()

@@ -149,6 +149,8 @@ FNS_CASES = [  # (name, reference, mesh (bank, particle, model), log the branche
     ("banked", "banked", (2, 2, 1), False),
     ("banked-tp", "banked", (2, 1, 2), False),
     ("teleport", "teleport", (1, 4, 1), True),
+    ("teleport-tp", "teleport", (1, 1, 2), True),
+    ("teleport-tp-particle", "teleport", (1, 2, 2), True),
 ]
 
 
@@ -194,7 +196,9 @@ def runs(tmp_path_factory):
 
 
 def _fns(runs, case):
-    return [r[0][case] for r in runs["ranks"]]
+    """The ranks' results of a case (the ranks of its mesh: a (1, 1, 2) mesh
+    holds two of the four)."""
+    return [r[0][case] for r in runs["ranks"] if r[0][case] is not None]
 
 
 def _cls(runs, case):
@@ -217,7 +221,8 @@ def test_particle_sharded_step_matches_unsharded(runs, case, ref):
 
 
 @pytest.mark.parametrize("case,ref", [("particle", "dense"), ("particle-crop", "crop"), ("tp", "dense"),
-                                      ("teleport", "teleport")])
+                                      ("teleport", "teleport"), ("teleport-tp", "teleport"),
+                                      ("teleport-tp-particle", "teleport")])
 def test_sharded_step_matches_jax(runs, case, ref):
     """The sharded port against the JAX package's unsharded step on the same
     weights, clip and draws (e2e tolerances)."""
@@ -234,6 +239,24 @@ def test_tensor_parallel_matches_replicated(runs):
     for r in got:
         np.testing.assert_allclose(r["rows"], want, rtol=SHARDED_RTOL, atol=SHARDED_ATOL)
         np.testing.assert_array_equal(r["rows"], got[0]["rows"])
+
+
+@pytest.mark.parametrize("case", ["teleport-tp", "teleport-tp-particle"])
+def test_robust_tensor_parallel_matches_unsharded_bitwise_across_ranks(runs, case):
+    """The teleport (robust) config, whose probe and scan run ViT forwards,
+    with "model" 2 ((1, 1, 2), and (1, 2, 2) with "particle" 2), eager:
+    every row-parallel sum of the trunk, the head and the scan's forward
+    goes through the peer all-reduce's plain version. The rows match the
+    unsharded step's, the flags exactly; the ranks hold the same state bit
+    for bit and take the same branches as the unsharded step."""
+    want = runs["unsharded"]["teleport"]
+    got = _fns(runs, case)
+    for r in got:
+        np.testing.assert_allclose(r["rows"], want["rows"], rtol=SHARDED_RTOL, atol=SHARDED_ATOL)
+        np.testing.assert_array_equal(r["rows"][:, 8:], want["rows"][:, 8:])
+        assert r["log"] == want["log"]
+        for a, b in zip(r["state"], got[0]["state"]):
+            np.testing.assert_array_equal(a, b)
 
 
 @pytest.mark.parametrize("case", ["banked", "banked-tp"])
@@ -362,20 +385,45 @@ def test_mesh_axis_that_does_not_divide_raises(kind, shape, match):
             ttr.Tracker(cfg, device="cpu", mesh=mesh)
 
 
-@pytest.mark.parametrize("config,shape,refused", [("teleport", (1, 1, 2), True), ("teleport", (1, 2, 2), True),
-                                                  ("teleport", (1, 4, 1), False), ("dense", (1, 1, 2), False)])
-def test_graph_step_refuses_cross_card_collectives_in_its_branches(config, shape, refused):
-    """F6: the probe's and the scan's IF-node bodies run a ViT forward, which
-    holds all-reduces over "model"; NCCL collectives across cards do not
-    capture inside a conditional node, so the graph step refuses a "model"
-    axis above 1 on a config with those branches (NotImplementedError
-    naming ROADMAP.md). A particle axis (the bodies' all-reduces stay on
-    one rank) and a config without the branches are not refused; the eager
-    step on the CPU never is (tests above)."""
+@pytest.mark.parametrize("config,shape,peers,refused", [
+    ("teleport", (1, 1, 2), False, True), ("teleport", (1, 2, 2), False, True),
+    ("teleport", (1, 1, 2), True, False), ("teleport", (1, 2, 2), True, False),
+    ("teleport", (1, 4, 1), False, False), ("dense", (1, 1, 2), False, False)])
+def test_graph_step_refuses_cross_card_collectives_in_its_branches(config, shape, peers, refused):
+    """F6, what is left of it: the probe's and the scan's IF-node bodies run
+    a ViT forward, whose "model" sums only the peer all-reduce kernel can
+    serve inside a conditional node. A mesh with its peer group (every CUDA
+    mesh: ops/peer_allreduce.PeerGroup, built at mesh build) is not
+    refused; a "model" axis above 1 without one is (NotImplementedError
+    naming ROADMAP.md). A particle axis and a config without the branches
+    never are; the eager step on the CPU never is (tests above)."""
     d = REDETECT_CASES["dense"] if config == "teleport" else TINY
     cfg = TConfig.from_dict(copy.deepcopy(d))
+    mesh = _unjoined_mesh(*shape)
+    mesh.peers = object() if peers else None  # a stand-in: the check reads only whether there is one
     if refused:
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            ttr.refuse_cross_card_branches(cfg, _unjoined_mesh(*shape))
+            ttr.refuse_cross_card_branches(cfg, mesh)
     else:
-        ttr.refuse_cross_card_branches(cfg, _unjoined_mesh(*shape))
+        ttr.refuse_cross_card_branches(cfg, mesh)
+
+
+@pytest.mark.parametrize("infos,access,error", [
+    ([("a", "0000:18:00.0"), ("a", "0000:2a:00.0")], 1, None),  # peer access over NVLink
+    ([("a", "0000:18:00.0"), ("a", "0000:18:00.0")], 0, None),  # two processes on one card
+    ([("a", "0000:18:00.0"), ("b", "0000:18:00.0")], 1, "another host"),
+    ([("a", "0000:18:00.0"), ("a", "0000:2a:00.0")], 0, "no peer access"),
+    ([("a", "0000:18:00.0"), ("a", "0000:2a:00.0")], -1, "cannot see"),
+])
+def test_peer_group_refuses_cards_it_cannot_map(infos, access, error):
+    """The check a CUDA mesh's "model" group makes at build, before any
+    buffer: every other rank's card must be this one, or one it has peer
+    access to on the same host; otherwise RuntimeError naming ROADMAP.md
+    (there is no NCCL fallback)."""
+    from vitparticlefiltertracker_tpu_torch.ops.peer_allreduce import check_peer_access
+
+    if error is None:
+        check_peer_access(infos, 0, lambda bus: access)
+    else:
+        with pytest.raises(RuntimeError, match=f"{error}.*ROADMAP"):
+            check_peer_access(infos, 0, lambda bus: access)

@@ -13,6 +13,7 @@ mesh (``new_group`` is a collective of every rank).
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import os
 import queue
@@ -86,14 +87,22 @@ def _mesh(shape):
 # -- the tracker step with injected draws ----------------------------------------
 
 
-def run_fns(ref: dict, shape=None, log_branches: bool = False) -> dict:
+def run_fns(ref: dict, shape=None, log_branches: bool = False) -> dict | None:
     """The port's step (build_tracker_fns) over a reference's clip with its
     injected draws (test_torch_mesh_tracker.jax_reference) on a mesh of
     `shape` (None: no mesh) -> {"rows": [T, 10 K] packed outputs of this
     rank's banks, "banks": their slice, "state": the last state's leaves
-    (numpy), "log": the (branch, predicate) pairs of the step's run_if}.
-    Banked references (bboxes [K, 4]) give each rank its bank_slice."""
+    (numpy), "log": the (branch, predicate) pairs of the step's run_if},
+    or None on a rank outside the mesh. Banked references (bboxes [K, 4])
+    give each rank its bank_slice."""
     cfg = Config.from_dict(copy.deepcopy(ref["cfg"]))
+    if shape is not None and dist.get_rank() >= int(np.prod(shape)):
+        # A mesh smaller than the group: new_group is a collective of every
+        # rank, so a rank outside it joins the build, which then refuses it.
+        try:
+            _mesh(shape)
+        except ValueError:
+            return None
     mesh = _mesh(shape)
     params = bridge.params_from_numpy(ref["params"], VitSpec.from_config(cfg.model))
     if mesh is not None:
@@ -297,6 +306,112 @@ def mesh_layout(rank: int, params_np: dict, spec_kw: dict, images: np.ndarray) -
     spec = VitSpec(**spec_kw)._replace(mesh=mesh)
     params = vit_param_shard(mesh, bridge.params_from_numpy(params_np, VitSpec(**spec_kw)))
     out["tp_tokens"] = vit_forward_tokens(params, torch.from_numpy(images), spec).numpy()
+    return out
+
+
+def peer_sums(rank: int, m: int, shape: tuple, seed: int) -> dict:
+    """On a (1, 1, m) mesh: row_parallel_sum of this rank's bf16 slice of
+    a product (y [.., K], w [K, D], bias [D] made from `seed`; rank r holds
+    columns / rows [r K / m, (r + 1) K / m)) -> the sum, and this rank's f32
+    partial product (what the other ranks' sums must have summed)."""
+    from vitparticlefiltertracker_tpu_torch.parallel.mesh import row_parallel_sum
+
+    y, w, bias = peer_inputs(shape, seed)
+    mesh = make_mesh(1, 1, m, device="cpu")
+    k = w.shape[0] // m
+    mine = slice(rank * k, (rank + 1) * k)
+    out = row_parallel_sum(y[..., mine], w[mine], bias, mesh)
+    return {"sum": out.float().numpy(), "partial": (y[..., mine].float() @ w[mine].float()).numpy()}
+
+
+def peer_inputs(shape: tuple, seed: int):
+    """bf16 y [*shape[:-1], K], w [K, D], bias [D] of a row-parallel product
+    (shape = (*lead, K, D)), from numpy's generator at `seed`."""
+    rng = np.random.default_rng(seed)
+    *lead, k, d = shape
+    y = torch.from_numpy(rng.normal(size=(*lead, k)).astype(np.float32)).bfloat16()
+    w = torch.from_numpy((rng.normal(size=(k, d)) / np.sqrt(k)).astype(np.float32)).bfloat16()
+    bias = torch.from_numpy(rng.normal(size=(d,)).astype(np.float32)).bfloat16()
+    return y, w, bias
+
+
+def stream_runs(cfg_dict: dict, kind: str, shape=None, frames: int = 8, steer: bool = True, **kw) -> dict:
+    """stream_track on a mesh of `shape` (None: none): kind "stream" (a
+    Tracker on the config's source, stream_track's keywords in kw) or
+    "serve" (a MultiStreamTracker over two moving-square clips, seeds 0 and
+    1). Rank 0 (or the one process) opens the source and records; the other
+    ranks pass none and follow -> the records and the stats' frames and
+    dispatches. steer=False: the ROI shipper ignores the records read back,
+    so every crop is aimed at the initial box's centre, with and without a
+    mesh alike (use with steer_lag=0: no flow control waits on steering)."""
+    from unittest import mock
+
+    from vitparticlefiltertracker_tpu_torch.io.video import open_source
+    from vitparticlefiltertracker_tpu_torch.runtime.banked import MultiStreamTracker
+    from vitparticlefiltertracker_tpu_torch.runtime.streaming import RoiShipper, stream_track
+    from vitparticlefiltertracker_tpu_torch.runtime.tracker import Tracker
+
+    cfg = _tiny(cfg_dict)
+    mesh = _mesh(shape)
+    leader = mesh is None or mesh.rank == 0
+    size = tuple(cfg.io.frame_size)
+    if kind == "stream":
+        tracker = Tracker(cfg, device="cpu", mesh=mesh)
+        src = open_source(cfg.io.source, frames, size, seed=0) if leader else None
+        bbox = src.init_bbox if leader else None
+    else:
+        tracker = MultiStreamTracker(cfg, 2, device="cpu", mesh=mesh)
+        srcs = [open_source("synthetic:moving-square", frames, size, seed=i) for i in range(2)] if leader else []
+        src = iter(np.stack([np.stack(s.frames) for s in srcs], axis=1)) if leader else None
+        bbox = np.stack([np.asarray(s.init_bbox, np.float32) for s in srcs]) if leader else None
+    recs = []
+    aim = contextlib.nullcontext() if steer else mock.patch.object(RoiShipper, "observe", lambda self, rec: None)
+    with aim:
+        stats = stream_track(tracker, src, bbox, on_record=recs.append if leader else None, **kw)
+    return {"recs": recs, "frames": stats["frames"], "dispatches": stats["dispatches"]}
+
+
+def track_command(rank: int, argv: list) -> int:
+    """cli.main(argv) on every rank (the process group is the spawn's)."""
+    from vitparticlefiltertracker_tpu_torch import cli
+
+    return cli.main(argv)
+
+
+def bf16_split_plants(prm: dict, spec_kw: dict, images: np.ndarray) -> dict:
+    """On a (1, 1, 2) mesh: the bf16 tensor-parallel forward of `prm` (a
+    torch parameter tree) -> its tokens as numpy, sound and with a fault
+    planted in the "model" sum (the bias added twice; rank 1's partial
+    dropped)."""
+    from unittest import mock
+
+    from vitparticlefiltertracker_tpu_torch.models.vit import vit_forward_tokens
+    from vitparticlefiltertracker_tpu_torch.parallel import mesh as pm
+
+    mesh = make_mesh(1, 1, 2, device="cpu")
+    spec = VitSpec(**spec_kw)._replace(dtype=torch.bfloat16, mesh=mesh)
+    shard = vit_param_shard(mesh, prm)
+    plain = pm.peer_all_reduce_plain
+    plants = {"sound": plain, "bias-twice": lambda parts, bias: plain(parts, bias) + bias,
+              "share-dropped": lambda parts, bias: plain(parts[:1], bias)}
+    out = {}
+    for name, fn in plants.items():
+        with mock.patch.object(pm, "peer_all_reduce_plain", fn):
+            out[name] = vit_forward_tokens(shard, torch.from_numpy(images), spec).float().numpy()
+    return out
+
+
+def layout_and_streams(rank: int, params_np: dict, spec_kw: dict, images: np.ndarray, tp_prm: dict,
+                       peer_cases: list, stream_cases: list, track_argv: list) -> dict:
+    """mesh_layout, the bf16 split's plants (bf16_split_plants over
+    `tp_prm`), then each peer_sums case (name, m, shape, seed), each
+    stream_runs case (name, kwargs) and the track command (argv) on the
+    same two ranks."""
+    out = mesh_layout(rank, params_np, spec_kw, images)
+    out["bf16_plants"] = bf16_split_plants(tp_prm, spec_kw, images)
+    out["peer"] = {name: peer_sums(rank, m, shape, seed) for name, m, shape, seed in peer_cases}
+    out["streams"] = {name: stream_runs(**kw) for name, kw in stream_cases}
+    out["track_rc"] = track_command(rank, track_argv)
     return out
 
 

@@ -10,10 +10,12 @@ given.
 On several cards: ``torchrun --nproc-per-node N -m
 vitparticlefiltertracker_tpu_torch track --set runtime.mesh_particles=N``
 (or mesh_banks with runtime.banks, mesh_model; ``train`` goes data-parallel
-over the N ranks). Every rank opens the same deterministic source and runs
-the same steps; rank 0 alone writes the records, state files and the bench
-line. ``stream`` and ``serve`` under a mesh, and a camera or the native
-ring as a mesh's source, are not supported yet (ROADMAP.md).
+over the N ranks). ``track``, ``stream`` and ``serve`` read their frames
+once, on rank 0 (any source: a camera, the native ring, a video), and
+broadcast each step's input to the other ranks (runtime/streaming.py
+``MeshFeed``), which run the same steps; ``bench`` opens its deterministic
+source on every rank. Rank 0 alone writes the records, state files and the
+bench line.
 """
 
 from __future__ import annotations
@@ -59,7 +61,7 @@ def load(args, implicit_config: bool = False) -> Config:
     return cfg.resolve()
 
 
-def _mesh_rank(cfg: Config, device: str, command: str) -> int:
+def _mesh_rank(cfg: Config, device: str) -> int:
     """This process's rank when the config (runtime.mesh_*) or the launcher
     (WORLD_SIZE) spreads the command over ranks, after initialising the
     process group (which makes the rank's card current); 0 otherwise."""
@@ -67,13 +69,6 @@ def _mesh_rank(cfg: Config, device: str, command: str) -> int:
     meshed = r.mesh_banks * r.mesh_particles * r.mesh_model > 1
     if not meshed and int(os.environ.get("WORLD_SIZE", 1)) <= 1:
         return 0
-    if meshed and command in ("stream", "serve"):
-        raise NotImplementedError(f"the {command} command under a mesh (runtime.mesh_*) needs its frames read once "
-                                  "and broadcast to the ranks; not supported yet (ROADMAP.md §1)")
-    src = cfg.io.source
-    if meshed and (src.startswith(("camera:", "native-synthetic:")) or src.endswith(".rgb24")):
-        raise NotImplementedError(f"io.source {src!r} under a mesh: every rank must read the same frames, which "
-                                  "a camera or the native ring does not give; not supported yet (ROADMAP.md §1)")
     from vitparticlefiltertracker_tpu_torch.parallel.mesh import init_distributed
 
     init_distributed(device)
@@ -82,80 +77,86 @@ def _mesh_rank(cfg: Config, device: str, command: str) -> int:
     return dist.get_rank()
 
 
-class _NullSink:
-    """The sink of a rank other than 0: records are written once, by rank 0."""
-
-    def write(self, rec) -> None:
-        pass
-
-    def close(self) -> None:
-        pass
-
-
 def cmd_track(cfg: Config, device: str = "cuda", quiet: bool = False) -> int:
     """Track io.source and write one JSONL record a frame; with
     runtime.banks > 1, a MultiTracker over the source's targets (or its one
     box, tiled) writes one record a bank a frame. io.overlay names a video
-    the tracked boxes are drawn into (every bank's with banks)."""
-    from vitparticlefiltertracker_tpu_torch.io.sink import JsonlSink, OverlaySink
+    the tracked boxes are drawn into (every bank's with banks). On a mesh
+    rank 0 reads the source and the other ranks follow its steps
+    (runtime/streaming.py MeshFeed)."""
+    from vitparticlefiltertracker_tpu_torch.runtime.streaming import MeshFeed
 
     banks = cfg.runtime.banks
     if cfg.io.resume_state and banks > 1:
         raise ValueError("io.resume_state supports a single tracker (runtime.banks == 1)")
-    rank = _mesh_rank(cfg, device, "track")
+    rank = _mesh_rank(cfg, device)
     quiet = quiet or rank != 0
-    source = _open(cfg, cfg.io.source, cfg.filter.seed)
-    sink = JsonlSink(cfg.io.output) if rank == 0 else _NullSink()
-    overlay = OverlaySink(cfg.io.overlay) if cfg.io.overlay and rank == 0 else None
-    t_start = time.perf_counter()
-    count = 0
-    frames_iter = iter(source)
-    if not cfg.io.resume_state:
-        frame0 = next(frames_iter)
-        bbox = getattr(source, "init_bbox", None)
-        if bbox is None:
-            bbox = cfg.io.init_bbox
     if banks > 1:
-        from vitparticlefiltertracker_tpu_torch.runtime.banked import MultiTracker, banked_bboxes
+        from vitparticlefiltertracker_tpu_torch.runtime.banked import MultiTracker
 
         tracker = MultiTracker(cfg, device=device)
-        tracker.init(frame0, banked_bboxes(bbox, banks))
-        for i, frame in enumerate(frames_iter):
-            recs = tracker.step(frame)
-            for rec in recs:
-                rec["frame"] = i + 1
-                sink.write(rec)
-            if overlay is not None:
-                overlay.write_multi(frame, recs)
-            count += 1
     else:
         from vitparticlefiltertracker_tpu_torch.runtime.tracker import Tracker
 
         tracker = Tracker(cfg, device=device)
+    if cfg.io.resume_state:
+        tracker.resume(cfg.io.resume_state)
+    feed = MeshFeed.of(tracker)
+    if feed is not None and feed.rank != 0:
+        feed.follow(tracker)
+    else:
+        _track_source(cfg, tracker if feed is None else feed.leader(tracker), feed, quiet)
+    if cfg.io.save_state and banks == 1:
+        tracker.save(cfg.io.save_state)
+        if not quiet:
+            print(f"saved state to {cfg.io.save_state}", file=sys.stderr)
+    return 0
+
+
+def _track_source(cfg: Config, tracker, feed, quiet: bool) -> None:
+    """cmd_track's loop on the process that reads the source (rank 0 on a
+    mesh, which ends the feed after the last frame)."""
+    from vitparticlefiltertracker_tpu_torch.io.sink import JsonlSink, OverlaySink
+
+    source = _open(cfg, cfg.io.source, cfg.filter.seed)
+    sink = JsonlSink(cfg.io.output)
+    overlay = OverlaySink(cfg.io.overlay) if cfg.io.overlay else None
+    t_start = time.perf_counter()
+    count = 0
+    frames_iter = iter(source)
+    base = 0
+    try:
         if cfg.io.resume_state:
-            tracker.resume(cfg.io.resume_state)
             base = int(tracker.state.frame_idx)
         else:
+            frame0 = next(frames_iter)
+            bbox = getattr(source, "init_bbox", None)
+            if bbox is None:
+                bbox = cfg.io.init_bbox
+            if cfg.runtime.banks > 1:
+                from vitparticlefiltertracker_tpu_torch.runtime.banked import banked_bboxes
+
+                bbox = banked_bboxes(bbox, cfg.runtime.banks)
             tracker.init(frame0, bbox)
-            base = 0
         for i, frame in enumerate(frames_iter):
-            rec = tracker.step(frame)
-            rec["frame"] = base + i + 1
-            sink.write(rec)
-            if overlay is not None:
-                overlay.write(frame, rec)
+            out = tracker.step(frame)
+            for rec in out if isinstance(out, list) else [out]:
+                rec["frame"] = base + i + 1
+                sink.write(rec)
+            if overlay is not None and isinstance(out, list):
+                overlay.write_multi(frame, out)
+            elif overlay is not None:
+                overlay.write(frame, out)
             count += 1
-        if cfg.io.save_state:
-            tracker.save(cfg.io.save_state)
-            if not quiet:
-                print(f"saved state to {cfg.io.save_state}", file=sys.stderr)
+    finally:
+        if feed is not None:
+            feed.end()
     wall = time.perf_counter() - t_start
     sink.close()
     if overlay is not None:
         overlay.close()
     if not quiet and count:
         print(f"tracked {count} frames in {wall:.2f}s ({count / wall:.1f} fps)", file=sys.stderr)
-    return 0
 
 
 def cmd_bench(cfg: Config, device: str = "cuda", quiet: bool = False) -> int:
@@ -163,7 +164,7 @@ def cmd_bench(cfg: Config, device: str = "cuda", quiet: bool = False) -> int:
     one JSON line on stdout; its progress on stderr unless quiet."""
     from vitparticlefiltertracker_tpu_torch.runtime.benchmark import run_benchmark
 
-    rank = _mesh_rank(cfg, device, "bench")
+    rank = _mesh_rank(cfg, device)
     result = run_benchmark(cfg, verbose=not quiet and rank == 0, device=device)
     if rank == 0:
         print(json.dumps(result))
@@ -201,25 +202,31 @@ def cmd_stream(cfg: Config, device: str = "cuda", quiet: bool = False) -> int:
     """The decode -> track pipeline (runtime/streaming.py): a producer
     thread, pinned staging, one graph replay a frame (or a chunk of ROI
     frames) and trailing readback; ROI streaming with every runtime.stream_*
-    key; a MultiTracker with one record a bank when runtime.banks > 1."""
+    key; a MultiTracker with one record a bank when runtime.banks > 1. On a
+    mesh rank 0 alone opens the source and writes the records; the other
+    ranks follow its dispatches (stream_track's MeshFeed)."""
     from vitparticlefiltertracker_tpu_torch.io.sink import JsonlSink
     from vitparticlefiltertracker_tpu_torch.runtime.streaming import stream_track
 
-    _mesh_rank(cfg, device, "stream")
-    source = _open(cfg, cfg.io.source, cfg.filter.seed)
-    init_bbox = getattr(source, "init_bbox", None)
-    if init_bbox is None:
-        init_bbox = cfg.io.init_bbox
+    rank = _mesh_rank(cfg, device)
     rt = cfg.runtime
     if rt.banks > 1:
         from vitparticlefiltertracker_tpu_torch.runtime.banked import MultiTracker, banked_bboxes
 
         tracker = MultiTracker(cfg, device=device)
-        init_bbox = banked_bboxes(init_bbox, rt.banks)
     else:
         from vitparticlefiltertracker_tpu_torch.runtime.tracker import Tracker
 
         tracker = Tracker(cfg, device=device)
+    if rank != 0:
+        stream_track(tracker, None, None)
+        return 0
+    source = _open(cfg, cfg.io.source, cfg.filter.seed)
+    init_bbox = getattr(source, "init_bbox", None)
+    if init_bbox is None:
+        init_bbox = cfg.io.init_bbox
+    if rt.banks > 1:
+        init_bbox = banked_bboxes(init_bbox, rt.banks)
     sink = JsonlSink(cfg.io.output)
     stats = stream_track(tracker, source, init_bbox, on_record=sink.write, **stream_kwargs(cfg))
     sink.close()
@@ -235,16 +242,21 @@ def cmd_serve(cfg: Config, device: str = "cuda", quiet: bool = False) -> int:
     list, or one spec replicated runtime.streams times with seeds
     filter.seed + i. One FramePump a source, read in lockstep into
     stream_track's pipeline; one JSONL record a stream a frame, with a
-    "stream" field."""
+    "stream" field. On a mesh (the streams over "bank") rank 0 alone opens
+    the sources and writes the records; the other ranks follow."""
     from vitparticlefiltertracker_tpu_torch.io.sink import JsonlSink
     from vitparticlefiltertracker_tpu_torch.runtime.banked import MultiStreamTracker
     from vitparticlefiltertracker_tpu_torch.runtime.streaming import FramePump, stream_track
 
-    _mesh_rank(cfg, device, "serve")
+    rank = _mesh_rank(cfg, device)
     specs = [s.strip() for s in cfg.io.source.split(",") if s.strip()]
     if len(specs) == 1:
         specs = specs * cfg.runtime.streams
     k = len(specs)
+    ms = MultiStreamTracker(cfg, num_streams=k, device=device)
+    if rank != 0:
+        stream_track(ms, None, None)
+        return 0
     sources = [_open(cfg, spec, cfg.filter.seed + i) for i, spec in enumerate(specs)]
     pumps = [iter(FramePump(s, depth=cfg.runtime.prefetch_frames)) for s in sources]
     bboxes = np.stack([np.asarray(s.init_bbox if getattr(s, "init_bbox", None) is not None else cfg.io.init_bbox,
@@ -261,7 +273,6 @@ def cmd_serve(cfg: Config, device: str = "cuda", quiet: bool = False) -> int:
                 raise ValueError(f"serve needs equal frame sizes across streams, got {shapes}")
             yield np.stack(frames)
 
-    ms = MultiStreamTracker(cfg, num_streams=k, device=device)
     sink = JsonlSink(cfg.io.output)
 
     def on_record(rec):
@@ -284,7 +295,7 @@ def cmd_train(cfg: Config, device: str = "cuda", quiet: bool = False) -> int:
     train.checkpoint_out."""
     from vitparticlefiltertracker_tpu_torch.training.train import train_features
 
-    rank = _mesh_rank(cfg, device, "train")
+    rank = _mesh_rank(cfg, device)
     train_features(cfg, log=(lambda s: None) if quiet or rank != 0 else None, device=device)
     return 0
 

@@ -24,7 +24,7 @@ from vitparticlefiltertracker_tpu_torch.ops.attention import (
     reference_attention,
     split_fused_qkv,
 )
-from vitparticlefiltertracker_tpu_torch.parallel.mesh import all_reduce
+from vitparticlefiltertracker_tpu_torch.parallel.mesh import row_parallel_sum
 
 
 class VitSpec(NamedTuple):
@@ -52,7 +52,7 @@ class VitSpec(NamedTuple):
     head_depth: int = 0
     # A parallel.mesh.Mesh: tensor parallelism over its "model" axis. The
     # parameters are this rank's (parallel.mesh.vit_param_shard): H / M
-    # heads and mlp_dim / M hidden columns; each block all-reduces its two
+    # heads and mlp_dim / M hidden columns; each block sums its two
     # row-parallel products over "model" before adding their biases. None:
     # the whole ViT here.
     mesh: object = None
@@ -111,11 +111,11 @@ def patchify(images: torch.Tensor, patch_size: int) -> torch.Tensor:
 
 def _row_parallel(y: torch.Tensor, w: torch.Tensor, bias: torch.Tensor, spec: VitSpec) -> torch.Tensor:
     """y @ w + bias; under a mesh, y @ w is this rank's partial sum, so the
-    sum over "model" comes first and the (replicated) bias is added once."""
-    y = y @ w.to(spec.dtype)
-    if spec.mesh is not None:
-        y = all_reduce(y, spec.mesh, "model")
-    return y + bias.to(spec.dtype)
+    sum over "model" comes first (parallel/mesh.py row_parallel_sum: in f32,
+    in rank order) and the (replicated) bias is added once."""
+    if spec.mesh is None:
+        return y @ w.to(spec.dtype) + bias.to(spec.dtype)
+    return row_parallel_sum(y, w.to(spec.dtype), bias.to(spec.dtype), spec.mesh)
 
 
 def _block(x: torch.Tensor, p: dict, spec: VitSpec) -> torch.Tensor:

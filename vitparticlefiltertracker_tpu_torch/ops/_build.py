@@ -164,3 +164,26 @@ def graph_if_library() -> ctypes.CDLL:
         lib.vpt_if_load.argtypes = []
         lib.vpt_if_load.restype = ctypes.c_int
     return lib
+
+
+def peer_allreduce_library() -> ctypes.CDLL:
+    """The "model" group's peer-to-peer all-reduce and its buffer helpers
+    (ops/peer_allreduce.py), with argtypes set as for flash_attn_library."""
+    lib, _ = build_library("peer_allreduce.cu")
+    if lib.vpt_par_allreduce.argtypes is None:
+        p, i, ll, cp = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_char_p
+        pp = ctypes.POINTER(ctypes.c_void_p)
+        # x, x dtype, bias, out, out dtype, n, d, data[m], flags[m], m, me, epochs, blocks, stream
+        lib.vpt_par_allreduce.argtypes = [p, i, p, p, i, ll, ll, pp, pp, i, i, p, i, p]
+        lib.vpt_par_malloc.argtypes = [i, ll, pp]
+        lib.vpt_par_free.argtypes = [p]
+        lib.vpt_par_ipc_handle.argtypes = [p, cp]
+        lib.vpt_par_ipc_open.argtypes = [i, cp, pp]
+        lib.vpt_par_ipc_close.argtypes = [p]
+        lib.vpt_par_bus_id.argtypes = [i, cp, i]
+        lib.vpt_par_peer_access.argtypes = [i, cp, ctypes.POINTER(ctypes.c_int)]
+        lib.vpt_par_flag_bytes.restype = ll
+        for fn in (lib.vpt_par_allreduce, lib.vpt_par_malloc, lib.vpt_par_free, lib.vpt_par_ipc_handle,
+                   lib.vpt_par_ipc_open, lib.vpt_par_ipc_close, lib.vpt_par_bus_id, lib.vpt_par_peer_access):
+            fn.restype = i
+    return lib

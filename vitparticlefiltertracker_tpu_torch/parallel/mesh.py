@@ -22,9 +22,24 @@ Where XLA inserts the collectives from sharding annotations, the port issues
 them itself, through the functions below, which count their calls as the
 kernel wrappers count their launches (runtime/step_graph.py counts them in
 a captured step as it counts K1 and K2). With a mesh every collective is
-issued whatever its axis's size: an axis of 1 is not short-circuited. With
-no mesh nothing here touches a process group. The backend follows the
-device: NCCL for CUDA tensors, gloo for CPU tensors.
+counted whatever its axis's size; on an axis of 1 it moves nothing (a copy,
+as NCCL does at one rank) and reaches no process group. With no mesh nothing
+here touches a process group. The backend follows the device: NCCL for
+CUDA tensors, gloo for CPU tensors.
+
+The "model" axis's sums (``row_parallel_sum``) go, on a CUDA mesh, through
+the port's peer-to-peer all-reduce kernel (ops/peer_allreduce.py,
+csrc/peer_allreduce.cu) over buffers every rank of the group maps, built
+with the mesh: NCCL's collectives across cards do not capture inside the
+step graph's conditional nodes, whose bodies run ViT forwards. A "model"
+group whose cards cannot map each other's memory (several nodes) raises at
+mesh build. The partials are summed in f32 with the bias and rounded once.
+On CPU
+tensors (gloo ranks) the plain version sums the gathered partials. Each
+mesh also holds two groups over all of its ranks for the streams
+(runtime/streaming.py): ``all_group`` (NCCL on the card: the frames rank 0
+reads, broadcast on the device) and ``host_group`` (gloo: the host's
+control messages).
 """
 
 from __future__ import annotations
@@ -37,6 +52,8 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from vitparticlefiltertracker_tpu_torch.ops.peer_allreduce import PeerGroup, peer_all_reduce, peer_all_reduce_plain
+
 AXES = ("bank", "particle", "model")
 
 
@@ -45,10 +62,12 @@ class Mesh:
 
     axis_names, shape (axis -> size), coords (axis -> this rank's index),
     groups (axis -> the subgroup of this rank's line along that axis), rank
-    (in the default group), backend, and local_rank (the card a CUDA rank
-    uses: cuda:local_rank)."""
+    (in the default group), backend, local_rank (the card a CUDA rank uses:
+    cuda:local_rank), device, peers, all_group and host_group (see the
+    module's docstring; None on a Mesh made without a process group)."""
 
-    def __init__(self, axis_names, sizes, rank: int, groups: dict, backend: str, local_rank: int):
+    def __init__(self, axis_names, sizes, rank: int, groups: dict, backend: str, local_rank: int,
+                 device: torch.device | None = None, peers=None, all_group=None, host_group=None):
         self.axis_names = tuple(axis_names)
         self.shape = dict(zip(self.axis_names, (int(s) for s in sizes)))
         self.rank = rank
@@ -56,6 +75,11 @@ class Mesh:
         self.groups = groups
         self.backend = backend
         self.local_rank = local_rank
+        # The device the mesh's tensors live on (NCCL: the rank's card).
+        self.device = device if device is not None else _backend_device(backend, local_rank)
+        self.peers = peers  # the "model" group's ops.peer_allreduce.PeerGroup (a CUDA mesh), else None
+        self.all_group = all_group  # every rank of the mesh, the default backend
+        self.host_group = host_group  # every rank of the mesh, gloo
 
     def __repr__(self) -> str:
         axes = " x ".join(f"{self.shape[a]} {a}" for a in self.axis_names)
@@ -88,8 +112,12 @@ def _backend_device(backend: str, local_rank: int) -> torch.device:
 
 def build_mesh(axis_names: tuple[str, ...], sizes: tuple[int, ...], device, what: str) -> Mesh:
     """A mesh of the named axes and sizes over the first prod(sizes) ranks
-    of the default process group (`what` names it in errors). On NCCL the
-    rank's card, cuda:LOCAL_RANK, is made current."""
+    of the default process group (`what` names it in errors), its tensors
+    on `device`: on CUDA the rank's card, cuda:LOCAL_RANK (by default the
+    rank under NCCL, the current card under gloo), made current, and a
+    "model" axis's peer-to-peer buffers (ops/peer_allreduce.py). A CUDA
+    mesh over a gloo group (ranks sharing a card) may split "model" only:
+    its other collectives would not capture."""
     init_distributed(device)
     world = dist.get_world_size()
     n = int(np.prod(sizes, dtype=np.int64))
@@ -106,20 +134,31 @@ def build_mesh(axis_names: tuple[str, ...], sizes: tuple[int, ...], device, what
             group = dist.new_group([int(r) for r in line])
             if rank in line:
                 groups[name] = group
+    everyone = [int(r) for r in ranks.reshape(-1)]
+    all_group = dist.new_group(everyone)
+    host_group = dist.new_group(everyone, backend="gloo")
     if rank >= n:
         raise ValueError(f"rank {rank} is outside the mesh ({what}) of {n} ranks")
     backend = dist.get_backend()
-    local_rank = int(os.environ.get("LOCAL_RANK", rank)) if backend == "nccl" else 0
-    if backend == "nccl":
+    cuda = torch.device(device).type == "cuda"
+    if cuda and backend != "nccl" and any(s > 1 for a, s in zip(axis_names, sizes) if a != "model"):
+        raise ValueError(f"a CUDA mesh over a {backend} group splits \"model\" only ({what})")
+    local_rank = 0
+    if cuda:
+        local_rank = int(os.environ.get("LOCAL_RANK", rank if backend == "nccl" else torch.cuda.current_device()))
         torch.cuda.set_device(local_rank)
-    mesh = Mesh(axis_names, sizes, rank, groups, backend, local_rank)
+    dev = torch.device("cuda", local_rank) if cuda else torch.device("cpu")
     # One eager collective a group, in axis order on every rank: NCCL makes
     # a communicator at its first collective, which must not fall inside a
     # CUDA graph capture. Not counted.
     probe = torch.zeros(1, device=_backend_device(backend, local_rank))
-    for name in axis_names:
-        dist.all_reduce(probe, group=groups[name])
-    return mesh
+    for group in (*(groups[name] for name in axis_names), all_group):
+        dist.all_reduce(probe, group=group)
+    peers = None
+    if cuda and "model" in axis_names:
+        peers = PeerGroup(groups["model"], int(np.unravel_index(rank, sizes)[axis_names.index("model")]),
+                          sizes[axis_names.index("model")], dev)
+    return Mesh(axis_names, sizes, rank, groups, backend, local_rank, dev, peers, all_group, host_group)
 
 
 def make_mesh(banks: int = 1, particles: int = 1, model: int = 1, device="cuda") -> Mesh:
@@ -213,7 +252,10 @@ def all_gather(x: torch.Tensor, mesh: Mesh, axis: str) -> torch.Tensor:
     """[...] on each rank of this rank's `axis` line -> [size, ...], rank i's
     at index i."""
     out = torch.empty(mesh.shape[axis] * x.numel(), dtype=x.dtype, device=x.device)
-    dist.all_gather_into_tensor(out, x.reshape(-1), group=mesh.groups[axis])
+    if mesh.shape[axis] == 1:
+        out.copy_(x.reshape(-1))
+    else:
+        dist.all_gather_into_tensor(out, x.reshape(-1), group=mesh.groups[axis])
     _count(all_gather, axis, x)
     return out.view(mesh.shape[axis], *x.shape)
 
@@ -221,7 +263,8 @@ def all_gather(x: torch.Tensor, mesh: Mesh, axis: str) -> torch.Tensor:
 def all_reduce(x: torch.Tensor, mesh: Mesh, axis: str) -> torch.Tensor:
     """The sum of `x` over this rank's `axis` line, written into `x`
     (contiguous) and returned."""
-    dist.all_reduce(x, group=mesh.groups[axis])
+    if mesh.shape[axis] > 1:
+        dist.all_reduce(x, group=mesh.groups[axis])
     _count(all_reduce, axis, x)
     return x
 
@@ -229,3 +272,25 @@ def all_reduce(x: torch.Tensor, mesh: Mesh, axis: str) -> torch.Tensor:
 for _fn in (all_gather, all_reduce):
     _fn.launches = 0  # collectives issued (a graph replay adds its capture's)
     _fn.shapes = Counter()  # (axis, *shape) -> issued
+
+
+def row_parallel_sum(y: torch.Tensor, w: torch.Tensor, bias: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """y @ w + bias for a row-parallel weight (w: this rank's rows of it, y:
+    this rank's columns of the input): every rank's partial product summed
+    over "model" in rank order in f32, the bias added once and the sum
+    rounded once to bias.dtype; every rank gets the same bits. On a
+    one-rank group the partial is the product in y's dtype (so the sum is
+    the unsharded block's `y @ w + bias` bit for bit: one bf16 add); on
+    several ranks it is taken in f32 (torch.mm's out_dtype on the card), so
+    no rank's share is rounded before the sum. CUDA: one launch of the peer
+    kernel (ops/peer_allreduce.py); CPU: the plain version over the
+    partials all-gathered on "model"."""
+    if mesh.shape["model"] == 1 or y.dtype == torch.float32:
+        part = y @ w
+    elif y.is_cuda:
+        part = torch.mm(y.reshape(-1, y.shape[-1]), w, out_dtype=torch.float32).view(*y.shape[:-1], w.shape[-1])
+    else:
+        part = y.float() @ w.float()
+    if y.is_cuda:
+        return peer_all_reduce(part, bias, mesh.peers)
+    return peer_all_reduce_plain(all_gather(part, mesh, "model"), bias)

@@ -23,9 +23,11 @@ are captured on a stream of their own, into a memory pool of their own.
 A replay does not call the kernel wrappers, so their launch counts would
 stand still: the graph records what its capture added to the counts outside
 the branches (the capture launches nothing) and adds it again on each
-replay. The mesh's collectives (parallel/mesh.py) are counted the same way:
+replay. The mesh's collectives (parallel/mesh.py) and the "model" group's
+peer all-reduce kernel (ops/peer_allreduce.py) are counted the same way:
 they are captured on the capture stream (or a body's stream) like any
-kernel, after the warm-up has run each of them once eagerly. Each branch body also adds one to a counter on the card when it
+kernel, after the warm-up has run each of them once eagerly (the peer
+kernel's buffers grow there, never inside a capture). Each branch body also adds one to a counter on the card when it
 runs; ``settle_counts`` reads those counters (one wait) and adds each
 body's launches once for every time it ran. Warm-up launches are not
 counted.
@@ -41,13 +43,13 @@ import torch
 
 from vitparticlefiltertracker_tpu_torch.filters.particle import PFState, StepNoise
 from vitparticlefiltertracker_tpu_torch.ops import attention
-from vitparticlefiltertracker_tpu_torch.ops import patchify_window
+from vitparticlefiltertracker_tpu_torch.ops import patchify_window, peer_allreduce
 from vitparticlefiltertracker_tpu_torch.parallel import mesh
 
 # Each counted call (the kernel wrappers, then the mesh's collectives) with
 # the name of its by-shape Counter.
 _COUNTED = ((attention.flash_attention, "shapes"), (patchify_window.gather_patchify_window, "sizes"),
-            (mesh.all_gather, "shapes"), (mesh.all_reduce, "shapes"))
+            (mesh.all_gather, "shapes"), (mesh.all_reduce, "shapes"), (peer_allreduce.peer_all_reduce, "shapes"))
 
 
 def read_counts() -> list[tuple[int, Counter]]:

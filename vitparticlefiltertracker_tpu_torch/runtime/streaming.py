@@ -328,6 +328,219 @@ def _read_row(row: torch.Tensor, event, stream, bufs: dict) -> np.ndarray:
     return buf.numpy().copy()
 
 
+# -- one reader for a mesh: rank 0 reads, every rank steps --------------------------
+
+_END, _FRAME, _INIT, _PREPARE, _STEP, _PACKED, _ROI, _CHUNK = range(8)
+
+
+class MeshFeed:
+    """The frames of a stream on a mesh (parallel/mesh.py), read once, by
+    rank 0.
+
+    Every rank of a mesh must step on the same frames, and only rank 0 opens
+    the source (a camera, the native ring, a video, a pump). Rank 0's
+    tracker is wrapped (``leader``): before each dispatch it sends the
+    host's decisions (the operation, the dispatch size, whether a new global
+    view ships; the end of the stream) to the other ranks
+    as a small int64 tensor over the mesh's gloo group (``host_group``), and
+    broadcasts the staged input from its device buffer over the mesh's
+    device group (``all_group``: NCCL on the card, on the submitting
+    stream): the frame, or a ROI StreamFrame's tracking pixels and origins
+    and, when a new one ships, its global view. Each of the other ranks
+    runs ``follow``: the same calls on its own tracker, each input broadcast
+    into a device buffer of its own, so the replays on every rank read the
+    same bytes. A follower waits on the host for rank 0's next message and
+    never on the card. Rare set-up messages (the init frame's shape and
+    boxes, the ROI views' shapes and dispatch sizes) go as objects.
+    """
+
+    def __init__(self, mesh):
+        import torch.distributed as dist
+
+        self.mesh = mesh
+        self.rank = dist.get_rank(mesh.all_group)
+        self._bufs: dict = {}  # (role, shape, dtype) -> this rank's device buffer for the broadcasts
+        self._glob = None  # the last global view handed to the tracker (its identity marks a new one)
+        self._zero2 = torch.zeros(2, dtype=torch.float32, device=mesh.device)
+        self.ended = False
+
+    @staticmethod
+    def of(tracker) -> "MeshFeed | None":
+        """The feed of a tracker on a mesh (of one rank too: rank 0 then
+        broadcasts to itself), else None."""
+        mesh = getattr(tracker, "mesh", None)
+        return None if mesh is None or mesh.all_group is None else MeshFeed(mesh)
+
+    # -- the wire ------------------------------------------------------------------
+    def _control(self, *values) -> list[int]:
+        import torch.distributed as dist
+
+        msg = torch.zeros(3, dtype=torch.int64)
+        if self.rank == 0:
+            msg[: len(values)] = torch.tensor(values, dtype=torch.int64)
+        dist.broadcast(msg, src=0, group=self.mesh.host_group)
+        return msg.tolist()
+
+    def _object(self, value=None):
+        import torch.distributed as dist
+
+        box = [value]
+        dist.broadcast_object_list(box, src=0, group=self.mesh.host_group)
+        return box[0]
+
+    def _tensor(self, role: str, x: torch.Tensor | None, shape, dtype) -> torch.Tensor:
+        """Rank 0's `x` (a host or device tensor) broadcast into every rank's
+        device buffer for that role ("frame", "track", "origin", "glob"),
+        shape and dtype -> the buffer (valid until the next broadcast for
+        its key: the step that reads it is enqueued first, on the same
+        stream). A buffer a role: a global view of the ROI's shape must not
+        overwrite the ROI pixels broadcast just before it."""
+        import torch.distributed as dist
+
+        key = (role, tuple(shape), dtype)
+        buf = self._bufs.get(key)
+        if buf is None:
+            buf = self._bufs[key] = torch.empty(key[1], dtype=dtype, device=self.mesh.device)
+        if self.rank == 0:
+            buf.copy_(x, non_blocking=True)
+        dist.broadcast(buf, src=0, group=self.mesh.all_group)
+        return buf
+
+    def _view(self, frame: StreamFrame | None, c: int, glob_new: bool, spec: dict) -> StreamFrame:
+        """A ROI StreamFrame (C stacked views, or one) on every rank's device."""
+        (h, w, ch), tdt, stride = spec["track"]
+        gshape, gdt, gstride = spec["glob"]
+        track = frame.track if frame is not None else None
+        lead = (c,) if c else ()
+        pixels = self._tensor("track", track.pixels if track else None, (*lead, h, w, ch), tdt)
+        origin = self._tensor("origin", track.origin if track else None, (*lead, 2), torch.float32)
+        if glob_new:
+            # A new view object over the same buffer, so the tracker copies it in.
+            self._glob = self._tensor("glob", frame.glob.pixels if frame else None, gshape, gdt).view(gshape)
+        return StreamFrame(FrameView(pixels, origin, stride), FrameView(self._glob, self._zero2, gstride))
+
+    def end(self) -> None:
+        """Rank 0: the end of the stream (once)."""
+        if self.rank == 0 and not self.ended:
+            self.ended = True
+            self._control(_END)
+
+    # -- rank 0 ------------------------------------------------------------------
+    def leader(self, tracker) -> "_Leader":
+        return _Leader(tracker, self)
+
+    # -- the other ranks -------------------------------------------------------------
+    def follow(self, tracker) -> dict[str, Any]:
+        """Rank r > 0: make rank 0's calls on `tracker` until the end of the
+        stream -> {"frames", "dispatches": {size: count}, "wall_s"}."""
+        t0 = time.perf_counter()
+        spec, frame, frames, dispatches = None, None, 0, {}
+        while True:
+            op, c, glob_new = self._control()
+            if op == _END:
+                break
+            if op == _FRAME:
+                frame = self._object()  # (shape, dtype) of the frames from here on
+                continue
+            if op == _INIT:
+                tracker.init(self._tensor("frame", None, *frame), self._object())
+                continue
+            if op == _PREPARE:
+                spec, sizes = self._object()
+                tracker.prepare_stream(_example(spec), sizes)
+                continue
+            if op in (_STEP, _PACKED):
+                x = self._tensor("frame", None, *frame)
+                (tracker.step if op == _STEP else tracker.step_packed)(x)
+            else:
+                x = self._view(None, c if op == _CHUNK else 0, bool(glob_new), spec)
+                (tracker.step_chunk_packed if op == _CHUNK else tracker.step_packed)(x)
+            size = c if op == _CHUNK else 1
+            frames += size
+            dispatches[size] = dispatches.get(size, 0) + 1
+        _complete(tracker)
+        return {"frames": frames, "dispatches": dispatches, "wall_s": time.perf_counter() - t0}
+
+
+def _spec(frame: StreamFrame) -> dict:
+    """A ROI StreamFrame's shapes (of one frame's view), dtypes and strides."""
+    t, g = frame.track, frame.glob
+    return {"track": (tuple(t.pixels.shape[-3:]), t.pixels.dtype, float(t.stride)),
+            "glob": (tuple(g.pixels.shape), g.pixels.dtype, float(g.stride))}
+
+
+def _example(spec: dict) -> StreamFrame:
+    """Zeros on the host shaped as `spec` (what prepare_stream captures for)."""
+    (shape, dtype, stride), (gshape, gdtype, gstride) = spec["track"], spec["glob"]
+    return StreamFrame(FrameView(torch.zeros(shape, dtype=dtype), torch.zeros(2), stride),
+                       FrameView(torch.zeros(gshape, dtype=gdtype), torch.zeros(2), gstride))
+
+
+class _Leader:
+    """Rank 0's tracker on a MeshFeed: each call that steps (or sets up the
+    steps) first sends the others its decisions and its inputs, then makes
+    the call on the broadcast device buffers. Anything else is the
+    tracker's."""
+
+    def __init__(self, tracker, feed: MeshFeed):
+        self._tracker, self._feed = tracker, feed
+        self._frame = None
+        self._spec = None
+        self._glob_sent = None  # the host tensor of the global view sent last
+
+    def __getattr__(self, name):
+        return getattr(self._tracker, name)
+
+    def _copied(self, *xs) -> None:
+        for x in xs:  # staged slots: their copies to the card are enqueued
+            self._tracker.staging.copied(x)
+
+    def _frame_dev(self, op: int, frame) -> torch.Tensor:
+        """Send `op` and broadcast `frame` (a host array or tensor) -> its
+        device buffer. A frame of a new shape or dtype is announced first."""
+        x = torch.from_numpy(np.ascontiguousarray(frame)) if isinstance(frame, np.ndarray) else frame
+        if self._frame != (tuple(x.shape), x.dtype):
+            self._frame = (tuple(x.shape), x.dtype)
+            self._feed._control(_FRAME)
+            self._feed._object(self._frame)
+        self._feed._control(op)
+        dev = self._feed._tensor("frame", x, *self._frame)
+        self._copied(x)
+        return dev
+
+    def init(self, frame, bbox) -> None:
+        x = self._frame_dev(_INIT, frame)
+        bbox = np.asarray(bbox, np.float32).tolist()
+        self._feed._object(bbox)
+        self._tracker.init(x, bbox)
+
+    def prepare_stream(self, example: StreamFrame, sizes) -> None:
+        self._spec = _spec(example)
+        self._feed._control(_PREPARE)
+        self._feed._object((self._spec, list(sizes)))
+        self._tracker.prepare_stream(example, sizes)
+
+    def step(self, frame):
+        return self._tracker.step(self._frame_dev(_STEP, self._tracker.stage(frame)))
+
+    def step_packed(self, x) -> torch.Tensor:
+        if not isinstance(x, StreamFrame):
+            return self._tracker.step_packed(self._frame_dev(_PACKED, x))
+        return self._tracker.step_packed(self._roi(_ROI, x))
+
+    def step_chunk_packed(self, x: StreamFrame) -> torch.Tensor:
+        return self._tracker.step_chunk_packed(self._roi(_CHUNK, x))
+
+    def _roi(self, op: int, frame: StreamFrame) -> StreamFrame:
+        c = frame.track.pixels.shape[0] if op == _CHUNK else 0
+        glob_new = frame.glob.pixels is not self._glob_sent
+        self._feed._control(op, c, int(glob_new))
+        view = self._feed._view(frame, c, glob_new, self._spec)
+        self._glob_sent = frame.glob.pixels
+        self._copied(frame.track.pixels, frame.track.origin, *((frame.glob.pixels,) if glob_new else ()))
+        return view
+
+
 def stream_track(
     tracker,
     source: Iterable[np.ndarray],
@@ -390,6 +603,11 @@ def stream_track(
     chunk equals its frames' single steps, so a switch changes no record.
     Every size's graph is captured at init.
     """
+    feed = MeshFeed.of(tracker)
+    if feed is not None and feed.rank != 0:
+        return feed.follow(tracker)  # rank 0 reads the source and sends each dispatch's inputs
+    if feed is not None:
+        tracker = feed.leader(tracker)
     bbox = np.asarray(init_bbox, np.float32)
     if chunk > 1 and roi_px <= 0:
         raise ValueError("stream chunking (chunk > 1) requires roi_px > 0")
@@ -666,8 +884,12 @@ def stream_track(
         if chunk == 1:
             dispatches[1] = n
         t = time.perf_counter()
+        if feed is not None:
+            feed.end()
         _finish_drainer()
     finally:
+        if feed is not None:
+            feed.end()  # the other ranks stop too when the loop fails
         # Teardown on every exit: the drainer discards queued items after an
         # error, so put(None) cannot block.
         steer_stop = True

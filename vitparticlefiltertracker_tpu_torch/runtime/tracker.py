@@ -247,19 +247,21 @@ def step_branches(cfg: Config) -> tuple[bool, int]:
 
 def refuse_cross_card_branches(cfg: Config, mesh: Mesh) -> None:
     """Raise NotImplementedError for a step graph whose IF-node bodies would
-    hold collectives across cards: a "model" axis above 1 puts all-reduces
-    in every ViT forward, and the probe's and the scan's bodies run one.
-    NCCL collectives across cards inside a conditional node fail to capture
-    (on 4 H100s: "CUDA error: invalid argument" at the capture's end; at one
-    rank NCCL moves nothing and the capture holds). The eager step
+    hold "model" sums that no kernel can serve: a "model" axis above 1 puts
+    a sum of partial products in every block of every ViT forward, and the
+    probe's and the scan's bodies run one. On a CUDA mesh the peer-to-peer
+    all-reduce kernel (ops/peer_allreduce.py) serves them inside a
+    conditional node; a mesh without its PeerGroup (cards that cannot map
+    each other's memory, which a CUDA mesh refuses at build) has none, and
+    NCCL's collectives across cards do not capture there. The eager step
     (graphs=False) branches on the host and is not refused."""
     probe, n_after = step_branches(cfg)
-    if mesh.shape["model"] > 1 and (probe or n_after > 0):
+    if mesh.shape["model"] > 1 and (probe or n_after > 0) and mesh.peers is None:
         raise NotImplementedError(
             f"runtime.mesh_model {mesh.shape['model']} with the step's lost-only branches (the probe or global "
-            "re-detection): their IF-node bodies would hold all-reduces across cards, which NCCL does not capture "
-            "in a conditional node; use graphs=False, mesh_model 1, or a config without the branches "
-            "(ROADMAP.md §3, F6)"
+            "re-detection) and no peer-to-peer group for \"model\": their IF-node bodies would hold sums across "
+            "cards that only the peer all-reduce kernel can serve in a conditional node; use graphs=False, "
+            "mesh_model 1, or a config without the branches (ROADMAP.md §3, F6)"
         )
 
 
@@ -963,11 +965,11 @@ class _GraphStepper:
         self.device = resolve_device(device)
         self.mesh = mesh
         if mesh is not None:
-            backend = "nccl" if self.device.type == "cuda" else "gloo"
-            if mesh.backend != backend:
-                raise ValueError(f"a {self.device.type} tracker needs a {backend} mesh, got {mesh.backend}")
+            if mesh.device.type != self.device.type:
+                raise ValueError(f"a {self.device.type} tracker needs a {self.device.type} mesh, got one on "
+                                 f"{mesh.device} ({mesh.backend})")
             if self.device.type == "cuda" and self.device.index is None:
-                self.device = torch.device("cuda", mesh.local_rank)
+                self.device = mesh.device
         spec = VitSpec.from_config(cfg.model)._replace(mesh=mesh)
         if cfg.tracker.mode == "crop":
             spec = spec._replace(image_size=cfg.tracker.crop_size)
