@@ -149,7 +149,9 @@ Phases, each timed and printed:
                 f32 partials into bf16 at [1, 196, 768], [1, 196, 1024]
                 and [49, 196, 768] (and into f32) against its plain version
                 (bitwise), both ranks equal, timed (the two contexts take
-                turns on the card); then the robust path (48 frames of
+                turns on the card), each in the form peer_form picks (it
+                prints which) and the scan's shape in both, one-shot and
+                two-shot; then the robust path (48 frames of
                 teleport) with the ViT split over "model" 2: the graph run,
                 whose probe and scan IF-node bodies hold the kernel, against
                 the mesh's eager run at every step (GRAPH_POS_TOL_PX), probes
@@ -163,7 +165,9 @@ Phases, each timed and printed:
                 dense, crop (B 1024 and B 1), re-detection, banked (B 8),
                 multi-stream (B 4) and eval5 (B 1 and B 25, 16 heads) shapes
                 and at a rank's heads under "model" 2 ([1, 6 | 8, 196, 64])
-                in bf16, and the dense shape in f32 (eval1's); K2, its
+                in bf16, and the dense (eval1's: the split 3xTF32 path) and
+                re-detection (the tiled 3xTF32 path) shapes in f32, each
+                bound on its path's peak (attention_peak); K2, its
                 plain version and cuBLAS's product alone on sampled tokens
                 (a yardstick the port never calls) at the crop path's N 1024
                 and N 1 (tools/port_k2_times.py), at a rank's N 512 and 256
@@ -524,6 +528,9 @@ K2_WINDOW_CASES = ((1, 1024), (2, 1024), (8, 1024), (2, 1))
 # H100 SXM published peaks (dense): bf16 tensor cores, f32 without them, HBM.
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 PEAK_BYTES_PER_S = 3.35e12
+# TF32 tensor cores; K1's f32 paths above T 16 run each f32 product as three
+# TF32 ones (3xTF32), so their operations term takes a third of it.
+PEAK_TF32 = 495e12
 
 
 def check(ok: bool, what: str) -> None:
@@ -536,14 +543,27 @@ def phase(name: str, t0: float) -> None:
     print(f"[phase] {name}: {time.perf_counter() - t0:.2f} s", flush=True)
 
 
-def attention_bound_ms(shape, dtype) -> tuple[float, str]:
+def attention_peak(t: int, dtype) -> tuple[float, str]:
+    """The peak K1's path at this T and dtype runs its products at: the
+    small path's scalar f32 FMAs (both dtypes), the bf16 tiled path's tensor
+    cores, the f32 tiled and split paths' 3xTF32 (a third of TF32's)."""
+    if t <= attention.SMALL_T_MAX:
+        return PEAK_FLOPS[torch.float32], "f32 FFMA (small path)"
+    if dtype == torch.bfloat16:
+        return PEAK_FLOPS[torch.bfloat16], "bf16 tensor cores"
+    return PEAK_TF32 / 3, "3xTF32 tensor cores (495e12 / 3)"
+
+
+def attention_bound_ms(shape, dtype) -> tuple[float, str, str]:
     """Least time for one attention forward: q, k, v read once, o written
-    once, against 4·B·H·T²·d FLOP at the dtype's peak."""
+    once, against 4·B·H·T²·d FLOP at the peak of the path that runs it
+    (attention_peak, whose basis is returned too)."""
     b, h, t, d = shape
     elem = torch.finfo(dtype).bits // 8
+    peak, basis = attention_peak(t, dtype)
     byte_ms = 4 * b * h * t * d * elem / PEAK_BYTES_PER_S * 1e3
-    op_ms = 4 * b * h * t * t * d / PEAK_FLOPS[dtype] * 1e3
-    return max(byte_ms, op_ms), ("bytes" if byte_ms >= op_ms else "operations")
+    op_ms = 4 * b * h * t * t * d / peak * 1e3
+    return max(byte_ms, op_ms), ("bytes" if byte_ms >= op_ms else "operations"), basis
 
 
 def qkv(shape, dtype, seed, layout="contiguous"):
@@ -2143,14 +2163,14 @@ def time_kernels(shapes=TIME_SHAPES, dtype=torch.bfloat16) -> dict:
             dev[name].append(time_graph(fns[name]))
         for name in order:
             eager[name].append(time_eager(fns[name])[0])
-        bound, by = attention_bound_ms(shape, dtype)
+        bound, by, basis = attention_bound_ms(shape, dtype)
         rows[shape] = {"ms": min(dev["k1"]), "plain_ms": min(dev["plain"]), "library_ms": dev["sdpa"][0],
-                       "bound_ms": bound, "bound_by": by, "eager_ms": min(eager["k1"]),
+                       "bound_ms": bound, "bound_by": by, "peak_basis": basis, "eager_ms": min(eager["k1"]),
                        "eager_plain_ms": min(eager["plain"]), "eager_library_ms": eager["sdpa"][0]}
         fmt = lambda xs: "/".join(f"{x:.4f}" for x in xs)  # noqa: E731
         print(f"  {str(shape):18s} {str(dtype).removeprefix('torch.')} fused views, device (graph): K1 {fmt(dev['k1'])} ms, plain "
               f"{fmt(dev['plain'])} ms, sdpa {fmt(dev['sdpa'])} ms; eager loop: K1 {fmt(eager['k1'])}, plain "
-              f"{fmt(eager['plain'])}, sdpa {fmt(eager['sdpa'])} ms; bound {bound:.5f} ms ({by})", flush=True)
+              f"{fmt(eager['plain'])}, sdpa {fmt(eager['sdpa'])} ms; bound {bound:.5f} ms ({by}; {basis})", flush=True)
     return rows
 
 
@@ -2584,11 +2604,13 @@ def _peer_rank_run(rank: int, store: str) -> dict:
 
 def peer_kernel_checks(mesh) -> dict:
     """On both ranks: the kernel over f32 partials (rank r's is partial r of
-    peer_inputs) at each of PEER_SHAPES, into bf16 with the bias (and at the
-    first shape into f32 with an f32 bias), against the plain version on the same
-    inputs on the card; both ranks' outputs equal; each timed as a CUDA
-    graph of calls replayed by both processes together (the two contexts
-    take turns on the card, so the time is the turns', not NVLink's)."""
+    peer_inputs) at each of PEER_SHAPES into bf16 with the bias, in the form
+    par.peer_form picks there, and at the scan's shape in both forms (the
+    first shape and the scan's also into f32 with an f32 bias), against the
+    plain version on the same inputs on the card; both ranks' outputs
+    equal; each form timed as a CUDA graph of calls replayed by both
+    processes together (the two contexts take turns on the card, so the
+    time is the turns', not NVLink's). Keys: (shape, output dtype, form)."""
     import torch.distributed as dist
 
     group, rank = mesh.peers, mesh.coords["model"]
@@ -2596,21 +2618,26 @@ def peer_kernel_checks(mesh) -> dict:
     for i, shape in enumerate(PEER_SHAPES):
         parts, bias = peer_inputs(shape, 2, seed=10 + i)
         x, b, all_parts = parts[rank].cuda(), bias.cuda(), parts.cuda()
-        for dtype, bias_dev in ((torch.bfloat16, b), *(((torch.float32, b.float()),) if i == 0 else ())):
-            got = par.peer_all_reduce(x, bias_dev, group)
-            want = par.peer_all_reduce_plain(all_parts, bias_dev)
-            err = float((got.float() - want.float()).abs().max())
-            sums = [None, None]
-            dist.all_gather_object(sums, got.float().cpu().numpy().tobytes())
-            check(err <= PEER_TOL and sums[0] == sums[1],
-                  f"peer kernel, 2 ranks, {shape} -> {dtype}: max_abs_err {err} <= {PEER_TOL}, ranks equal")
-            out[(shape, str(dtype))] = {"max_abs_err": err}
-        saved = step_graph.read_counts()
-        ms = time_graph(lambda: par.peer_all_reduce(x, b, group), iters=20, reps=3)
-        plain_ms = time_graph(lambda: par.peer_all_reduce_plain(all_parts, b), iters=20, reps=3)
-        step_graph.restore_counts(saved)
-        bound, by = peer_bound_ms(shape, 2, torch.float32, torch.bfloat16)
-        out[(shape, str(torch.bfloat16))].update(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by)
+        picked = par.peer_form(math.prod(shape), 2, torch.float32)
+        forms = (par.ONE_SHOT, par.TWO_SHOT) if shape == PEER_SHAPES[2] else (picked,)
+        for form in forms:
+            f32_too = i == 0 or shape == PEER_SHAPES[2]
+            for dtype, bias_dev in ((torch.bfloat16, b), *(((torch.float32, b.float()),) if f32_too else ())):
+                got = par.peer_all_reduce(x, bias_dev, group, form=form)
+                want = par.peer_all_reduce_plain(all_parts, bias_dev)
+                err = float((got.float() - want.float()).abs().max())
+                sums = [None, None]
+                dist.all_gather_object(sums, got.float().cpu().numpy().tobytes())
+                check(err <= PEER_TOL and sums[0] == sums[1],
+                      f"peer kernel, 2 ranks, {shape} -> {dtype}, {form}: max_abs_err {err} <= {PEER_TOL}, ranks "
+                      "equal")
+                out[(shape, str(dtype), form)] = {"max_abs_err": err, "form": form, "picked": form == picked}
+            saved = step_graph.read_counts()
+            ms = time_graph(lambda: par.peer_all_reduce(x, b, group, form=form), iters=20, reps=3)
+            plain_ms = time_graph(lambda: par.peer_all_reduce_plain(all_parts, b), iters=20, reps=3)
+            step_graph.restore_counts(saved)
+            bound, by = peer_bound_ms(shape, 2, torch.float32, torch.bfloat16)
+            out[(shape, str(torch.bfloat16), form)].update(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by)
     return out
 
 
@@ -2799,11 +2826,12 @@ def run_peer_phase() -> dict:
                     p.kill()
                     p.join()
     r0, r1 = got[0], got[1]
-    for (shape, dtype), row in r0["kernel"].items():
-        if "ms" in row:
-            print(f"  peer kernel, 2 processes on one card, {shape} f32 -> {dtype}: {row['ms']:.4f} ms a call (the "
-                  f"contexts' turns), plain {row['plain_ms']:.4f} ms, bound {row['bound_ms']:.5f} ms; max_abs_err "
-                  f"{row['max_abs_err']}", flush=True)
+    for (shape, dtype, form), row in r0["kernel"].items():
+        took = "the form peer_form picks" if row["picked"] else "forced"
+        timing = (f"{row['ms']:.4f} ms a call (the contexts' turns), plain {row['plain_ms']:.4f} ms, bound "
+                  f"{row['bound_ms']:.5f} ms; " if "ms" in row else "")
+        print(f"  peer kernel, 2 processes on one card, {shape} f32 -> {dtype.removeprefix('torch.')}, {form} ({took}): "
+              f"{timing}max_abs_err {row['max_abs_err']}", flush=True)
     tp = r0["tp_forward"]
     print(f"  peer tp forward, ViT-B/16 + head in bf16 on \"model\" 2 (biases drawn at {TP_BIAS_STD}): tokens "
           f"{tp['split_vs_twin']:.5f} (relative RMS; max abs {tp['max_abs']:.4f}) off the mesh=None bf16 forward, "
@@ -2847,12 +2875,14 @@ def main() -> int:
         for line in rec["ptxas"].splitlines():
             print(f"  ptxas: {line.strip()}")
     lib = _build.flash_attn_library()
-    for shape in TIME_SHAPES:
-        x = torch.empty(shape, dtype=torch.bfloat16, device="cuda")
+    for shape, dtype in [(x, torch.bfloat16) for x in TIME_SHAPES] + [(DENSE_SHAPE, torch.float32),
+                                                                       (REDETECT_SHAPE, torch.float32)]:
+        x = torch.empty(shape, dtype=dtype, device="cuda")
         plan = attention.launch_plan(x, x, x, x, torch.cuda.get_device_properties(0).multi_processor_count)
-        smem = lib.vpt_flash_attn_smem_bytes(attention._PATH_CODES[plan.path], 1, plan.t, plan.warps)
-        print(f"  K1 at {shape} bf16: {plan.path} path, {plan.warps} warps a block, grid {plan.grid}, "
-              f"{smem} B of dynamic shared memory a block")
+        smem = lib.vpt_flash_attn_smem_bytes(attention._PATH_CODES[plan.path], attention._DTYPE_CODES[dtype],
+                                             plan.t, plan.warps)
+        print(f"  K1 at {shape} {str(dtype).removeprefix('torch.')}: {plan.path} path, {plan.warps} warps a block, "
+              f"grid {plan.grid}, {smem} B of dynamic shared memory a block")
     check_k2_build(built["window_patchify.cu"][1])
     phase("build", t0)
 
@@ -2916,7 +2946,7 @@ def main() -> int:
 
     t0 = time.perf_counter()
     times = time_kernels()
-    times_f32 = time_kernels([DENSE_SHAPE], torch.float32)
+    times_f32 = time_kernels([DENSE_SHAPE, REDETECT_SHAPE], torch.float32)
     k2_times = time_window_patchify(K2_MAIN)
     k2_one_times = time_window_patchify(K2_ONE)
     k2_window_times = time_window_patchify_windows()
@@ -2978,6 +3008,12 @@ def main() -> int:
     multi_card = [dict(**k1_common, path="mesh (1, 1, 2) on 2 cards, ViT-L/16: not run on one card",
                        shape=list(l16_tp), launches=0, max_abs_err=errs[(l16_tp, torch.bfloat16, "fused")],
                        **times[l16_tp])]
+    # K1 in f32 at the scan's shape (the tiled 3xTF32 path; eval1's dense
+    # shape takes the split path): timed beside eval1's, run by no path here
+    # (the f32 configs have no re-detection).
+    multi_card.append(dict(**k1_common, path="f32 at the scan's shape: timed only, no path here scans in float32",
+                           shape=list(REDETECT_SHAPE), dtype="float32", launches=0,
+                           max_abs_err=errs[(REDETECT_SHAPE, torch.float32, "fused")], **times_f32[REDETECT_SHAPE]))
     k2_rows = [dict(name="gather_patchify_window", route="cuda",
                     source="vitparticlefiltertracker_tpu_torch/csrc/window_patchify.cu",
                     replaces="vitparticlefiltertracker_tpu/ops/patchify_pallas.py:59",
@@ -3009,18 +3045,27 @@ def main() -> int:
                                                  "at these shapes on 4 cards: PERF.md section 6 "
                                                  "(tools/port_mesh_check.py)")
     two = peer["robust"]["peer_shapes"]
+    picked = {shape: par.peer_form(math.prod(shape), 2, torch.float32) for shape in PEER_SHAPES}
     peer_rows = [dict(**peer_common, path=f"peer phase: robust on make_mesh(1, 1, 2), 2 processes on one card{tag}",
                       shape=list(shape), dtype="float32 -> bfloat16", launches=two.get((2, *shape), 0),
-                      **peer["kernel"][(shape, str(torch.bfloat16))], **no_nccl)
+                      **peer["kernel"][(shape, str(torch.bfloat16), picked[shape])], **no_nccl)
                  for shape, tag in ((PEER_SHAPES[0], ""), (PEER_SHAPES[2], ", scan"))]
     for path, shape, run in (("mesh (a) dense, make_mesh(1, 1, 1)", PEER_SHAPES[0], mesh["dense"]),
                              ("mesh (b) eval3, make_mesh(1, 1, 1)", PEER_SHAPES[1], mesh["eval3"]),
                              ("mesh (c) robust, make_mesh(1, 1, 1), scan", PEER_SHAPES[2], mesh["robust"])):
         peer_rows.append(dict(**peer_common, path=path, shape=list(shape), dtype="bfloat16 -> bfloat16",
-                              launches=run["peer_shapes"].get((1, *shape), 0), **mesh["peer_times"][shape]))
+                              launches=run["peer_shapes"].get((1, *shape), 0), form=par.ONE_SHOT,
+                              **mesh["peer_times"][shape]))
     multi_card.append(dict(**peer_common, path="eval3 (ViT-L/16) on \"model\" 2: several cards, not run on one card",
                            shape=list(PEER_SHAPES[1]), dtype="float32 -> bfloat16", launches=0,
-                           **peer["kernel"][(PEER_SHAPES[1], str(torch.bfloat16))], **no_nccl))
+                           **peer["kernel"][(PEER_SHAPES[1], str(torch.bfloat16), picked[PEER_SHAPES[1]])], **no_nccl))
+    # The scan's shape in the form peer_form does not pick there: timed and
+    # checked bitwise, run by no path.
+    other = par.ONE_SHOT if picked[PEER_SHAPES[2]] == par.TWO_SHOT else par.TWO_SHOT
+    multi_card.append(dict(**peer_common, path=f"peer phase: the scan's shape in the {other} form (forced; no path "
+                                               "takes it at this shape)",
+                           shape=list(PEER_SHAPES[2]), dtype="float32 -> bfloat16", launches=0,
+                           **peer["kernel"][(PEER_SHAPES[2], str(torch.bfloat16), other)], **no_nccl))
     check(all(r["launches"] > 0 for r in k1_rows + k2_rows + peer_rows),
           "every kernel row was launched on its main path")
     path_keys = ("step_ms_median", "eager_step_ms_median", "turn_medians_ms", "bitwise", "max_pos_diff_px",

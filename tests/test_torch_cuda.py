@@ -47,11 +47,13 @@ def _qkv_views(shape, dtype, layout, seed, device):
 
 @pytest.mark.parametrize("layout", ["fused", "contiguous"])
 @pytest.mark.parametrize("h", [3, 12, 16])
-@pytest.mark.parametrize("t", [1, 4, 9, 16, 17, 64, 128, 130, 196, 197, 389])
+@pytest.mark.parametrize("t", [1, 4, 9, 16, 17, 32, 64, 128, 130, 196, 197, 256, 389])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_kernel_matches_plain_version(cuda_device, t, dtype, h, layout):
-    """Both paths (small T <= 16, tiled above) on fused-layout views and on
-    contiguous tensors; the output lands in [B, T, H, 64] memory."""
+    """Every path (small T <= 16; tiled above, and in f32 the split path
+    where the call has few query tiles: all of these) on fused-layout views
+    and on contiguous tensors, T on and off the 16-row and 64-key tile
+    edges; the output lands in [B, T, H, 64] memory."""
     q, k, v = _qkv_views((2, h, t, 64), dtype, layout, seed=t + h, device=cuda_device)
     before = attention.flash_attention.launches
     out = attention.multi_head_attention(q, k, v)
@@ -117,12 +119,20 @@ def test_window_patchify_kernel_refuses_what_it_does_not_take(cuda_device):
         pw.gather_patchify_window(window, centers.t().contiguous().t(), sizes, 32, 16, kernel, bias)
 
 
-def test_kernel_extreme_logits_finite(cuda_device):
-    q = torch.full((1, 1, 256, 64), 30.0, device=cuda_device)
-    v = torch.randn((1, 1, 256, 64), device=cuda_device)
-    out = attention.flash_attention(q, q, v)
+@pytest.mark.parametrize("keys", ["uniform", "peaked"])
+@pytest.mark.parametrize("b", [1, 49])
+def test_kernel_extreme_logits_finite(cuda_device, b, keys):
+    """Logits of 7200 (q = k = 30: every key alike) and of up to about 110
+    apart (integer keys in [-4, 4]: a softmax peaked on a few keys), exact
+    in TF32, so the 3xTF32 logits are exact too; B 1 takes the f32 split
+    path, B 49 the tiled one."""
+    g = torch.Generator(device=cuda_device).manual_seed(b)
+    q = torch.full((b, 1, 256, 64), 30.0, device=cuda_device)
+    k = q if keys == "uniform" else torch.randint(-4, 5, q.shape, generator=g, device=cuda_device).float()
+    v = torch.randn(q.shape, generator=g, device=cuda_device)
+    out = attention.flash_attention(q, k, v)
     assert bool(torch.isfinite(out).all())
-    torch.testing.assert_close(out, attention.reference_attention(q, q, v), rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(out, attention.reference_attention(q, k, v), rtol=1e-5, atol=1e-5)
 
 
 def test_kernel_refuses_what_it_does_not_take(cuda_device):
@@ -760,17 +770,25 @@ def test_peer_kernel_two_processes_on_one_card(cuda_device):
     its IF bodies (its own checks)."""
     import chip_smoke
 
+    from vitparticlefiltertracker_tpu_torch.ops import peer_allreduce as par
+
     out = chip_smoke.run_peer_phase()
     assert all(row["max_abs_err"] == 0.0 for row in out["kernel"].values())
+    scan = chip_smoke.PEER_SHAPES[2]
+    assert {form for shape, _, form in out["kernel"] if shape == scan} == {par.ONE_SHOT, par.TWO_SHOT}
     assert out["robust"]["graph_vs_eager_max_px"] <= chip_smoke.GRAPH_POS_TOL_PX
 
 
 def test_peer_kernel_refuses_what_it_cannot_take(nccl_mesh):
     """Inputs outside the kernel's contract raise ValueError before a
-    launch: a length not a multiple of 8, a bias of another length."""
+    launch: a length not a multiple of 8, a bias of another length, the
+    two-shot form on a one-rank group."""
     from vitparticlefiltertracker_tpu_torch.ops import peer_allreduce as par
 
     with pytest.raises(ValueError, match="multiples of 8"):
         par.peer_all_reduce(torch.zeros(3, 5, device="cuda"), torch.zeros(5, device="cuda"), nccl_mesh.peers)
     with pytest.raises(ValueError, match="bias must be"):
         par.peer_all_reduce(torch.zeros(2, 8, device="cuda"), torch.zeros(16, device="cuda"), nccl_mesh.peers)
+    with pytest.raises(ValueError, match="two-shot"):  # a one-rank group has nothing to scatter
+        par.peer_all_reduce(torch.zeros(2, 8, device="cuda"), torch.zeros(8, device="cuda"), nccl_mesh.peers,
+                            form=par.TWO_SHOT)

@@ -13,6 +13,7 @@ runs it): records, and a state file byte for byte.
 
 import copy
 import json
+import math
 import os
 import subprocess
 import sys
@@ -305,6 +306,95 @@ def test_peer_kernel_grid(n, blocks):
     from vitparticlefiltertracker_tpu_torch.ops.peer_allreduce import launch_blocks
 
     assert launch_blocks(n) == blocks
+
+
+# The peer all-reduce's two forms: the choice, the two-shot cut and order.
+# A call's leading batch -> the group sizes that take the two-shot form for
+# [B, 196, 768] (the B 1 forward's and, at 1024 wide, eval3's stay one-shot;
+# the measured crossings: 4 on 2 cards, 2 on 4).
+PEER_CALLS = {"b16 B1": ((1, 196, 768), ()), "l16 B1": ((1, 196, 1024), ()),
+              "B2": ((2, 196, 768), (3, 4, 8)), "B4": ((4, 196, 768), (2, 3, 4, 8)),
+              "scan": ((49, 196, 768), (2, 3, 4, 8))}
+
+
+@pytest.mark.parametrize("m", [1, 2, 3, 4, 8])
+@pytest.mark.parametrize("call", sorted(PEER_CALLS))
+def test_peer_form_keeps_b1_calls_one_shot(call, m):
+    """The form is a function of (n, m, the partial's dtype) alone, so every
+    rank picks the same one: a one-rank group and a bf16 partial always one-shot, the
+    B 1 forwards' calls one-shot, the re-detection scan's two-shot on 2
+    ranks or more, the batches between at the crossings measured on 2 and
+    4 cards."""
+    from vitparticlefiltertracker_tpu_torch.ops import peer_allreduce as par
+
+    shape, two_shot_groups = PEER_CALLS[call]
+    n = math.prod(shape)
+    assert par.peer_form(n, m, torch.float32) == (par.TWO_SHOT if m in two_shot_groups else par.ONE_SHOT)
+    assert par.peer_form(n, m, torch.bfloat16) == par.ONE_SHOT
+
+
+@pytest.mark.parametrize("m", [2, 3, 4, 8])
+@pytest.mark.parametrize("n", [8, 64, 196 * 768, 8 * 196 * 768 + 8, 49 * 196 * 768, 49 * 196 * 1024])
+def test_two_shot_cut_reduces_every_vector_once(n, m):
+    """Every vector of the n / 8 lies in exactly one (rank, block) piece;
+    rank r's pieces are contiguous and in block order inside its slice; the
+    cut depends on (n, m, blocks) only, so block b's pieces are the same on
+    every rank (the barriers are per block index); the grid fits
+    MAX_BLOCKS and the buffer holds both regions."""
+    from vitparticlefiltertracker_tpu_torch.ops import peer_allreduce as par
+
+    blocks = par.form_blocks(n, m, par.TWO_SHOT)
+    assert 1 <= blocks <= par.MAX_BLOCKS
+    assert blocks == par.launch_blocks(-(-(n // 8) // m) * 8)
+    cut = par.two_shot_ranges(n, m, blocks)
+    seen = np.zeros(n // 8, np.int64)
+    for r, pieces in enumerate(cut):
+        assert all(a[1] == b[0] for a, b in zip(pieces, pieces[1:]))
+        assert all(lo <= hi for lo, hi in pieces)
+        for lo, hi in pieces:
+            seen[lo:hi] += 1
+    np.testing.assert_array_equal(seen, 1)
+    assert par.two_shot_ranges(n, m, blocks) == cut
+    assert par.buffer_bytes(n, par.TWO_SHOT, torch.bfloat16) == n * 6
+    assert par.buffer_bytes(n, par.ONE_SHOT, torch.bfloat16) == n * 4
+
+
+def _two_shot_emulated(parts: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+    """The two-shot kernel's arithmetic in torch on the CPU: rank r's block b
+    sums its piece of slice r over the ranks' partials in rank order 0..m-1
+    in f32 from zero, adds the bias and rounds once; every rank then holds
+    every rank's sums (the gather copies bits)."""
+    from vitparticlefiltertracker_tpu_torch.ops import peer_allreduce as par
+
+    m, n, d = parts.shape[0], parts[0].numel(), bias.shape[0]
+    flat = parts.reshape(m, n // 8, 8)
+    bias8 = bias.float().reshape(d // 8, 8)
+    out = torch.empty(n // 8, 8, dtype=bias.dtype)
+    for pieces in par.two_shot_ranges(n, m, par.form_blocks(n, m, par.TWO_SHOT)):
+        for lo, hi in pieces:
+            acc = torch.zeros(hi - lo, 8)
+            for p in range(m):
+                acc = acc + flat[p, lo:hi]
+            out[lo:hi] = (acc + bias8[torch.arange(lo, hi) * 8 % d // 8]).to(bias.dtype)
+    return out.reshape(parts.shape[1:])
+
+
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("m", [2, 3, 4])
+def test_two_shot_order_equals_plain_bitwise(m, out_dtype):
+    """The two-shot order, emulated, is bitwise the plain version's (the
+    one-shot form's): at the scan's width on a cut short of its rows, and at
+    a ragged length whose last slice and pieces are short."""
+    from vitparticlefiltertracker_tpu_torch.ops.peer_allreduce import peer_all_reduce_plain
+
+    rng = np.random.default_rng(m)
+    for shape in ((5, 196, 768), (3, 17, 40)):
+        parts = torch.from_numpy(rng.standard_normal((m, *shape)).astype(np.float32) * 3)
+        bias = torch.from_numpy(rng.standard_normal(shape[-1]).astype(np.float32)).to(out_dtype)
+        got = _two_shot_emulated(parts, bias)
+        want = peer_all_reduce_plain(parts, bias)
+        assert got.dtype == want.dtype == out_dtype
+        assert torch.equal(got, want)
 
 
 def test_peer_kernel_takes_cuda_tensors_only():

@@ -2,8 +2,9 @@
 """K1's times on the card for one checkout of the port, so that two commits
 can be compared in one chip call with the same method.
 
-Imports the port from --root (default: this checkout) and times, bf16, at
-chip_smoke.py's phase-5 shapes:
+Imports the port from --root (default: this checkout) and times, in
+--dtype (bfloat16 by default; float32 is eval1's), at chip_smoke.py's
+phase-11 shapes:
 
   kernel     flash_attention alone, on the inputs that checkout's ViT hands
              it: views of the fused qkv activation where its wrapper takes
@@ -12,7 +13,9 @@ chip_smoke.py's phase-5 shapes:
              multi_head_attention on the fused views, then the output's
              [B, T, D] reshape, with whatever copies that checkout makes;
   sdpa       torch's scaled_dot_product_attention on the fused views (a
-             yardstick the port never calls).
+             yardstick the port never calls);
+  plain      the port's reference_attention on the fused views (K1's plain
+             version), and the kernel's largest difference from it.
 
 Each is timed three ways: device time of one call (200 calls captured in a
 CUDA graph, replayed 5 times between CUDA events), an eager loop of 200
@@ -20,7 +23,7 @@ calls between CUDA events, and the host's issue time of one call in that
 loop (perf_counter before the synchronize). Prints one JSON line, and
 writes it to --out when given. Needs a card; imports no JAX.
 
-Usage: python3 tools/port_k1_times.py [--root DIR] [--label NAME] [--out FILE]
+Usage: python3 tools/port_k1_times.py [--root DIR] [--label NAME] [--dtype float32] [--out FILE]
 Comparing two commits: unpack the other one with `git archive` and run
 parent, change, change, parent in one chip call.
 """
@@ -87,19 +90,22 @@ def main() -> int:
     ap.add_argument("--root", default=os.path.join(os.path.dirname(os.path.abspath(__file__)), ".."))
     ap.add_argument("--label", default="")
     ap.add_argument("--out", default="")
+    ap.add_argument("--dtype", default="bfloat16", choices=("bfloat16", "float32"))
     args = ap.parse_args()
+    dtype = getattr(torch, args.dtype)
     sys.path.insert(0, os.path.abspath(args.root))
     from vitparticlefiltertracker_tpu_torch.ops import attention
 
     if not torch.cuda.is_available():
         print("port_k1_times: needs a card", file=sys.stderr)
         return 2
+    torch.backends.cuda.matmul.allow_tf32 = False  # the plain version in true f32
     sdpa = torch.nn.functional.scaled_dot_product_attention
     rows = {}
     for shape in SHAPES:
         b, h, t, d = shape
         g = torch.Generator(device="cuda").manual_seed(7)
-        qkv = torch.randn((b, t, h * 3 * d), generator=g, device="cuda").to(torch.bfloat16)
+        qkv = torch.randn((b, t, h * 3 * d), generator=g, device="cuda").to(dtype)
         q, k, v = qkv.reshape(b, t, h, 3, d).permute(3, 0, 2, 1, 4).unbind(0)
         try:
             attention.flash_attention(q, k, v)
@@ -110,19 +116,23 @@ def main() -> int:
             "kernel": lambda: attention.flash_attention(kq, kk, kv),
             "call_site": lambda: attention.multi_head_attention(q, k, v).transpose(1, 2).reshape(b, t, h * d),
             "sdpa": lambda: sdpa(q, k, v),
+            "plain": lambda: attention.reference_attention(q, k, v),
         }
-        row = {"kernel_inputs": inputs}
+        err = (attention.flash_attention(kq, kk, kv).float() - attention.reference_attention(q, k, v).float())
+        row = {"kernel_inputs": inputs, "max_abs_err": float(err.abs().max())}
         for name, fn in fns.items():
             row[f"{name}_device_ms"] = time_graph(fn)
         for name, fn in fns.items():
             row[f"{name}_eager_ms"], row[f"{name}_host_us"] = time_eager(fn)
         rows["x".join(map(str, shape))] = row
         print(f"  {args.label} {shape}: " + ", ".join(
-            f"{key} {val:.4f}" if isinstance(val, float) else f"{key} {val}" for key, val in row.items()),
+            f"{key} {val:.3e}" if key == "max_abs_err" else f"{key} {val:.4f}" if isinstance(val, float)
+            else f"{key} {val}" for key, val in row.items()),
             flush=True)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
-    line = json.dumps({"label": args.label, "root": os.path.abspath(args.root), "card": smi, "shapes": rows})
+    line = json.dumps({"label": args.label, "root": os.path.abspath(args.root), "card": smi, "dtype": args.dtype,
+                       "shapes": rows})
     print(line)
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)

@@ -387,35 +387,48 @@ def run_command_case(case: dict, device) -> dict:
     return _twin_compare(out, pos, conf, case, src.truth[1:])
 
 
+# The peer case's shapes beyond chip_smoke.PEER_SHAPES: batches between a B 1
+# forward and the scan's B 49, where the two forms cross (peer_form's
+# TWO_SHOT_MIN_ELEMENTS comes from these rows).
+PEER_SWEEP_SHAPES = [(2, 196, 768), (4, 196, 768), (8, 196, 768), (16, 196, 768)]
+
+
 def run_peer(world: int, device, tiny: bool) -> dict:
-    """The peer all-reduce kernel against NCCL's all_reduce over "model"
-    groups of 2 (make_mesh(1, world / 2, 2)) and of every rank (1, 1,
-    world), at PEER_SHAPES: f32 partials into bf16 with the bias, each a
-    CUDA graph of calls replayed between CUDA events (device ms a call);
-    the kernel's sums against its plain version on the gathered partials;
-    the bound: the peers' partial bytes over NVLink (450 GB/s each way a
-    card)."""
+    """The peer all-reduce kernel, in both forms (one-shot, two-shot),
+    against NCCL's all_reduce over "model" groups of 2 (make_mesh(1, world
+    / 2, 2)) and of every rank (1, 1, world), at PEER_SHAPES and
+    PEER_SWEEP_SHAPES: f32 partials into bf16 with the bias, each a CUDA
+    graph of calls replayed between CUDA events (device ms a call); each
+    form's sums against the plain version on the gathered partials
+    (bitwise) and the ranks' sums equal; the form peer_form picks; the
+    bound of each form: the bytes a rank reads over NVLink (450 GB/s each
+    way a card): (m - 1) partials (one-shot), (m - 1) / m of a partial and
+    of the output (two-shot)."""
     out = {"case": "peer", "rows": [], "ok": True}
-    shapes = [(1, 8, 64)] if tiny else cs.PEER_SHAPES
+    shapes = [(1, 8, 64), (4, 16, 64)] if tiny else cs.PEER_SHAPES + PEER_SWEEP_SHAPES
     for m in sorted({2, world}):
         mesh = pm.make_mesh(1, world // m, m, device=device)
         group, me = mesh.peers, mesh.coords["model"]
         for i, shape in enumerate(shapes):
             parts, bias = cs.peer_inputs(shape, m, seed=20 + i)
             x, b, all_parts = parts[me].to(device), bias.to(device), parts.to(device)
-            got = par.peer_all_reduce(x, b, group)
-            err = float((got.float() - par.peer_all_reduce_plain(all_parts, b).float()).abs().max())
+            n = math.prod(shape)
+            picked = par.peer_form(n, m, torch.float32)
+            want = par.peer_all_reduce_plain(all_parts, b).float()
             nccl = x.clone()
             saved = cs.step_graph.read_counts()
-            ms = cs.time_graph(lambda: par.peer_all_reduce(x, b, group), iters=50, reps=5)
             nccl_ms = cs.time_graph(lambda: dist.all_reduce(nccl, group=mesh.groups["model"]), iters=50, reps=5)
+            for form in (par.ONE_SHOT, par.TWO_SHOT):
+                got = par.peer_all_reduce(x, b, group, form=form)
+                err = float((got.float() - want).abs().max())
+                ms = cs.time_graph(lambda: par.peer_all_reduce(x, b, group, form=form), iters=50, reps=5)
+                peer_bytes = (m - 1) * n * 4 if form == par.ONE_SHOT else (m - 1) * n * (4 + 2) / m
+                row = {"group": m, "shape": list(shape), "form": form, "picked": form == picked, "ms": ms,
+                       "nccl_ms": nccl_ms, "bound_ms": peer_bytes / 450e9 * 1e3, "bound_by": "bytes (NVLink)",
+                       "max_abs_err": err, "ranks_agree": _agree(got.float().cpu().tolist(), mesh)}
+                out["rows"].append(row)
+                out["ok"] = out["ok"] and err == 0.0 and row["ranks_agree"]
             cs.step_graph.restore_counts(saved)
-            bound = (m - 1) * math.prod(shape) * 4 / 450e9 * 1e3
-            row = {"group": m, "shape": list(shape), "ms": ms, "nccl_ms": nccl_ms, "bound_ms": bound,
-                   "bound_by": "bytes (NVLink)", "max_abs_err": err,
-                   "ranks_agree": _agree(got.float().cpu().tolist(), mesh)}
-            out["rows"].append(row)
-            out["ok"] = out["ok"] and err == 0.0 and row["ranks_agree"]
     return out
 
 

@@ -38,10 +38,27 @@
 //    in by cp.async, double-buffered; rows are padded to 72 elements so
 //    ldmatrix's 8 rows fall in distinct banks. The plan picks 1, 2 or 4 warps
 //    a block so that [1, 12, 196, 64] puts 156 blocks on the 132 SMs.
-//  * tiled f32 (T > kSmallTMax): the first version's scalar algorithm (f32
-//    FMAs from shared memory, 64 query rows a block), given the strided
-//    interface. f32 runs only in tests and tiny trackers; TF32 would break
-//    the 2e-5 tolerance.
+//  * tiled and split f32 (T > kSmallTMax): 3xTF32 on tensor cores, in the
+//    bf16 path's structure (16 query rows a warp, 4 warps a block, the
+//    online softmax on the accumulator fragments, double-buffered cp.async
+//    K and V tiles of 64 keys; the split path puts a block's 4 warps on one
+//    16-row tile, below). Every f32 operand x is split in registers
+//    into big = tf32(x) and small = tf32(x - big), and each product runs as
+//    three mma.sync m16n8k8 (tf32 in, f32 accumulate): small*big, big*small,
+//    then big*big; small*small (2^-22 of the product) is dropped. That keeps
+//    the TPU kernel's Precision.HIGHEST: f32 products to about f32
+//    precision, f32 softmax statistics (expf), P split in registers, never
+//    rounded; each tile's P.V starts from zero and joins the accumulator by
+//    acc * alpha + PV in f32, as the TPU kernel's acc_ref update. Rows are
+//    padded to 68 floats (272 B), so the 32-bit fragment loads (ldmatrix is
+//    b16 only) fall in 32 distinct banks: rows g, columns tq for Q and K,
+//    rows 2tq and 2tq+1, columns g for V. Chosen over a register-tiled
+//    FFMA kernel because the FLOP decide at the scan's shape ([49, 12, 196,
+//    64]: 5.8 GFLOP, 86 us at FFMA's 67 TFLOP/s; 35 us at 3xTF32's 495/3)
+//    and because it reuses the bf16 path's staging and softmax. (The first
+//    version here was scalar FMAs over 64 query rows a block: 48 blocks at
+//    eval1's [1, 12, 196, 64], 6x slower than the plain version; the split
+//    path gives that shape's 156 tiles 4 warps each.)
 // wgmma and TMA are left out: their 64-row warpgroup tile and descriptors do
 // not pay at four 64-row tiles a head (T = 196) or 4 live rows (T = 4).
 //
@@ -53,7 +70,7 @@
 #include <math_constants.h>
 #include <stdint.h>
 
-#include "mma_sm90.cuh"  // cp.async, ldmatrix, mma.sync m16n8k16 (bf16, f32 accumulate)
+#include "mma_sm90.cuh"  // cp.async, ldmatrix, mma.sync m16n8k16 (bf16, f32 accumulate); tf32 below
 
 namespace {
 
@@ -62,13 +79,8 @@ constexpr int kSmallTMax = 16;   // small path up to this T (crop sizes 32/48/64
 constexpr int kSmallMaxWarps = 8;
 constexpr int kTileK = 64;       // keys per shared-memory tile (tiled paths)
 constexpr int kRowStride = kD + 8;  // bf16 row pitch in shared memory: 144 B
-constexpr int kMmaMaxWarps = 4;
-// f32 tiled path: 4 warps x 16 query rows, K staged transposed and padded.
-constexpr int kF32Threads = 128;
-constexpr int kF32BlockQ = 64;
-constexpr int kF32RowsPerWarp = 16;
-constexpr int kKtStride = kTileK + 1;
-constexpr size_t kF32SmemBytes = sizeof(float) * (kF32BlockQ * kD + kD * kKtStride + kTileK * kD);
+constexpr int kMmaMaxWarps = 4;     // tiled paths: warps of 16 query rows a block (bf16 also 1 or 2)
+constexpr int kF32RowStride = kD + 4;  // f32 row pitch in shared memory: 272 B
 
 typedef __nv_bfloat16 bf16;
 
@@ -409,121 +421,298 @@ attn_tiled_bf16_kernel(const Problem prob) {
 }
 
 // ---------------------------------------------------------------------------
-// Tiled f32 path: scalar f32 FMAs from shared memory.
+// Tiled f32 path: 3xTF32 on tensor cores.
 // ---------------------------------------------------------------------------
 
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
+constexpr int kSplitWarps = 4;         // the split path: 4 warps share one 16-row tile
+constexpr int kPStride = kD + 8;       // f32 pitch of the split path's P tile: 288 B
+
+// Dynamic shared memory of the f32 paths: K and V double-buffered, the
+// query rows, and (split path) the P tile and the row maxima exchanged.
+__host__ __device__ __forceinline__ int tf32_smem_bytes(int warps, bool split) {
+  const int rows = split ? 16 : 16 * warps;
+  const int words = (4 * kTileK + rows) * kF32RowStride + (split ? 16 * kPStride + 16 * warps : 0);
+  return static_cast<int>(sizeof(float)) * words;
 }
 
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
+// x = big + small + O(2^-21 |x|): big is x rounded to TF32 (to nearest,
+// ties away, on the bits), small = x - big exactly in f32, which the tensor
+// core reads as TF32 by dropping its low 13 bits.
+__device__ __forceinline__ void split_tf32(float x, uint32_t& big, uint32_t& small) {
+  big = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  small = __float_as_uint(x - __uint_as_float(big));
 }
 
-// 4 warps, 64 query rows a work item; warp w owns rows 16w .. 16w+15. Per
-// 64-key tile, K (transposed, padded) and V are staged in shared memory;
-// lane l scores keys l and l+32 of the tile for one query row at a time and
-// accumulates output dims l and l+32.
-__global__ void __launch_bounds__(kF32Threads)
+// c[16x8] += a[16x8] b[8x8]; tf32 in, f32 accumulate. Not volatile: the
+// compiler may interleave the products of different accumulators.
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// c[j] += a b[j] over NB column blocks in about f32 precision: the two
+// cross terms first, then big x big, each pass over all NB accumulators so
+// that consecutive products never wait on each other. b: [j][0 big, 1
+// small][b0, b1].
+template <int NB>
+__device__ __forceinline__ void mma_3xtf32(float (&c)[NB][4], const uint32_t (&a_big)[4],
+                                           const uint32_t (&a_small)[4], const uint32_t (&b)[NB][2][2]) {
+#pragma unroll
+  for (int j = 0; j < NB; ++j) mma_tf32(c[j], a_small, b[j][0][0], b[j][0][1]);
+#pragma unroll
+  for (int j = 0; j < NB; ++j) mma_tf32(c[j], a_big, b[j][1][0], b[j][1][1]);
+#pragma unroll
+  for (int j = 0; j < NB; ++j) mma_tf32(c[j], a_big, b[j][0][0], b[j][0][1]);
+}
+
+// Fragment layouts (PTX ISA, mma.m16n8k8 with .tf32): lane = 4 g + tq.
+// A (16x8, row): a0 = A[g][tq], a1 = A[g+8][tq], a2 = A[g][tq+4],
+// a3 = A[g+8][tq+4]. B (8x8, col): b0 = B[tq][g], b1 = B[tq+4][g].
+// C (16x8): c0, c1 = C[g][2tq..], c2, c3 = C[g+8][2tq..].
+// In P.V the sum over an 8-key slice runs in the order the S fragment holds
+// it: logical k = tq is key 2tq and k = tq+4 is key 2tq+1, so P's A operand
+// is S's (c0, c2, c1, c3) with no shuffle, and V's B rows are 2tq, 2tq+1.
+//
+// NS = 1 (path "tiled"): each warp owns 16 query rows outright, the 4
+// warps of a block share the K/V tiles. NS = kSplitWarps (path "split"): the
+// block's 4 warps share one 16-row tile; warp `part` computes S for 16 of
+// each tile's 64 keys and P.V for 16 of the 64 output dims, and the tile's
+// row maxima and P go through shared memory (three barriers a tile). Each
+// warp then runs a quarter of the products, so a call with few query
+// tiles (eval1's [1, 12, 196, 64]: 156) keeps 4 times as many warps busy.
+template <int NS>
+__global__ void __launch_bounds__(kMmaMaxWarps * 32)
 attn_tiled_f32_kernel(const Problem prob) {
+  constexpr int NB = 8 / NS;  // 8-key blocks of S and 8-dim blocks of O this warp computes
   extern __shared__ __align__(16) unsigned char vpt_smem[];
-  float* qs = reinterpret_cast<float*>(vpt_smem);  // [kF32BlockQ][kD]
-  float* kt = qs + kF32BlockQ * kD;                 // [kD][kKtStride]  (K transposed)
-  float* vs = kt + kD * kKtStride;                  // [kTileK][kD]
-
   const int tid = threadIdx.x;
+  const int nthreads = blockDim.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
+  const int g = lane >> 2, tq = lane & 3;
+  const int part = warp % NS;
+  const int rows_per_block = (nthreads >> 5) / NS * 16;
+  float* ks = reinterpret_cast<float*>(vpt_smem);  // [2][kTileK][kF32RowStride]
+  float* vs = ks + 2 * kTileK * kF32RowStride;     // [2][kTileK][kF32RowStride]
+  float* qs = vs + 2 * kTileK * kF32RowStride;     // [rows_per_block][kF32RowStride]
+  float* ps = qs + rows_per_block * kF32RowStride;  // NS > 1: P [16][kPStride]
+  float* red = ps + 16 * kPStride;                  // NS > 1: row maxima [NS][16]
   const int t = prob.t;
-  const int q_tiles = (t + kF32BlockQ - 1) / kF32BlockQ;
+  const int q_tiles = (t + rows_per_block - 1) / rows_per_block;
+  const int k_tiles = (t + kTileK - 1) / kTileK;
   const long long items = static_cast<long long>(prob.b) * prob.h * q_tiles;
+  float* my_q = qs + (warp / NS) * 16 * kF32RowStride;
+  const long long sqt = prob.sq[2], skt = prob.sk[2], svt = prob.sv[2], sot = prob.so[2];
+  constexpr int kChunks = kD / 4;  // 16-byte chunks of an f32 row
 
   for (long long item = blockIdx.x; item < items; item += gridDim.x) {
     const long long pair = item / q_tiles;
-    const int q0 = static_cast<int>(item % q_tiles) * kF32BlockQ;
-    const float* q = static_cast<const float*>(prob.q) + pair_offset(prob.sq[0], prob.sq[1], pair, prob.h);
-    const float* k = static_cast<const float*>(prob.k) + pair_offset(prob.sk[0], prob.sk[1], pair, prob.h);
-    const float* v = static_cast<const float*>(prob.v) + pair_offset(prob.sv[0], prob.sv[1], pair, prob.h);
-    float* o = static_cast<float*>(prob.o) + pair_offset(prob.so[0], prob.so[1], pair, prob.h);
+    const int q0 = static_cast<int>(item % q_tiles) * rows_per_block;
+    const float* qg = static_cast<const float*>(prob.q) + pair_offset(prob.sq[0], prob.sq[1], pair, prob.h);
+    const float* kg = static_cast<const float*>(prob.k) + pair_offset(prob.sk[0], prob.sk[1], pair, prob.h);
+    const float* vg = static_cast<const float*>(prob.v) + pair_offset(prob.sv[0], prob.sv[1], pair, prob.h);
+    float* og = static_cast<float*>(prob.o) + pair_offset(prob.so[0], prob.so[1], pair, prob.h);
 
-    for (int i = tid; i < kF32BlockQ * kD; i += kF32Threads) {
-      const int r = i / kD, c = i % kD;
-      qs[i] = (q0 + r < t) ? q[static_cast<long long>(q0 + r) * prob.sq[2] + c] : 0.f;
+    auto load_kv = [&](int tile) {
+      const int k0 = tile * kTileK;
+      float* kd = ks + (tile & 1) * kTileK * kF32RowStride;
+      float* vd = vs + (tile & 1) * kTileK * kF32RowStride;
+      for (int c = tid; c < kTileK * kChunks; c += nthreads) {
+        const int r = c / kChunks, col = (c % kChunks) * 4;
+        const bool ok = k0 + r < t;
+        const long long key = ok ? k0 + r : 0;
+        cp_async16(kd + r * kF32RowStride + col, kg + key * skt + col, ok);
+        cp_async16(vd + r * kF32RowStride + col, vg + key * svt + col, ok);
+      }
+    };
+
+    for (int c = tid; c < rows_per_block * kChunks; c += nthreads) {
+      const int r = c / kChunks, col = (c % kChunks) * 4;
+      const bool ok = q0 + r < t;
+      cp_async16(qs + r * kF32RowStride + col, qg + (ok ? static_cast<long long>(q0 + r) * sqt : 0) + col, ok);
     }
+    load_kv(0);
+    cp_async_commit();
 
-    float m[kF32RowsPerWarp], l[kF32RowsPerWarp], acc0[kF32RowsPerWarp], acc1[kF32RowsPerWarp];
+    float m[2] = {-CUDART_INF_F, -CUDART_INF_F};  // running max of rows g, g+8
+    float l[2] = {0.f, 0.f};                      // this lane's part of the running sum
+    float acc[NB][4];
 #pragma unroll
-    for (int rr = 0; rr < kF32RowsPerWarp; ++rr) {
-      m[rr] = -CUDART_INF_F;
-      l[rr] = 0.f;
-      acc0[rr] = 0.f;
-      acc1[rr] = 0.f;
-    }
+    for (int j = 0; j < NB; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
 
-    for (int k0 = 0; k0 < t; k0 += kTileK) {
-      __syncthreads();  // the previous tile's readers are done (and qs is loaded)
-      for (int i = tid; i < kTileK * kD; i += kF32Threads) {
-        const int j = i / kD, c = i % kD;
-        const bool ok = k0 + j < t;
-        kt[c * kKtStride + j] = ok ? k[static_cast<long long>(k0 + j) * prob.sk[2] + c] : 0.f;
-        vs[j * kD + c] = ok ? v[static_cast<long long>(k0 + j) * prob.sv[2] + c] : 0.f;
+    for (int kt = 0; kt < k_tiles; ++kt) {
+      if (kt + 1 < k_tiles) {
+        load_kv(kt + 1);
+        cp_async_commit();
+        cp_async_wait<1>();
+      } else {
+        cp_async_wait<0>();
       }
       __syncthreads();
+      const float* kb = ks + (kt & 1) * kTileK * kF32RowStride;
+      const float* vb = vs + (kt & 1) * kTileK * kF32RowStride;
 
-      const bool valid0 = k0 + lane < t;
-      const bool valid1 = k0 + lane + 32 < t;
+      // S = Q K^T for this warp's keys, over the 64 dims in 8 slices; Q's
+      // fragments are split from shared memory again each tile.
+      float s[NB][4];
 #pragma unroll
-      for (int rr = 0; rr < kF32RowsPerWarp; ++rr) {
-        const float* qrow = qs + (warp * kF32RowsPerWarp + rr) * kD;
-        float s0 = 0.f, s1 = 0.f;
-#pragma unroll 16
-        for (int c = 0; c < kD; ++c) {
-          const float qv = qrow[c];
-          s0 = fmaf(qv, kt[c * kKtStride + lane], s0);
-          s1 = fmaf(qv, kt[c * kKtStride + lane + 32], s1);
+      for (int j = 0; j < NB; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < 8; ++kk) {
+        uint32_t qb[4], qsm[4];
+        const float* q_row = my_q + g * kF32RowStride + kk * 8 + tq;
+        split_tf32(q_row[0], qb[0], qsm[0]);
+        split_tf32(q_row[8 * kF32RowStride], qb[1], qsm[1]);
+        split_tf32(q_row[4], qb[2], qsm[2]);
+        split_tf32(q_row[8 * kF32RowStride + 4], qb[3], qsm[3]);
+        uint32_t kf[NB][2][2];
+#pragma unroll
+        for (int j = 0; j < NB; ++j) {
+          const float* k_row = kb + ((part * NB + j) * 8 + g) * kF32RowStride + kk * 8 + tq;
+          split_tf32(k_row[0], kf[j][0][0], kf[j][1][0]);
+          split_tf32(k_row[4], kf[j][0][1], kf[j][1][1]);
         }
-        s0 = valid0 ? s0 * prob.scale : -CUDART_INF_F;
-        s1 = valid1 ? s1 * prob.scale : -CUDART_INF_F;
-        // Key k0 is always valid, so the tile max is finite.
-        const float m_new = fmaxf(m[rr], warp_max(fmaxf(s0, s1)));
-        const float p0 = expf(s0 - m_new);
-        const float p1 = expf(s1 - m_new);
-        const float alpha = expf(m[rr] - m_new);  // exp(-inf) = 0 on the first tile
-        l[rr] = alpha * l[rr] + warp_sum(p0 + p1);
-        m[rr] = m_new;
-        float a0 = acc0[rr] * alpha, a1 = acc1[rr] * alpha;
-#pragma unroll 8
-        for (int j = 0; j < 32; ++j) {
-          const float pj = __shfl_sync(0xffffffffu, p0, j);
-          a0 = fmaf(pj, vs[j * kD + lane], a0);
-          a1 = fmaf(pj, vs[j * kD + lane + 32], a1);
-        }
-#pragma unroll 8
-        for (int j = 0; j < 32; ++j) {
-          const float pj = __shfl_sync(0xffffffffu, p1, j);
-          a0 = fmaf(pj, vs[(j + 32) * kD + lane], a0);
-          a1 = fmaf(pj, vs[(j + 32) * kD + lane + 32], a1);
-        }
-        acc0[rr] = a0;
-        acc1[rr] = a1;
+        mma_3xtf32<NB>(s, qb, qsm, kf);
       }
+
+      // Scale, mask keys >= T, and the online softmax on the fragments.
+      const int k0 = kt * kTileK;
+      float mx[2] = {m[0], m[1]};
+#pragma unroll
+      for (int j = 0; j < NB; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int key = k0 + (part * NB + j) * 8 + 2 * tq + (e & 1);
+          const float x = key < t ? s[j][e] * prob.scale : -CUDART_INF_F;
+          s[j][e] = x;
+          mx[e >> 1] = fmaxf(mx[e >> 1], x);
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      }
+      if (NS > 1) {  // the tile's row maxima over the 4 warps' keys
+        if (tq == 0) {
+          red[part * 16 + g] = mx[0];
+          red[part * 16 + g + 8] = mx[1];
+        }
+        __syncthreads();
+#pragma unroll
+        for (int p = 0; p < NS; ++p) {
+          mx[0] = fmaxf(mx[0], red[p * 16 + g]);
+          mx[1] = fmaxf(mx[1], red[p * 16 + g + 8]);
+        }
+      }
+      float alpha[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        // Key k0 is always valid, so the new max is finite; exp(-inf) = 0
+        // on the first tile.
+        alpha[r] = expf(m[r] - mx[r]);
+        m[r] = mx[r];
+      }
+#pragma unroll
+      for (int j = 0; j < NB; ++j) {
+        s[j][0] = expf(s[j][0] - m[0]);
+        s[j][1] = expf(s[j][1] - m[0]);
+        s[j][2] = expf(s[j][2] - m[1]);
+        s[j][3] = expf(s[j][3] - m[1]);
+      }
+      // P as the A operand, 8 keys a slice: from this warp's own S (NS = 1),
+      // or from the whole tile's P in shared memory (NS > 1).
+      float pa[8][4];
+      if (NS == 1) {
+#pragma unroll
+        for (int ksl = 0; ksl < 8; ++ksl) {
+          pa[ksl][0] = s[ksl % NB][0];
+          pa[ksl][1] = s[ksl % NB][2];
+          pa[ksl][2] = s[ksl % NB][1];
+          pa[ksl][3] = s[ksl % NB][3];
+        }
+      } else {
+#pragma unroll
+        for (int j = 0; j < NB; ++j) {
+          const int col = (part * NB + j) * 8 + 2 * tq;
+          *reinterpret_cast<float2*>(ps + g * kPStride + col) = make_float2(s[j][0], s[j][1]);
+          *reinterpret_cast<float2*>(ps + (g + 8) * kPStride + col) = make_float2(s[j][2], s[j][3]);
+        }
+        __syncthreads();
+#pragma unroll
+        for (int ksl = 0; ksl < 8; ++ksl) {
+          const float2 r0 = *reinterpret_cast<const float2*>(ps + g * kPStride + ksl * 8 + 2 * tq);
+          const float2 r1 = *reinterpret_cast<const float2*>(ps + (g + 8) * kPStride + ksl * 8 + 2 * tq);
+          pa[ksl][0] = r0.x;
+          pa[ksl][1] = r1.x;
+          pa[ksl][2] = r0.y;
+          pa[ksl][3] = r1.y;
+        }
+      }
+      float rs[2] = {0.f, 0.f};
+#pragma unroll
+      for (int ksl = 0; ksl < 8; ++ksl) {
+        rs[0] += pa[ksl][0] + pa[ksl][2];
+        rs[1] += pa[ksl][1] + pa[ksl][3];
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) l[r] = alpha[r] * l[r] + rs[r];
+
+      // This tile's P V (this warp's dims) from zero, then acc = acc * alpha
+      // + P V in f32, as the TPU kernel's acc_ref update.
+      float pv[NB][4];
+#pragma unroll
+      for (int j = 0; j < NB; ++j) pv[j][0] = pv[j][1] = pv[j][2] = pv[j][3] = 0.f;
+#pragma unroll
+      for (int ksl = 0; ksl < 8; ++ksl) {
+        uint32_t pb[4], psm[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) split_tf32(pa[ksl][e], pb[e], psm[e]);
+        const float* v_row = vb + (ksl * 8 + 2 * tq) * kF32RowStride + part * NB * 8 + g;
+        uint32_t vf[NB][2][2];
+#pragma unroll
+        for (int j = 0; j < NB; ++j) {
+          split_tf32(v_row[j * 8], vf[j][0][0], vf[j][1][0]);
+          split_tf32(v_row[kF32RowStride + j * 8], vf[j][0][1], vf[j][1][1]);
+        }
+        mma_3xtf32<NB>(pv, pb, psm, vf);
+      }
+#pragma unroll
+      for (int j = 0; j < NB; ++j) {
+        acc[j][0] = fmaf(acc[j][0], alpha[0], pv[j][0]);
+        acc[j][1] = fmaf(acc[j][1], alpha[0], pv[j][1]);
+        acc[j][2] = fmaf(acc[j][2], alpha[1], pv[j][2]);
+        acc[j][3] = fmaf(acc[j][3], alpha[1], pv[j][3]);
+      }
+      __syncthreads();  // every warp is done with this buffer (and P, the maxima) before they are refilled
     }
 
+    // 1/sum over the quad, then the block's rows go out through their Q rows
+    // in shared memory, so the stores are 16 bytes a thread.
+    float inv[2];
 #pragma unroll
-    for (int rr = 0; rr < kF32RowsPerWarp; ++rr) {
-      const int r = q0 + warp * kF32RowsPerWarp + rr;
-      if (r < t) {
-        float* orow = o + static_cast<long long>(r) * prob.so[2];
-        const float inv = 1.f / l[rr];
-        orow[lane] = acc0[rr] * inv;
-        orow[lane + 32] = acc1[rr] * inv;
-      }
+    for (int r = 0; r < 2; ++r) {
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+      inv[r] = 1.f / l[r];
     }
-    __syncthreads();  // the next item restages qs
+#pragma unroll
+    for (int j = 0; j < NB; ++j) {
+      const int col = (part * NB + j) * 8 + 2 * tq;
+      *reinterpret_cast<float2*>(my_q + g * kF32RowStride + col) = make_float2(acc[j][0] * inv[0], acc[j][1] * inv[0]);
+      *reinterpret_cast<float2*>(my_q + (g + 8) * kF32RowStride + col) =
+          make_float2(acc[j][2] * inv[1], acc[j][3] * inv[1]);
+    }
+    __syncthreads();
+    for (int c = tid; c < rows_per_block * kChunks; c += nthreads) {
+      const int r = c / kChunks, col = (c % kChunks) * 4;
+      if (q0 + r < t)
+        *reinterpret_cast<float4*>(og + static_cast<long long>(q0 + r) * sot + col) =
+            *reinterpret_cast<const float4*>(qs + r * kF32RowStride + col);
+    }
+    __syncthreads();  // the next item restages Q and K/V
   }
 }
 
@@ -531,7 +720,7 @@ attn_tiled_f32_kernel(const Problem prob) {
 // Host side.
 // ---------------------------------------------------------------------------
 
-enum Path { kSmall = 0, kTiled = 1 };
+enum Path { kSmall = 0, kTiled = 1, kSplit = 2 };
 enum Dtype { kF32 = 0, kBF16 = 1 };
 
 // Dynamic shared memory of one block, or -1 for a path/dtype/warps the
@@ -545,7 +734,8 @@ int smem_bytes(int path, int dtype, int t, int warps) {
     if (warps != 1 && warps != 2 && warps != 4) return -1;
     return mma_smem_bytes(warps);
   }
-  if (path == kTiled && dtype == kF32) return warps == kF32Threads / 32 ? static_cast<int>(kF32SmemBytes) : -1;
+  if (path == kTiled && dtype == kF32) return warps == kMmaMaxWarps ? tf32_smem_bytes(warps, false) : -1;
+  if (path == kSplit && dtype == kF32) return warps == kSplitWarps ? tf32_smem_bytes(warps, true) : -1;
   return -1;
 }
 
@@ -562,7 +752,8 @@ cudaError_t allow_smem(F* kernel, bool* done, int bytes) {
 extern "C" {
 
 // strides: 12 element strides, (b, h, t) of q, k, v, o in that order.
-// dtype: 0 = float32, 1 = bfloat16. path: 0 = small (T <= 16), 1 = tiled.
+// dtype: 0 = float32, 1 = bfloat16. path: 0 = small (T <= 16), 1 = tiled,
+// 2 = split (float32, T > 16, 4 warps on one 16-row tile).
 // warps: warps a block; grid: blocks (the kernels loop over their work
 // items, so any grid >= 1 is correct). Returns a cudaError_t value
 // (0 = success), -1 for arguments the kernels do not take.
@@ -602,10 +793,14 @@ int vpt_flash_attn_fwd(const void* q, const void* k, const void* v, void* o,
     static bool done = false;
     e = allow_smem(attn_tiled_bf16_kernel, &done, mma_smem_bytes(kMmaMaxWarps));
     if (e == cudaSuccess) attn_tiled_bf16_kernel<<<grid, block, smem, s>>>(prob);
+  } else if (path == kTiled) {
+    static bool done = false;
+    e = allow_smem(attn_tiled_f32_kernel<1>, &done, tf32_smem_bytes(kMmaMaxWarps, false));
+    if (e == cudaSuccess) attn_tiled_f32_kernel<1><<<grid, block, smem, s>>>(prob);
   } else {
     static bool done = false;
-    e = allow_smem(attn_tiled_f32_kernel, &done, static_cast<int>(kF32SmemBytes));
-    if (e == cudaSuccess) attn_tiled_f32_kernel<<<grid, block, smem, s>>>(prob);
+    e = allow_smem(attn_tiled_f32_kernel<kSplitWarps>, &done, tf32_smem_bytes(kSplitWarps, true));
+    if (e == cudaSuccess) attn_tiled_f32_kernel<kSplitWarps><<<grid, block, smem, s>>>(prob);
   }
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());

@@ -9,7 +9,11 @@
 // plain loads and stores over NVLink (cudaIpc-mapped peer memory), so a
 // conditional body can hold it like any other kernel node.
 //
-// One launch a call:
+// One launch a call, in one of two forms, chosen on the host by a function
+// of (n, m, the partial's dtype) alone (ops/peer_allreduce.py peer_form), so
+// every rank of the group takes the same one.
+//
+// One-shot (small calls: a B 1 forward's [1, 196, 768]):
 //   1. each block copies its slice of this rank's partial (f32, or the model
 //      dtype on a one-rank group) into this rank's symmetric buffer;
 //   2. a start barrier: the block signals its slice written to every peer
@@ -20,20 +24,50 @@
 //      f32 and rounds once to the output dtype;
 //   4. an end barrier (the same handshake on a second set of flags): every
 //      peer has read the slice, so the next call may write the buffer again.
+// Each rank reads (m - 1) whole partials over NVLink.
+//
+// Two-shot (large calls: the re-detection scan's [49, 196, 768]): the n / 8
+// vectors are cut into m slices, rank r owning slice r, and every slice into
+// one piece a block; block b owns the same piece of each slice on every rank,
+// so the per-block barriers cover what each block reads.
+//   1. block b copies its pieces of the other ranks' slices of this rank's
+//      f32 partial into region A of its symmetric buffer; start barrier;
+//   2. block b reduces its piece of this rank's slice: it reads the piece
+//      from every rank (this rank's from the partial itself) in rank order
+//      0..m-1, sums in f32, adds the bias and rounds once to the output
+//      dtype, as the one-shot form, and writes the result to `out` and to
+//      region B (n * 4 bytes in) of its buffer; a second barrier;
+//   3. block b gathers the other ranks' reduced pieces from their region B,
+//      in the output dtype (bf16 halves the gather's bytes), into `out`;
+//   4. an end barrier on a third set of flags: every peer has read both
+//      regions before this rank's next call writes them. (Without it a rank
+//      could start a call, or exit, while a peer still gathers from it: the
+//      next call may have another n, so region A would overlap the old
+//      region B, and a one-shot call writes its buffer before any barrier.)
+// Each element is summed in the same order and rounded once in both forms,
+// so they are bitwise equal to each other and to the plain version. Each
+// rank reads (m - 1) / m of a partial and (m - 1) / m of the output over
+// NVLink, where the one-shot form reads m - 1 partials: on 4 cards into bf16
+// the bytes of 1.125 partials against 3, for one more barrier.
+//
 // The barrier's value is an epoch that the kernel itself advances, one
 // counter a block index in this rank's memory: a replayed graph passes the
 // same arguments every time, so no host value can count the calls. Every
 // rank makes the same calls in the same order (the ranks hold bitwise-equal
-// state, so they take the same branches), so a block's epoch is the same on
-// every rank at each call. A wait longer than kTimeoutNs traps (the context
-// fails instead of spinning forever when a peer never makes the call).
+// state, so they take the same branches), and the form and the grid are
+// functions of the call's shape, so a block's epoch is the same on every
+// rank at each call. A wait longer than kTimeoutNs traps (the context fails
+// instead of spinning forever when a peer never makes the call). Peers'
+// memory is read through L2 only (ld.global.cg): L1 is not coherent with a
+// peer's stores.
 //
-// Bound: the bytes that cross NVLink, (m - 1) partials read from the peers,
-// at 450 GB/s each way a card; a call of one [1, 196, 768] f32 partial is
-// about 2 us of transfer, so the two barriers' round trips (a few us each)
-// weigh as much. The grid is at most kMaxBlocks blocks, all resident at once
-// (a block waits on the peers' blocks of the same index), each moving 16-byte
-// vectors of 8 elements.
+// Bound: the bytes that cross NVLink at 450 GB/s each way a card; a one-shot
+// call of one [1, 196, 768] f32 partial is about 2 us of transfer, so the
+// two barriers' round trips (a few us each) weigh as much. The grid is at
+// most kMaxBlocks blocks, all resident at once (a block waits on the peers'
+// blocks of the same index), each thread moving 16-byte vectors of 8
+// elements, several in flight: all m partials of a vector in the sum, four
+// vectors in the copies.
 //
 // Plain C interface, loaded with ctypes (ops/_build.py); the buffers are
 // allocated, exported and mapped by the functions below (cudaMalloc,
@@ -189,6 +223,102 @@ __global__ void __launch_bounds__(kThreads) peer_allreduce_kernel(const void* __
   if (m > 1) barrier(peers, 1, m, me, e);
 }
 
+// Vectors [lo, hi) of the n / 8 that block b owns in rank r's slice, in the
+// two-shot form (ops/peer_allreduce.py two_shot_ranges is the same cut).
+__device__ __forceinline__ void two_shot_range(long long vecs, int m, int r, int blocks, int b, long long& lo,
+                                               long long& hi) {
+  const long long per_rank = (vecs + m - 1) / m;
+  const long long per_block = (per_rank + blocks - 1) / blocks;
+  const long long r_hi = per_rank * (r + 1) < vecs ? per_rank * (r + 1) : vecs;
+  lo = per_rank * r + per_block * b;
+  lo = lo < r_hi ? lo : r_hi;
+  hi = lo + per_block < r_hi ? lo + per_block : r_hi;
+}
+
+// Vectors [lo, hi) of dtype T from src to dst, bytes as they are, four
+// vectors in flight a thread; through L2 only when src is a peer's.
+template <int T>
+__device__ __forceinline__ void copy_vectors(void* dst, const void* src, long long lo, long long hi, bool l2_only) {
+  constexpr int kWords = T == kF32 ? 2 : 1;  // uint4 words a vector
+  const uint4* from = reinterpret_cast<const uint4*>(src);
+  uint4* to = reinterpret_cast<uint4*>(dst);
+  for (long long i = lo + threadIdx.x; i < hi; i += 4 * kThreads) {
+    uint4 w[4][kWords];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const long long j = i + u * kThreads;
+#pragma unroll
+      for (int k = 0; k < kWords; ++k)
+        if (j < hi) w[u][k] = l2_only ? __ldcg(from + kWords * j + k) : from[kWords * j + k];
+    }
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const long long j = i + u * kThreads;
+#pragma unroll
+      for (int k = 0; k < kWords; ++k)
+        if (j < hi) to[kWords * j + k] = w[u][k];
+    }
+  }
+}
+
+// The two-shot form: x this rank's f32 partial [n], out [n] of TOut, bias
+// [d] of TOut; region B of each buffer starts n * 4 bytes in.
+template <int TOut>
+__global__ void __launch_bounds__(kThreads) peer_allreduce_two_shot_kernel(const float* __restrict__ x,
+                                                                          const void* __restrict__ bias,
+                                                                          void* __restrict__ out, long long n,
+                                                                          long long d, Peers peers, int m, int me,
+                                                                          unsigned long long* __restrict__ epochs) {
+  __shared__ unsigned long long epoch;
+  if (threadIdx.x == 0) {
+    epoch = epochs[blockIdx.x] + 1;
+    epochs[blockIdx.x] = epoch;
+  }
+  __syncthreads();
+  const unsigned long long e = epoch;
+  const long long vecs = n / 8;
+  const long long region_b = n * static_cast<long long>(sizeof(float));
+  void* mine = const_cast<void*>(peers.data[me]);
+  long long lo, hi;
+  for (int r = 0; r < m; ++r) {
+    if (r == me) continue;
+    two_shot_range(vecs, m, r, gridDim.x, blockIdx.x, lo, hi);
+    copy_vectors<kF32>(mine, x, lo, hi, false);
+  }
+  barrier(peers, 0, m, me, e);
+  two_shot_range(vecs, m, me, gridDim.x, blockIdx.x, lo, hi);
+  void* reduced = static_cast<char*>(mine) + region_b;
+  for (long long i = lo + threadIdx.x; i < hi; i += kThreads) {
+    float v[kMaxRanks][8];
+#pragma unroll
+    for (int p = 0; p < kMaxRanks; ++p)
+      if (p < m) load8<kF32>(p == me ? static_cast<const void*>(x) : peers.data[p], i, v[p], p != me);
+    float acc[8];
+#pragma unroll
+    for (int k = 0; k < 8; ++k) acc[k] = 0.0f;
+#pragma unroll
+    for (int p = 0; p < kMaxRanks; ++p) {  // rank order: the same sum on every rank
+      if (p < m) {
+#pragma unroll
+        for (int k = 0; k < 8; ++k) acc[k] += v[p][k];
+      }
+    }
+    float b[8];
+    load8<TOut>(bias, (i * 8 % d) / 8, b, false);
+#pragma unroll
+    for (int k = 0; k < 8; ++k) acc[k] += b[k];
+    store8<TOut>(out, i, acc);
+    store8<TOut>(reduced, i, acc);
+  }
+  barrier(peers, 1, m, me, e);
+  for (int r = 0; r < m; ++r) {
+    if (r == me) continue;
+    two_shot_range(vecs, m, r, gridDim.x, blockIdx.x, lo, hi);
+    copy_vectors<TOut>(out, static_cast<const char*>(peers.data[r]) + region_b, lo, hi, true);
+  }
+  barrier(peers, 2, m, me, e);
+}
+
 template <int TIn, int TOut>
 cudaError_t launch(const void* x, const void* bias, void* out, long long n, long long d, const Peers& peers, int m,
                    int me, unsigned long long* epochs, int blocks, cudaStream_t stream) {
@@ -203,8 +333,8 @@ extern "C" {
 int vpt_par_max_ranks() { return kMaxRanks; }
 int vpt_par_max_blocks() { return kMaxBlocks; }
 int vpt_par_threads() { return kThreads; }
-// Bytes of a rank's flag array: 2 phases x kMaxBlocks x kMaxRanks epochs.
-long long vpt_par_flag_bytes() { return 2LL * kMaxBlocks * kMaxRanks * sizeof(unsigned long long); }
+// Bytes of a rank's flag array: 3 phases x kMaxBlocks x kMaxRanks epochs.
+long long vpt_par_flag_bytes() { return 3LL * kMaxBlocks * kMaxRanks * sizeof(unsigned long long); }
 
 // cudaMalloc on `device`, zeroed (and the zeros complete) before it returns.
 int vpt_par_malloc(int device, long long bytes, void** ptr) {
@@ -261,16 +391,21 @@ int vpt_par_peer_access(int device, const char* peer, int* ok) {
 
 // The all-reduce: x [n] of dtype x_dtype (0 f32, 1 bf16) on this rank; out
 // [n] of out_dtype; bias [d] of out_dtype; data[m], flags[m] the
-// group's buffers as this process maps them (this rank's own at index me);
-// epochs: this rank's kMaxBlocks counters. n and d multiples of 8, every
-// pointer 16-byte aligned, m <= kMaxRanks, 1 <= blocks <= kMaxBlocks.
-// Returns a cudaError_t value, or -1 for arguments out of range.
+// group's buffers as this process maps them (this rank's own at index me),
+// each data buffer `capacity` bytes; epochs: this rank's kMaxBlocks
+// counters. form: 0 one-shot, 1 two-shot (f32 partials, m > 1). n and d
+// multiples of 8, every pointer 16-byte aligned, m <= kMaxRanks, 1 <= blocks
+// <= kMaxBlocks. Returns a cudaError_t value, or -1 for arguments out of
+// range (a buffer too small for the form included).
 int vpt_par_allreduce(const void* x, int x_dtype, const void* bias, void* out, int out_dtype, long long n,
                       long long d, const void* const* data, void* const* flags, int m, int me, void* epochs,
-                      int blocks, void* stream) {
+                      int blocks, int form, long long capacity, void* stream) {
   if (m < 1 || m > kMaxRanks || me < 0 || me >= m || blocks < 1 || blocks > kMaxBlocks || n % 8 || d < 8 ||
-      d % 8)
+      d % 8 || (form != 0 && form != 1))
     return -1;
+  const long long in_bytes = n * (x_dtype == kF32 ? 4 : 2), out_bytes = n * (out_dtype == kF32 ? 4 : 2);
+  if (form == 1 && (m < 2 || x_dtype != kF32 || capacity < in_bytes + out_bytes)) return -1;
+  if (form == 0 && m > 1 && capacity < in_bytes) return -1;
   Peers peers = {};
   for (int p = 0; p < m; ++p) {
     peers.data[p] = data[p];
@@ -278,6 +413,17 @@ int vpt_par_allreduce(const void* x, int x_dtype, const void* bias, void* out, i
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   unsigned long long* ep = static_cast<unsigned long long*>(epochs);
+  if (form == 1) {
+    const float* xf = static_cast<const float*>(x);
+    if (out_dtype == kF32) {
+      peer_allreduce_two_shot_kernel<kF32><<<blocks, kThreads, 0, s>>>(xf, bias, out, n, d, peers, m, me, ep);
+    } else if (out_dtype == kBF16) {
+      peer_allreduce_two_shot_kernel<kBF16><<<blocks, kThreads, 0, s>>>(xf, bias, out, n, d, peers, m, me, ep);
+    } else {
+      return -1;
+    }
+    return cudaGetLastError();
+  }
   if (x_dtype == kF32 && out_dtype == kF32) return launch<kF32, kF32>(x, bias, out, n, d, peers, m, me, ep, blocks, s);
   if (x_dtype == kF32 && out_dtype == kBF16) return launch<kF32, kBF16>(x, bias, out, n, d, peers, m, me, ep, blocks, s);
   if (x_dtype == kBF16 && out_dtype == kBF16)

@@ -173,8 +173,9 @@ def peer_allreduce_library() -> ctypes.CDLL:
     if lib.vpt_par_allreduce.argtypes is None:
         p, i, ll, cp = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_char_p
         pp = ctypes.POINTER(ctypes.c_void_p)
-        # x, x dtype, bias, out, out dtype, n, d, data[m], flags[m], m, me, epochs, blocks, stream
-        lib.vpt_par_allreduce.argtypes = [p, i, p, p, i, ll, ll, pp, pp, i, i, p, i, p]
+        # x, x dtype, bias, out, out dtype, n, d, data[m], flags[m], m, me, epochs, blocks, form, capacity,
+        # stream
+        lib.vpt_par_allreduce.argtypes = [p, i, p, p, i, ll, ll, pp, pp, i, i, p, i, i, ll, p]
         lib.vpt_par_malloc.argtypes = [i, ll, pp]
         lib.vpt_par_free.argtypes = [p]
         lib.vpt_par_ipc_handle.argtypes = [p, cp]

@@ -30,10 +30,16 @@ from vitparticlefiltertracker_tpu_torch.utils.platform import H100_SMS, sm_count
 HEAD_DIM = 64  # the one head width the kernel takes (every ViT preset)
 SMALL_T_MAX = 16  # csrc/flash_attn.cu kSmallTMax: crop sizes 32/48/64 -> T 4/9/16
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_PATH_CODES = {"small": 0, "tiled": 1}
+_PATH_CODES = {"small": 0, "tiled": 1, "split": 2}
 # Warps a block each path can run with, most first (csrc/flash_attn.cu).
+# f32 above T 16 is 3xTF32: "tiled" when the call has query tiles of 16 rows
+# for every SM's 4 schedulers, else "split" (4 warps on one tile's keys and
+# output dims), so a small call such as eval1's [1, 12, 196, 64] still fills
+# the card.
 _WARP_CHOICES = {("small", torch.float32): (8, 4, 2, 1), ("small", torch.bfloat16): (8, 4, 2, 1),
-                 ("tiled", torch.bfloat16): (4, 2, 1), ("tiled", torch.float32): (4,)}
+                 ("tiled", torch.bfloat16): (4, 2, 1), ("tiled", torch.float32): (4,),
+                 ("split", torch.float32): (4,)}
+WARPS_PER_SM = 4  # an SM's warp schedulers
 _MAX_GRID = 2**31 - 1
 
 
@@ -66,7 +72,7 @@ def empty_attention_output(q: torch.Tensor) -> torch.Tensor:
 
 
 class LaunchPlan(NamedTuple):
-    path: str  # "small" (T <= SMALL_T_MAX) or "tiled"
+    path: str  # "small" (T <= SMALL_T_MAX), "tiled" or "split" (f32 above SMALL_T_MAX)
     warps: int  # warps a block
     grid: int  # blocks on grid.x (the kernels loop over their work items)
     b: int
@@ -79,6 +85,8 @@ class LaunchPlan(NamedTuple):
 def _blocks(path: str, bh: int, t: int, warps: int) -> int:
     if path == "small":
         return -(-bh // warps)  # one warp per (b, h) pair
+    if path == "split":
+        return bh * -(-t // 16)  # 16 query rows a block
     return bh * -(-t // (16 * warps))  # 16 query rows a warp
 
 
@@ -91,8 +99,10 @@ def launch_plan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tens
 
     The block is as wide as still puts at least ``num_sms`` blocks on the
     card (else the narrowest), so a single head at T = 196 spreads over the
-    SMs and a large batch gets wide blocks. Runs on every launch, so it is
-    written for the host's time (the dense step is bound by it).
+    SMs and a large batch gets wide blocks; f32 above T 16 takes the split
+    path when it has fewer 16-row query tiles than ``WARPS_PER_SM`` a SM.
+    Runs on every launch, so it is written for the host's time (the dense
+    step is bound by it).
     """
     tensors = (q, k, v, o)
     shape, dtype, device = q.shape, q.dtype, q.device
@@ -124,9 +134,11 @@ def launch_plan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tens
             raise ValueError(f"{name}: data must start on 16 bytes, got address {ptr:#x}")
         strides += (sb, sh, st)
         ptrs.append(ptr)
-    path = "small" if t <= SMALL_T_MAX else "tiled"
-    choices = _WARP_CHOICES[(path, dtype)]
     bh = b * h
+    path = "small" if t <= SMALL_T_MAX else "tiled"
+    if path == "tiled" and dtype == torch.float32 and bh * -(-t // 16) < WARPS_PER_SM * num_sms:
+        path = "split"
+    choices = _WARP_CHOICES[(path, dtype)]
     warps = choices[-1]
     for w in choices:
         if _blocks(path, bh, t, w) >= num_sms:

@@ -6,7 +6,11 @@ with a sum over the "model" group of every rank's partial product, then the
 bias. ``peer_all_reduce`` does that on the card through
 csrc/peer_allreduce.cu: each rank's partial goes into a symmetric buffer that
 every other rank of the group has mapped (CUDA IPC), and one kernel a call
-sums the partials in rank order in f32, adds the bias and rounds once. It
+sums the partials in rank order in f32, adds the bias and rounds once. A
+small call takes the one-shot form (each rank sums every partial), a large
+one the two-shot form (each rank sums its 1/m of the vectors, then gathers
+the others' sums); ``peer_form`` chooses from the call's shape alone, so
+every rank takes the same form, and both give the same bits. It
 moves the data with plain loads and stores, so a CUDA graph's conditional
 node may hold it: NCCL's collectives across cards do not capture there, and
 the tracker step's lost-only branches are such nodes (ROADMAP.md §3, F6).
@@ -35,8 +39,21 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_RANKS = 8  # csrc/peer_allreduce.cu kMaxRanks: one node's NVLink domain
 MAX_BLOCKS = 128  # kMaxBlocks
 THREADS = 512  # kThreads
-INITIAL_BYTES = 32 << 20  # one [49, 196, 768] f32 partial (the scan's) fits
+INITIAL_BYTES = 64 << 20  # the scan's [49, 196, 768] f32 partial and its f32 sum (two-shot) fit
 HANDLE_BYTES = 64  # CUDA_IPC_HANDLE_SIZE
+
+
+ONE_SHOT, TWO_SHOT = "one-shot", "two-shot"
+_FORM_CODES = {ONE_SHOT: 0, TWO_SHOT: 1}
+# The smallest call (f32 partial elements) that takes the two-shot form, by
+# group size, from both forms timed on 4 x H100 (tools/port_mesh_check.py
+# "peer", PERF.md section 6): on 2 cards two-shot first wins at
+# [4, 196, 768] (0.0295 against 0.0302 ms), on 4 at [2, 196, 768] (0.0334
+# against 0.0481 ms); other group sizes, unmeasured, take the 4-card value.
+# Both keep a B 1 forward's calls ([1, 196, 768], [1, 196, 1024]) one-shot,
+# the form that beats NCCL there on 2 cards.
+TWO_SHOT_MIN_ELEMENTS = {2: 1 << 19}
+TWO_SHOT_MIN_ELEMENTS_WIDE = 1 << 18
 
 
 def launch_blocks(n: int) -> int:
@@ -44,6 +61,47 @@ def launch_blocks(n: int) -> int:
     MAX_BLOCKS blocks (all resident at once: a block waits for the peers'
     blocks of its index)."""
     return max(1, min(MAX_BLOCKS, -(-(n // 8) // THREADS)))
+
+
+def peer_form(n: int, m: int, x_dtype: torch.dtype) -> str:
+    """The form of a call of n elements of x_dtype over a group of m: a
+    function of these alone, so every rank of the group takes the same one.
+    A one-rank group, a bf16 partial and a call under TWO_SHOT_MIN_ELEMENTS
+    take the one-shot form (each rank reads every partial, two barriers); a
+    larger f32 call the two-shot form (each rank reads 1/m of every partial
+    and (m - 1)/m of the sums in the output dtype, three barriers)."""
+    if m == 1 or x_dtype != torch.float32 or n < TWO_SHOT_MIN_ELEMENTS.get(m, TWO_SHOT_MIN_ELEMENTS_WIDE):
+        return ONE_SHOT
+    return TWO_SHOT
+
+
+def form_blocks(n: int, m: int, form: str) -> int:
+    """The grid of a call: launch_blocks over the whole call (one-shot) or
+    over one rank's 1/m of it (two-shot: each thread reduces a vector of its
+    rank's slice)."""
+    return launch_blocks(n if form == ONE_SHOT else -(-(n // 8) // m) * 8)
+
+
+def two_shot_ranges(n: int, m: int, blocks: int) -> list[list[tuple[int, int]]]:
+    """The two-shot cut, as csrc/peer_allreduce.cu two_shot_range makes it:
+    [rank r][block b] -> the vectors [lo, hi) of the n / 8 that block b
+    reduces on rank r (and copies, and gathers, on every other rank)."""
+    vecs = n // 8
+    per_rank = -(-vecs // m)
+    per_block = -(-per_rank // blocks)
+    out = []
+    for r in range(m):
+        r_hi = min(per_rank * (r + 1), vecs)
+        out.append([(min(per_rank * r + per_block * b, r_hi), min(per_rank * r + per_block * (b + 1), r_hi))
+                    for b in range(blocks)])
+    return out
+
+
+def buffer_bytes(n: int, form: str, out_dtype: torch.dtype) -> int:
+    """The symmetric buffer a call of n f32 elements needs: the partial
+    (region A), and for the two-shot form the reduced slices in out_dtype
+    after it (region B)."""
+    return n * 4 + (n * out_dtype.itemsize if form == TWO_SHOT else 0)
 
 
 def check_peer_access(infos: list, me: int, access) -> None:
@@ -158,13 +216,15 @@ class PeerGroup:
         self.capacity = cap
 
 
-def peer_all_reduce(x: torch.Tensor, bias: torch.Tensor, group: PeerGroup) -> torch.Tensor:
+def peer_all_reduce(x: torch.Tensor, bias: torch.Tensor, group: PeerGroup, form: str | None = None) -> torch.Tensor:
     """The sum over `group`'s ranks of each rank's `x` (this rank's partial:
     CUDA, contiguous, float32, or bfloat16 on a one-rank group), taken in
     f32 in rank order, plus `bias` ([x.shape[-1]], float32 or bfloat16),
     rounded once to bias's dtype -> a new tensor shaped as x. One launch of
-    csrc/peer_allreduce.cu; every rank of the group must make the same
-    call. The last dimension and x.numel() are multiples of 8.
+    csrc/peer_allreduce.cu in the form `peer_form` picks (or `form`, which
+    every rank must then pass alike: the comparisons run both); every rank
+    of the group must make the same call. The last dimension and x.numel()
+    are multiples of 8.
 
     Adds one to ``peer_all_reduce.launches`` (and to
     ``peer_all_reduce.shapes[(m, *x.shape)]``) a launch."""
@@ -182,21 +242,27 @@ def peer_all_reduce(x: torch.Tensor, bias: torch.Tensor, group: PeerGroup) -> to
         raise ValueError(f"peer_all_reduce needs x.numel() and the last dim as multiples of 8, got {tuple(x.shape)}")
     if bias.shape != (d,):
         raise ValueError(f"bias must be [{d}], got {tuple(bias.shape)}")
+    form = form or peer_form(x.numel(), group.m, x.dtype)
+    if form not in _FORM_CODES or (form == TWO_SHOT and (group.m == 1 or x.dtype != torch.float32)):
+        raise ValueError(f"peer_all_reduce: no {form!r} form for a group of {group.m} over {x.dtype} partials "
+                         "(two-shot takes float32 partials on 2 ranks or more)")
     x = x.contiguous()
     if bias.data_ptr() % 16 or not bias.is_contiguous():
         bias = bias.clone()
     out = torch.empty(x.shape, dtype=out_dtype, device=x.device)
     if group.m > 1:
-        group.reserve(x.numel() * x.element_size())
+        group.reserve(buffer_bytes(x.numel(), form, out_dtype))
     lib = _lib()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = lib.vpt_par_allreduce(x.data_ptr(), _DTYPE_CODES[x.dtype], bias.data_ptr(),
                                    out.data_ptr(), _DTYPE_CODES[out_dtype], x.numel(), d,
                                    group.data, group.flags,
-                                   group.m, group.me, group.epochs, launch_blocks(x.numel()), stream)
+                                   group.m, group.me, group.epochs, form_blocks(x.numel(), group.m, form),
+                                   _FORM_CODES[form], group.capacity, stream)
     if rc != 0:
-        raise RuntimeError(f"vpt_par_allreduce failed with code {rc} at shape {tuple(x.shape)} (group of {group.m})")
+        raise RuntimeError(f"vpt_par_allreduce failed with code {rc} at shape {tuple(x.shape)} (group of "
+                           f"{group.m}, {form})")
     peer_all_reduce.launches += 1
     peer_all_reduce.shapes[(group.m, *x.shape)] += 1
     return out
