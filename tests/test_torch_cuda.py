@@ -522,7 +522,35 @@ def test_chunked_roi_stream_submitter_waits_for_nothing(cuda_device):
     where, _ = chip_smoke.stream_waits(go, "tiny chunked ROI stream")
     assert where["loop"] == 0 and where["final"] == 1
     assert stats["dispatches"] == {4: 5, 1: 2} and stats["staging_waits"] == 0
+    assert stats["graph_captures"] == 0  # init captured every size the stream uses
     assert sorted(r["frame"] for r in recs) == list(range(1, 23))
+
+
+def test_stream_spans_on_the_traces_clock(cuda_device, tmp_path):
+    """utils/profiling.py trace around a tiny stream on the card: its chrome
+    trace holds a step.launch span a dispatch, each overlapping the graph
+    launch (cudaGraphLaunch) it made, so the program's spans sit on the
+    profiler's clock; no graph is captured inside the stream."""
+    import json
+
+    import chip_smoke
+    from vitparticlefiltertracker_tpu_torch.io.video import open_source
+    from vitparticlefiltertracker_tpu_torch.runtime.streaming import stream_track
+    from vitparticlefiltertracker_tpu_torch.runtime.tracker import Tracker
+    from vitparticlefiltertracker_tpu_torch.utils.profiling import trace
+
+    cfg = Config.from_dict(copy.deepcopy(chip_smoke.TINY))
+    src = open_source("synthetic:moving-square", 24, (128, 128))
+    with trace(str(tmp_path)):
+        stats = stream_track(Tracker(cfg, device="cuda"), src, src.init_bbox, on_record=lambda r: None)
+    assert stats["graph_captures"] == 0 and stats["spans"]["step.launch"]["n"] == 23
+    (path,) = tmp_path.glob("*.json")
+    events = [e for e in json.loads(path.read_text())["traceEvents"] if e.get("ph") == "X"]
+    launches = [e for e in events if e.get("cat") == "program_span" and e["name"] == "step.launch"]
+    graphs = [e for e in events if str(e.get("name", "")).startswith("cudaGraphLaunch")]
+    assert len(launches) == 23 and len(graphs) >= 23
+    for span in launches:
+        assert any(g["ts"] < span["ts"] + span["dur"] and span["ts"] < g["ts"] + g["dur"] for g in graphs), span
 
 
 def test_run_benchmark_on_the_card(cuda_device, tmp_path):

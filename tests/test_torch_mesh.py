@@ -288,6 +288,24 @@ def test_stream_on_a_mesh_records_as_without(layout, case):
         np.testing.assert_allclose(a["position"], b["position"], rtol=1e-4, atol=1e-3)
 
 
+@pytest.mark.parametrize("case", [c[0] for c in STREAM_CASES])
+def test_mesh_feed_spans(layout, case):
+    """MeshFeed's spans (utils/profiling.py) on two ranks: rank 0 sends the
+    host's decisions (mesh.control) and broadcasts the input (mesh.broadcast)
+    once or more a dispatch; rank 1 waits for each message (mesh.wait) and makes the same dispatches."""
+    ranks, _, _ = layout
+    lead, follower = (r["streams"][case] for r in ranks)
+    dispatches = sum(lead["dispatches"].values())
+    assert lead["spans"]["stream.submit"]["n"] == dispatches > 0
+    for name in ("mesh.control", "mesh.broadcast"):
+        assert lead["spans"][name]["n"] >= dispatches, name
+    assert "mesh.wait" not in lead["spans"]
+    assert follower["spans"]["mesh.wait"]["n"] >= dispatches
+    assert follower["spans"]["mesh.broadcast"]["n"] >= dispatches
+    assert follower["spans"]["step.launch"]["n"] == dispatches
+    assert "mesh.control" not in follower["spans"] and "stream.submit" not in follower["spans"]
+
+
 def test_track_command_reads_a_native_source_once_on_a_mesh(layout):
     """`track` with io.source native-synthetic (the native ring) on a
     particle mesh of two ranks: rank 0 reads the ring and writes the

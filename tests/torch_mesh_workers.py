@@ -340,8 +340,8 @@ def stream_runs(cfg_dict: dict, kind: str, shape=None, frames: int = 8, steer: b
     Tracker on the config's source, stream_track's keywords in kw) or
     "serve" (a MultiStreamTracker over two moving-square clips, seeds 0 and
     1). Rank 0 (or the one process) opens the source and records; the other
-    ranks pass none and follow -> the records and the stats' frames and
-    dispatches. steer=False: the ROI shipper ignores the records read back,
+    ranks pass none and follow -> the records and the stats' frames,
+    dispatches and spans. steer=False: the ROI shipper ignores the records read back,
     so every crop is aimed at the initial box's centre, with and without a
     mesh alike (use with steer_lag=0: no flow control waits on steering)."""
     from unittest import mock
@@ -368,7 +368,7 @@ def stream_runs(cfg_dict: dict, kind: str, shape=None, frames: int = 8, steer: b
     aim = contextlib.nullcontext() if steer else mock.patch.object(RoiShipper, "observe", lambda self, rec: None)
     with aim:
         stats = stream_track(tracker, src, bbox, on_record=recs.append if leader else None, **kw)
-    return {"recs": recs, "frames": stats["frames"], "dispatches": stats["dispatches"]}
+    return {"recs": recs, "frames": stats["frames"], "dispatches": stats["dispatches"], "spans": stats["spans"]}
 
 
 def track_command(rank: int, argv: list) -> int:

@@ -204,9 +204,13 @@ def cmd_stream(cfg: Config, device: str = "cuda", quiet: bool = False) -> int:
     frames) and trailing readback; ROI streaming with every runtime.stream_*
     key; a MultiTracker with one record a bank when runtime.banks > 1. On a
     mesh rank 0 alone opens the source and writes the records; the other
-    ranks follow its dispatches (stream_track's MeshFeed)."""
+    ranks follow its dispatches (stream_track's MeshFeed). With
+    runtime.profile_dir, each process dumps a trace of its stream there
+    (utils/profiling.py trace: the kernels, and the program's spans above
+    them)."""
     from vitparticlefiltertracker_tpu_torch.io.sink import JsonlSink
     from vitparticlefiltertracker_tpu_torch.runtime.streaming import stream_track
+    from vitparticlefiltertracker_tpu_torch.utils.profiling import trace
 
     rank = _mesh_rank(cfg, device)
     rt = cfg.runtime
@@ -219,7 +223,8 @@ def cmd_stream(cfg: Config, device: str = "cuda", quiet: bool = False) -> int:
 
         tracker = Tracker(cfg, device=device)
     if rank != 0:
-        stream_track(tracker, None, None)
+        with trace(rt.profile_dir):
+            stream_track(tracker, None, None)
         return 0
     source = _open(cfg, cfg.io.source, cfg.filter.seed)
     init_bbox = getattr(source, "init_bbox", None)
@@ -228,7 +233,8 @@ def cmd_stream(cfg: Config, device: str = "cuda", quiet: bool = False) -> int:
     if rt.banks > 1:
         init_bbox = banked_bboxes(init_bbox, rt.banks)
     sink = JsonlSink(cfg.io.output)
-    stats = stream_track(tracker, source, init_bbox, on_record=sink.write, **stream_kwargs(cfg))
+    with trace(rt.profile_dir):
+        stats = stream_track(tracker, source, init_bbox, on_record=sink.write, **stream_kwargs(cfg))
     sink.close()
     if not quiet:
         print(f"streamed {stats['frames']} frames in {stats['wall_s']:.2f}s ({stats['fps']:.1f} fps)",
@@ -243,10 +249,13 @@ def cmd_serve(cfg: Config, device: str = "cuda", quiet: bool = False) -> int:
     filter.seed + i. One FramePump a source, read in lockstep into
     stream_track's pipeline; one JSONL record a stream a frame, with a
     "stream" field. On a mesh (the streams over "bank") rank 0 alone opens
-    the sources and writes the records; the other ranks follow."""
+    the sources and writes the records; the other ranks follow.
+    runtime.profile_dir: a trace of each process's stream, as for the
+    stream command."""
     from vitparticlefiltertracker_tpu_torch.io.sink import JsonlSink
     from vitparticlefiltertracker_tpu_torch.runtime.banked import MultiStreamTracker
     from vitparticlefiltertracker_tpu_torch.runtime.streaming import FramePump, stream_track
+    from vitparticlefiltertracker_tpu_torch.utils.profiling import trace
 
     rank = _mesh_rank(cfg, device)
     specs = [s.strip() for s in cfg.io.source.split(",") if s.strip()]
@@ -255,7 +264,8 @@ def cmd_serve(cfg: Config, device: str = "cuda", quiet: bool = False) -> int:
     k = len(specs)
     ms = MultiStreamTracker(cfg, num_streams=k, device=device)
     if rank != 0:
-        stream_track(ms, None, None)
+        with trace(cfg.runtime.profile_dir):
+            stream_track(ms, None, None)
         return 0
     sources = [_open(cfg, spec, cfg.filter.seed + i) for i, spec in enumerate(specs)]
     pumps = [iter(FramePump(s, depth=cfg.runtime.prefetch_frames)) for s in sources]
@@ -281,7 +291,8 @@ def cmd_serve(cfg: Config, device: str = "cuda", quiet: bool = False) -> int:
             sink.write({"stream": s, "frame": rec["frame"], "position": rec["position"][s], "box": rec["box"][s],
                         "conf": rec["conf"][s], "ess": rec["ess"][s], "lost": rec["lost"][s]})
 
-    stats = stream_track(ms, lockstep(), bboxes, on_record=on_record)
+    with trace(cfg.runtime.profile_dir):
+        stats = stream_track(ms, lockstep(), bboxes, on_record=on_record)
     sink.close()
     if not quiet and stats["frames"]:
         print(f"served {k} streams x {stats['frames']} frames in {stats['wall_s']:.2f}s "

@@ -228,7 +228,7 @@ class RuntimeConfig:
     stream_fps_target: float = 60.0
     stream_lost_throttle: bool = True
     stream_chunk_unroll: bool = False
-    profile_dir: str = ""
+    profile_dir: str = ""  # a trace of bench, stream and serve, the program's spans in it ("" disables)
 
 
 @dataclass

@@ -25,7 +25,14 @@ copies that later steps leave alone (``step_packed``), and each is marked
 as used on the reader's stream. The pinned staging slots (the tracker's
 ``staging``) are deep enough for every array that can be in flight while a
 reader or the flow control holds the submitter back; a wait for a slot is
-counted there.
+counted (``staging_waits``).
+
+Spans and counters (utils/profiling.py ``SPANS``) time each part where it
+runs: the submitting thread's ``stream.ingest``, ``stream.submit`` (a
+dispatch: staging, noise draws, launch, ROI shipping, a mesh's messages),
+``stream.handover``, ``stream.flow`` and ``stream.drain``; the drainer's
+``drain.window`` and ``frame.hold``; the pump's ``pump.read``; a mesh
+follower's ``mesh.wait``. ``stream_track`` returns its run's share.
 """
 
 from __future__ import annotations
@@ -40,6 +47,7 @@ import torch
 
 from vitparticlefiltertracker_tpu_torch.ops.image import FrameView, StreamFrame
 from vitparticlefiltertracker_tpu_torch.runtime.tracker import pack_track_output, unpack_track_output
+from vitparticlefiltertracker_tpu_torch.utils.profiling import SPANS
 
 
 class OutputPacker:
@@ -165,12 +173,13 @@ class RoiShipper:
         if idx is None:
             idx = self._idx
         self._idx = idx + 1
-        ox, oy = self._origin(idx)
-        span, s = self._span, self._s
-        roi = frame[oy : oy + span : s, ox : ox + span : s]
-        if self._glob is None or idx % self._glob_every == 0:
-            self._ship_glob(frame[:: self._gs, :: self._gs])
-        return StreamFrame(track=self._track(roi, [ox, oy], float(s)), glob=self._glob)
+        with SPANS.span("roi.ship"):
+            ox, oy = self._origin(idx)
+            span, s = self._span, self._s
+            roi = frame[oy : oy + span : s, ox : ox + span : s]
+            if self._glob is None or idx % self._glob_every == 0:
+                self._ship_glob(frame[:: self._gs, :: self._gs])
+            return StreamFrame(track=self._track(roi, [ox, oy], float(s)), glob=self._glob)
 
     def _read_native(self, reader, idx: int, ox: int, oy: int) -> tuple[np.ndarray, list, float]:
         """One ROI read from a native source -> (pixels, origin, stride)."""
@@ -186,11 +195,12 @@ class RoiShipper:
         """A ROI read straight from a native source (read_rect, or read_view
         with roi_out): the whole frame never reaches Python."""
         self._idx = frame_idx  # the glob cadence follows the frame index
-        ox, oy = self._origin(frame_idx)
-        track = self._track(*self._read_native(reader, frame_idx, ox, oy))
-        if self._glob is None or frame_idx % self._glob_every == 0:
-            self._ship_glob(reader.read_rect(frame_idx, 0, 0, self._w, self._h, self._gs))
-        return StreamFrame(track=track, glob=self._glob)
+        with SPANS.span("roi.ship"):
+            ox, oy = self._origin(frame_idx)
+            track = self._track(*self._read_native(reader, frame_idx, ox, oy))
+            if self._glob is None or frame_idx % self._glob_every == 0:
+                self._ship_glob(reader.read_rect(frame_idx, 0, 0, self._w, self._h, self._gs))
+            return StreamFrame(track=track, glob=self._glob)
 
     def _chunk_views(self, idxs, read_one) -> StreamFrame:
         """C ROI reads stacked into one StreamFrame (pixels [C, h, w, 3],
@@ -208,22 +218,24 @@ class RoiShipper:
     def ship_native_chunk(self, reader, idxs) -> StreamFrame:
         """ship_native for C frames: C native ROI reads, one stacked copy."""
         self._idx = idxs[-1]
-        if self._glob is None or any(i % self._glob_every == 0 for i in idxs):
-            self._ship_glob(reader.read_rect(idxs[0], 0, 0, self._w, self._h, self._gs))
-        return self._chunk_views(idxs, lambda idx, ox, oy: self._read_native(reader, idx, ox, oy))
+        with SPANS.span("roi.ship"):
+            if self._glob is None or any(i % self._glob_every == 0 for i in idxs):
+                self._ship_glob(reader.read_rect(idxs[0], 0, 0, self._w, self._h, self._gs))
+            return self._chunk_views(idxs, lambda idx, ox, oy: self._read_native(reader, idx, ox, oy))
 
     def ship_chunk(self, frames, idxs) -> StreamFrame:
         """ship for C numpy frames: C host crops, one stacked copy."""
         self._idx = idxs[-1]
-        if self._glob is None or any(i % self._glob_every == 0 for i in idxs):
-            self._ship_glob(frames[-1][:: self._gs, :: self._gs])
         frame_of = dict(zip(idxs, frames))
         span, s = self._span, self._s
 
         def read_one(idx, ox, oy):
             return frame_of[idx][oy : oy + span : s, ox : ox + span : s], [ox, oy], float(s)
 
-        return self._chunk_views(idxs, read_one)
+        with SPANS.span("roi.ship"):
+            if self._glob is None or any(i % self._glob_every == 0 for i in idxs):
+                self._ship_glob(frames[-1][:: self._gs, :: self._gs])
+            return self._chunk_views(idxs, read_one)
 
     def observe(self, rec: dict) -> None:
         """Feed a record read back (it trails the stream) to steer the ROI.
@@ -278,8 +290,14 @@ class FramePump:
 
     def _run(self, source) -> None:
         try:
-            for frame in source:
+            frames, i = iter(source), 0
+            while True:
+                with SPANS.span("pump.read", i):
+                    frame = next(frames, self._SENTINEL)
+                if frame is self._SENTINEL:
+                    break
                 self._q.put(frame)
+                i += 1
         except BaseException as e:  # surfaced on the consumer side
             self._err = e
         finally:
@@ -359,6 +377,8 @@ class MeshFeed:
 
         self.mesh = mesh
         self.rank = dist.get_rank(mesh.all_group)
+        # The span of a host message: rank 0 sends it, the others wait for it.
+        self._sent = "mesh.control" if self.rank == 0 else "mesh.wait"
         self._bufs: dict = {}  # (role, shape, dtype) -> this rank's device buffer for the broadcasts
         self._glob = None  # the last global view handed to the tracker (its identity marks a new one)
         self._zero2 = torch.zeros(2, dtype=torch.float32, device=mesh.device)
@@ -375,18 +395,20 @@ class MeshFeed:
     def _control(self, *values) -> list[int]:
         import torch.distributed as dist
 
-        msg = torch.zeros(3, dtype=torch.int64)
-        if self.rank == 0:
-            msg[: len(values)] = torch.tensor(values, dtype=torch.int64)
-        dist.broadcast(msg, src=0, group=self.mesh.host_group)
-        return msg.tolist()
+        with SPANS.span(self._sent):
+            msg = torch.zeros(3, dtype=torch.int64)
+            if self.rank == 0:
+                msg[: len(values)] = torch.tensor(values, dtype=torch.int64)
+            dist.broadcast(msg, src=0, group=self.mesh.host_group)
+            return msg.tolist()
 
     def _object(self, value=None):
         import torch.distributed as dist
 
-        box = [value]
-        dist.broadcast_object_list(box, src=0, group=self.mesh.host_group)
-        return box[0]
+        with SPANS.span(self._sent):
+            box = [value]
+            dist.broadcast_object_list(box, src=0, group=self.mesh.host_group)
+            return box[0]
 
     def _tensor(self, role: str, x: torch.Tensor | None, shape, dtype) -> torch.Tensor:
         """Rank 0's `x` (a host or device tensor) broadcast into every rank's
@@ -401,9 +423,10 @@ class MeshFeed:
         buf = self._bufs.get(key)
         if buf is None:
             buf = self._bufs[key] = torch.empty(key[1], dtype=dtype, device=self.mesh.device)
-        if self.rank == 0:
-            buf.copy_(x, non_blocking=True)
-        dist.broadcast(buf, src=0, group=self.mesh.all_group)
+        with SPANS.span("mesh.broadcast"):
+            if self.rank == 0:
+                buf.copy_(x, non_blocking=True)
+            dist.broadcast(buf, src=0, group=self.mesh.all_group)
         return buf
 
     def _view(self, frame: StreamFrame | None, c: int, glob_new: bool, spec: dict) -> StreamFrame:
@@ -432,8 +455,10 @@ class MeshFeed:
     # -- the other ranks -------------------------------------------------------------
     def follow(self, tracker) -> dict[str, Any]:
         """Rank r > 0: make rank 0's calls on `tracker` until the end of the
-        stream -> {"frames", "dispatches": {size: count}, "wall_s"}."""
-        t0 = time.perf_counter()
+        stream -> {"frames", "dispatches": {size: count}, "spans"} ("spans":
+        this run's share of the span recorder's aggregates, as
+        stream_track's, ``mesh.wait`` among them)."""
+        before = SPANS.totals()
         spec, frame, frames, dispatches = None, None, 0, {}
         while True:
             op, c, glob_new = self._control()
@@ -459,7 +484,7 @@ class MeshFeed:
             frames += size
             dispatches[size] = dispatches.get(size, 0) + 1
         _complete(tracker)
-        return {"frames": frames, "dispatches": dispatches, "wall_s": time.perf_counter() - t0}
+        return {"frames": frames, "dispatches": dispatches, "spans": SPANS.totals().since(before)["spans"]}
 
 
 def _spec(frame: StreamFrame) -> dict:
@@ -569,20 +594,36 @@ def stream_track(
     `readback_window` frames of latency: one a frame, with K-vector fields
     for K banks or streams (the serve command fans them out per stream).
 
-    Stage accounting (all measured in this run):
+    Stage accounting (all measured in this run, after the tracker's init,
+    from the span recorder, utils/profiling.py ``SPANS``):
+      * spans: {name: {"n": count, "s": total seconds, "self_s": the total
+        less its child spans'}} of every span taken in the run, on any
+        thread (the names are listed in utils/profiling.py). A dispatch is
+        one ``stream.submit``, whose children are ``step.stage``,
+        ``step.noise``, ``step.launch``, ``roi.ship`` and, on a mesh,
+        ``mesh.control`` and ``mesh.broadcast``; ``frame.hold`` is one a
+        record, from the end of its dispatch's ``stream.submit`` to its
+        call to on_record.
       * ingest_wait_s: time the submitter waited on the decode pump (or the
-        native source's frame indices)
+        native source's frame indices): ``stream.ingest``
       * submit_s: host time shipping and staging frames and enqueueing
         steps (the card runs them later: this is submission cost, not
-        device compute)
+        device compute): ``stream.submit``
       * readback_s: time handing windows to the drainer (it waits only when
-        the drainer is two windows behind) and, with ROI steering, in the
-        flow control's sleeps
+        the drainer is two windows behind; each wait counted in
+        drain_blocked) and, with ROI steering, in the flow control's
+        sleeps: ``stream.handover`` and ``stream.flow``
       * drain_s: the final flush: the last window's records and the wait
-        for every step in flight.
-    wall_s (and fps) runs from the first frame's read, as in the JAX
-    package; init_s is its share for the tracker's init (on the card with
-    the graphs' captures and the staging slots' allocation).
+        for every step in flight: ``stream.drain``
+      * staging_waits: waits for a pinned staging slot still in flight;
+        graph_captures: step or chunk graphs captured during the run (each
+        a stall; init captures every shape the stream uses).
+    The seconds are rounded to the millisecond. wall_s (and fps) runs from
+    the first frame's read, as in the JAX package; init_s is its share for
+    the tracker's init (on the card with the graphs' captures and the
+    staging slots' allocation). An operator sees the spans above the
+    kernels in the trace ``runtime.profile_dir`` names (the stream and
+    serve commands; utils/profiling.py ``trace``).
 
     roi_px > 0: ROI streaming through a RoiShipper (roi_stride, glob_stride,
     glob_every, roi_out as its arguments; roi_out needs a native source, and
@@ -645,12 +686,13 @@ def stream_track(
         _reserve_staging(tracker, frame0, shipper, sizes if chunk > 1 else [], readback_window, steer_lag,
                          glob_every)
     init = time.perf_counter() - t0
+    before = SPANS.totals()
 
-    # Entries are (frame_idx, packed rows, dispatch size); a window goes to
-    # the drainer with the event recorded after its last dispatch. hist
-    # holds the newest entries for the steer workers, each with its own
-    # event.
-    pending: list[tuple[int, torch.Tensor, int]] = []
+    # Entries are (frame_idx, packed rows, dispatch size, the dispatch's
+    # stream.submit span); a window goes to the drainer with the event
+    # recorded after its last dispatch. hist holds the newest entries for
+    # the steer workers, each with its own event.
+    pending: list[tuple[int, torch.Tensor, int, Any]] = []
     hist: list[tuple[int, torch.Tensor, int, Any]] = []
     drain_q: queue.Queue = queue.Queue(maxsize=2)
     drain_err: list[BaseException] = []
@@ -670,7 +712,8 @@ def stream_track(
             if drain_err:
                 continue
             try:
-                _drain(*item, packer, on_record, drain_stream)
+                with SPANS.span("drain.window", item[0][-1][0]):
+                    _drain(*item, packer, on_record, drain_stream)
                 drained[0] += 1
             except BaseException as e:  # surfaced after the loop
                 drain_err.append(e)
@@ -683,7 +726,20 @@ def stream_track(
         return event
 
     def _hand_over(window) -> None:
-        drain_q.put((window, _event()))
+        item = (window, _event())
+        try:
+            drain_q.put_nowait(item)
+        except queue.Full:  # the drainer is two windows behind
+            SPANS.count("drain_blocked")
+            drain_q.put(item)
+
+    def _pass_on() -> None:
+        """Hand the pending window to the drainer (timed), and start a new one."""
+        nonlocal pending, pending_frames
+        if pending and not drain_err:
+            with SPANS.span("stream.handover"):
+                _hand_over(pending)
+        pending, pending_frames = [], 0
 
     def steer_margin(size: int) -> int:
         # In hist entries (a dispatch of `size` frames each): read about
@@ -752,83 +808,80 @@ def stream_track(
         drainer.join()
         drainer = None
 
-    def _record(idx: int, packed: torch.Tensor, size: int) -> None:
-        """Queue a dispatch's rows for the drainer and the steer workers."""
+    def _stop_steerers() -> None:
+        nonlocal steer_stop
+        steer_stop = True
+        for th in steerers:
+            th.join()
+
+    def _record(idx: int, packed: torch.Tensor, size: int, submit) -> None:
+        """Queue a dispatch's rows (submitted in the span `submit`) for the
+        drainer and the steer workers."""
         if shipper is not None:
             hist.append((idx, packed, size, _event()))
             if len(hist) > 64:
                 del hist[:-64]
         if on_record is not None:
-            pending.append((idx, packed, size))
+            pending.append((idx, packed, size, submit))
 
-    def _flow_control(lag: int) -> float:
+    def _flow_control(lag: int) -> None:
         """Hold the submitter at most `lag` frames ahead of the newest
-        steered frame (sleeps on the host) -> the seconds held."""
-        t = time.perf_counter()
-        while n - shipper.observed_idx > lag and not drain_err:
-            time.sleep(0.0005)
-        return time.perf_counter() - t
+        steered frame (sleeps on the host)."""
+        with SPANS.span("stream.flow"):
+            while n - shipper.observed_idx > lag and not drain_err:
+                time.sleep(0.0005)
 
     n = 0
-    ingest_wait = submit = readback = 0.0
     dispatches: dict[int, int] = {}
     cur_i = 0
     rate_marks: list[tuple[float, int]] = []  # (wall time, frames submitted)
     last_switch_n = 0
     pending_frames = 0
-    t = t0
     try:
         while chunk > 1:  # the chunked ROI loop: C frames a copy and a dispatch
             cur = sizes[cur_i]
-            t = time.perf_counter()
-            if native_roi:
-                idxs, frames = [], None
-                for _ in range(cur):
-                    i = next(it, None)
-                    if i is None:
-                        break
-                    idxs.append(i)
-            else:
-                frames = []
-                while len(frames) < cur:
-                    f = next(it, None)
-                    if f is None:
-                        break
-                    frames.append(f)
-                idxs = list(range(n + 1, n + 1 + len(frames)))
-            ingest_wait += time.perf_counter() - t
+            with SPANS.span("stream.ingest", n + 1):
+                if native_roi:
+                    idxs, frames = [], None
+                    for _ in range(cur):
+                        i = next(it, None)
+                        if i is None:
+                            break
+                        idxs.append(i)
+                else:
+                    frames = []
+                    while len(frames) < cur:
+                        f = next(it, None)
+                        if f is None:
+                            break
+                        frames.append(f)
+                    idxs = list(range(n + 1, n + 1 + len(frames)))
             if not idxs:
                 break
-            t = time.perf_counter()
             if len(idxs) < cur:
                 # A tail shorter than a chunk: the one-frame ROI step, its
                 # rows in a window of their own after the chunks' windows.
-                if pending and not drain_err:
-                    _hand_over(pending)
-                pending, pending_frames = [], 0
+                _pass_on()
                 for j, idx in enumerate(idxs):
-                    dev = shipper.ship_native(source, idx) if native_roi else shipper.ship(frames[j], idx)
-                    _record(idx, tracker.step_packed(dev), 1)
-                    dispatches[1] = dispatches.get(1, 0) + 1
+                    with SPANS.span("stream.submit", idx) as sp:
+                        dev = shipper.ship_native(source, idx) if native_roi else shipper.ship(frames[j], idx)
+                        _record(idx, tracker.step_packed(dev), 1, sp)
+                        dispatches[1] = dispatches.get(1, 0) + 1
                     n += 1
-                submit += time.perf_counter() - t
                 break
-            dev = shipper.ship_native_chunk(source, idxs) if native_roi else shipper.ship_chunk(frames, idxs)
-            _record(idxs[-1], tracker.step_chunk_packed(dev), cur)
-            dispatches[cur] = dispatches.get(cur, 0) + 1
-            if on_record is not None:
-                pending_frames += len(idxs)
-            submit += time.perf_counter() - t
+            with SPANS.span("stream.submit", idxs[-1]) as sp:
+                dev = shipper.ship_native_chunk(source, idxs) if native_roi else shipper.ship_chunk(frames, idxs)
+                _record(idxs[-1], tracker.step_chunk_packed(dev), cur, sp)
+                dispatches[cur] = dispatches.get(cur, 0) + 1
+                if on_record is not None:
+                    pending_frames += len(idxs)
             n += len(idxs)
-            if pending_frames > readback_window and not drain_err:
-                done, pending, pending_frames = pending, [], 0
-                t = time.perf_counter()
-                _hand_over(done)
-                readback += time.perf_counter() - t
+            if pending_frames > readback_window:
+                _pass_on()
             if steer_lag > 0:
                 # While the newest steered record is lost, at most a chunk
                 # ahead, so that a re-detection's jump re-aims the next crop.
-                readback += _flow_control(cur if (lost_throttle and shipper.lost_seen) else steer_lag)
+                _flow_control(cur if (lost_throttle and shipper.lost_seen) else steer_lag)
             if len(sizes) > 1:
                 # The rate over about the last 2 s (at least 3 marks): up a
                 # size below fps_target, down above 1.6 fps_target, at least
@@ -847,75 +900,76 @@ def stream_track(
                     elif rate > 1.6 * fps_target and cur_i > 0:
                         new_i = cur_i - 1
                     if new_i != cur_i:
-                        if pending and not drain_err:
-                            _hand_over(pending)
-                        pending, pending_frames = [], 0
+                        _pass_on()
                         cur_i = new_i
                         last_switch_n = n
                         rate_marks.clear()
         while chunk == 1:
-            t = time.perf_counter()
-            frame = next(it, None)
-            ingest_wait += time.perf_counter() - t
+            with SPANS.span("stream.ingest", n + 1):
+                frame = next(it, None)
             if frame is None:
                 break
-            t = time.perf_counter()
-            if native_roi:
-                dev = shipper.ship_native(source, frame)  # the frame is an index
-            elif shipper is not None:
-                # Record frames count from 1 (frame 0 is the init frame);
-                # passing the index keeps dead reckoning exact.
-                dev = shipper.ship(frame, n + 1)
-            else:
-                dev = tracker.stage(frame)
-            _record(n + 1, tracker.step_packed(dev), 1)
-            submit += time.perf_counter() - t
+            with SPANS.span("stream.submit", n + 1) as sp:
+                if native_roi:
+                    dev = shipper.ship_native(source, frame)  # the frame is an index
+                elif shipper is not None:
+                    # Record frames count from 1 (frame 0 is the init frame);
+                    # passing the index keeps dead reckoning exact.
+                    dev = shipper.ship(frame, n + 1)
+                else:
+                    dev = tracker.stage(frame)
+                _record(n + 1, tracker.step_packed(dev), 1, sp)
             n += 1
-            if len(pending) > readback_window and not drain_err:
-                done, pending = pending, []
-                t = time.perf_counter()
-                _hand_over(done)  # blocks only on the drainer's backpressure
-                readback += time.perf_counter() - t
+            if len(pending) > readback_window:
+                _pass_on()  # blocks only on the drainer's backpressure
             if shipper is not None and steer_lag > 0:
                 # Flow control: the submit-ahead over the newest steered
                 # estimate is capped, which bounds both the steering lag and
                 # the frames in flight.
-                readback += _flow_control(1 if (lost_throttle and shipper.lost_seen) else steer_lag)
+                _flow_control(1 if (lost_throttle and shipper.lost_seen) else steer_lag)
         if chunk == 1:
             dispatches[1] = n
-        t = time.perf_counter()
-        if feed is not None:
-            feed.end()
-        _finish_drainer()
+        with SPANS.span("stream.drain"):
+            if feed is not None:
+                feed.end()
+            _finish_drainer()
+            _stop_steerers()
+            if not drain_err:
+                _complete(tracker)
     finally:
         if feed is not None:
             feed.end()  # the other ranks stop too when the loop fails
         # Teardown on every exit: the drainer discards queued items after an
         # error, so put(None) cannot block.
-        steer_stop = True
         if drainer is not None:
             drain_q.put(None)
             drainer.join()
             drainer = None
-        for th in steerers:
-            th.join()
+        _stop_steerers()
     if drain_err:
         raise drain_err[0]
-    _complete(tracker)
-    drain = time.perf_counter() - t
     wall = time.perf_counter() - t0
+    run = SPANS.totals().since(before)
+    spans, counts = run["spans"], run["counts"]
+
+    def seconds(*names: str) -> float:
+        return round(sum(spans[k]["s"] for k in names if k in spans), 3)
+
     stats = {
         "frames": n,
         "wall_s": wall,
         "fps": n / wall if wall > 0 else 0.0,
         "init_s": round(init, 3),
-        "ingest_wait_s": round(ingest_wait, 3),
-        "submit_s": round(submit, 3),
-        "readback_s": round(readback, 3),
-        "drain_s": round(drain, 3),
+        "ingest_wait_s": seconds("stream.ingest"),
+        "submit_s": seconds("stream.submit"),
+        "readback_s": seconds("stream.handover", "stream.flow"),
+        "drain_s": seconds("stream.drain"),
         "drain_windows": drained[0],
-        "staging_waits": tracker.staging.waits,
+        "staging_waits": counts.get("staging_waits", 0),
+        "drain_blocked": counts.get("drain_blocked", 0),
+        "graph_captures": counts.get("graph_captures", 0),
         "dispatches": dispatches,
+        "spans": spans,
     }
     if shipper is not None:
         stats.update(shipped_bytes_per_frame=shipper.shipped_bytes_per_frame, steer_fetches=fetches[0])
@@ -953,8 +1007,9 @@ def _drain(pending, event, packer: OutputPacker, on_record, stream) -> None:
     one record a frame (a chunk's rows: one a row, the entry's index its
     last frame's). On the card the copy runs on `stream`, after `event`
     (recorded on the submitting thread's stream after the window's last
-    dispatch): one wait, for that stream. A window holds rows of one size."""
-    rows = [p for _, p, _ in pending]
+    dispatch): one wait, for that stream. A window holds rows of one size.
+    Each record's ``frame.hold`` span ends as it goes to on_record."""
+    rows = [p for _, p, _, _ in pending]
     if stream is not None:
         with torch.cuda.stream(stream):
             stream.wait_event(event)
@@ -963,11 +1018,12 @@ def _drain(pending, event, packer: OutputPacker, on_record, stream) -> None:
             buf = torch.stack(rows).cpu().numpy()
     else:
         buf = torch.stack(rows).numpy()
-    for (idx, _, size), row in zip(pending, buf):
+    for (idx, _, size, submit), row in zip(pending, buf):
         out = packer.unpack(row)
         if size > 1:
             c = out.position.shape[0]
             for j in range(c):
+                SPANS.add("frame.hold", submit.end, time.perf_counter_ns(), idx - c + 1 + j)
                 on_record({
                     "frame": idx - c + 1 + j,
                     "position": out.position[j].tolist(),
@@ -978,6 +1034,7 @@ def _drain(pending, event, packer: OutputPacker, on_record, stream) -> None:
                     "lost": bool(out.lost[j]),
                 })
             continue
+        SPANS.add("frame.hold", submit.end, time.perf_counter_ns(), idx)
         on_record({
             "frame": idx,
             "position": out.position.tolist(),

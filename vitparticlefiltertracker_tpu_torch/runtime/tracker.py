@@ -94,6 +94,7 @@ from vitparticlefiltertracker_tpu_torch.runtime.step_graph import (
     run_if_host,
 )
 from vitparticlefiltertracker_tpu_torch.utils.platform import resolve_device
+from vitparticlefiltertracker_tpu_torch.utils.profiling import SPANS
 
 
 class TrackerState(NamedTuple):
@@ -876,11 +877,10 @@ class StagingRing:
     records the slot's event (``copied``). A slot is written again only once
     its event has passed: when the host runs `depth` arrays of a shape ahead
     of the card's copies, ``stage`` waits for the oldest one, and counts the
-    wait in `waits`."""
+    wait in the span recorder's ``staging_waits`` (utils/profiling.py)."""
 
     def __init__(self, depth: int = 2):
         self.depth = depth
-        self.waits = 0
         self._slots: dict = {}  # (shape, dtype) -> [(pinned tensor, event), ...]
         self._turn: dict = {}  # (shape, dtype) -> arrays staged
         self._depths: dict = {}  # (shape, dtype) -> its depth, where reserve set one
@@ -909,7 +909,7 @@ class StagingRing:
         else:
             slot = slots[turn % len(slots)]
             if not slot[1].query():
-                self.waits += 1
+                SPANS.count("staging_waits")
                 slot[1].synchronize()
         slot[0].copy_(src)
         self._pending.append(slot)
@@ -1098,6 +1098,7 @@ class _GraphStepper:
             if self._pool is None:
                 self._pool = torch.cuda.graph_pool_handle()
             buf = torch.zeros(frame.shape, dtype=frame.dtype, device=self.device)
+            SPANS.count("graph_captures")
             self._step_graphs[key] = StepGraphs(self._body, self._static, (buf,), self._n, self._pool, self._lead)
         return self._step_graphs[key]
 
@@ -1110,24 +1111,26 @@ class _GraphStepper:
             raise RuntimeError("call init() or resume() first")
         dev = self.device
         seeds, idx = self._seed.tolist(), self._frame_idx.tolist()
-        noise = draw_step_noise(seeds, idx, self._n, dev)
-        reseed = draw_reseed_noise(seeds, idx, self._n, dev) if self._n_after > 0 else None
+        with SPANS.span("step.noise"):
+            noise = draw_step_noise(seeds, idx, self._n, dev)
+            reseed = draw_reseed_noise(seeds, idx, self._n, dev) if self._n_after > 0 else None
         mine = frame if self._frame_sl is None else frame[self._frame_sl]
-        if self.graphs:
-            sg = self._graphs_for(mine)
-            sg.inputs[0].copy_(mine, non_blocking=True)
-            self.staging.copied(frame)
-            for dst, src in zip(sg.noise, noise):
-                dst.copy_(src)
-            if reseed is not None:
-                sg.reseed.copy_(reseed)
-            row = sg.replay()
-            if not self._donate:
-                self._state = clone_state(self._static)
-        else:
-            frame_dev = mine.to(dev, non_blocking=True)
-            self.staging.copied(frame)
-            self._state, row = self._body(self._state, frame_dev, noise, reseed, None)
+        with SPANS.span("step.launch"):
+            if self.graphs:
+                sg = self._graphs_for(mine)
+                sg.inputs[0].copy_(mine, non_blocking=True)
+                self.staging.copied(frame)
+                for dst, src in zip(sg.noise, noise):
+                    dst.copy_(src)
+                if reseed is not None:
+                    sg.reseed.copy_(reseed)
+                row = sg.replay()
+                if not self._donate:
+                    self._state = clone_state(self._static)
+            else:
+                frame_dev = mine.to(dev, non_blocking=True)
+                self.staging.copied(frame)
+                self._state, row = self._body(self._state, frame_dev, noise, reseed, None)
         self._frame_idx = self._frame_idx + 1
         return row
 
@@ -1178,6 +1181,7 @@ class _GraphStepper:
                       torch.zeros((track_shape[0], 2), dtype=torch.float32, device=self.device),
                       glob.pixels, glob.origin)
             body = functools.partial(self._chunk_body, stride=float(stride), glob_stride=float(glob.stride))
+            SPANS.count("graph_captures")
             self._chunk_graphs[key] = StepGraphs(body, self._static, inputs, self._n, self._pool, self._lead,
                                                  steps=track_shape[0])
         return self._chunk_graphs[key]
@@ -1209,31 +1213,33 @@ class _GraphStepper:
         tv = chunk.track
         c, dev = tv.pixels.shape[0], self.device
         seed, idx = int(self._seed), int(self._frame_idx)
-        noises = [draw_step_noise(seed, idx + i, self._n, dev) for i in range(c)]
-        reseeds = ([draw_reseed_noise(seed, idx + i, self._n, dev) for i in range(c)]
-                   if self._n_after > 0 else None)
-        glob = self._glob_view(chunk.glob)
-        if self.graphs:
-            sg = self._chunk_graphs_for(tv.pixels.shape, tv.pixels.dtype, tv.stride, glob)
-            for buf, src in zip(sg.inputs, (tv.pixels, tv.origin)):
-                buf.copy_(src, non_blocking=True)
-                self.staging.copied(src)
-            for i, noise in enumerate(noises):
-                for dst, src in zip(sg.noise, noise):
-                    dst[i].copy_(src)
-                if reseeds is not None:
-                    sg.reseed[i].copy_(reseeds[i])
-            rows = sg.replay()
-            if not self._donate:
-                self._state = clone_state(self._static)
-        else:
-            pixels, origin = (x.to(dev, non_blocking=True) for x in (tv.pixels, tv.origin))
-            self.staging.copied(tv.pixels)
-            self.staging.copied(tv.origin)
-            noise = StepNoise(*(torch.stack(x) for x in zip(*noises)))
-            reseed = None if reseeds is None else torch.stack(reseeds)
-            self._state, rows = self._chunk_body(self._state, pixels, origin, glob.pixels, glob.origin, noise, reseed,
-                                                 None, stride=tv.stride, glob_stride=glob.stride)
+        with SPANS.span("step.noise"):
+            noises = [draw_step_noise(seed, idx + i, self._n, dev) for i in range(c)]
+            reseeds = ([draw_reseed_noise(seed, idx + i, self._n, dev) for i in range(c)]
+                       if self._n_after > 0 else None)
+        with SPANS.span("step.launch"):
+            glob = self._glob_view(chunk.glob)
+            if self.graphs:
+                sg = self._chunk_graphs_for(tv.pixels.shape, tv.pixels.dtype, tv.stride, glob)
+                for buf, src in zip(sg.inputs, (tv.pixels, tv.origin)):
+                    buf.copy_(src, non_blocking=True)
+                    self.staging.copied(src)
+                for i, noise in enumerate(noises):
+                    for dst, src in zip(sg.noise, noise):
+                        dst[i].copy_(src)
+                    if reseeds is not None:
+                        sg.reseed[i].copy_(reseeds[i])
+                rows = sg.replay()
+                if not self._donate:
+                    self._state = clone_state(self._static)
+            else:
+                pixels, origin = (x.to(dev, non_blocking=True) for x in (tv.pixels, tv.origin))
+                self.staging.copied(tv.pixels)
+                self.staging.copied(tv.origin)
+                noise = StepNoise(*(torch.stack(x) for x in zip(*noises)))
+                reseed = None if reseeds is None else torch.stack(reseeds)
+                self._state, rows = self._chunk_body(self._state, pixels, origin, glob.pixels, glob.origin, noise,
+                                                     reseed, None, stride=tv.stride, glob_stride=glob.stride)
         self._frame_idx = self._frame_idx + c
         return rows
 
@@ -1265,12 +1271,14 @@ class _GraphStepper:
     def stage(self, frame) -> torch.Tensor:
         """A host array (a frame, a ROI crop or stack, origins) on its way to
         the device: on the card, copied into a pinned slot of `staging` (its
-        copy to the device then needs no wait). A tensor passes through."""
+        copy to the device then needs no wait); timed as ``step.stage``. A
+        tensor passes through."""
         if isinstance(frame, torch.Tensor):
             return frame
-        if self.device.type != "cuda":
-            return torch.from_numpy(np.ascontiguousarray(frame))
-        return self.staging.stage(frame)
+        with SPANS.span("step.stage"):
+            if self.device.type != "cuda":
+                return torch.from_numpy(np.ascontiguousarray(frame))
+            return self.staging.stage(frame)
 
     def _banks(self) -> int | None:
         return self._k_all if self._lead else None
