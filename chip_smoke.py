@@ -9,8 +9,9 @@ Phases, each timed and printed:
   1. device   — card name and power limit; TF32 off for f32 matmuls.
   2. build    — nvcc builds kernels K1 (csrc/flash_attn.cu) and K2
                 (csrc/window_patchify.cu), the IF-node helper of the step's
-                graph (csrc/graph_if.cu) and the "model" axis's peer
-                all-reduce (csrc/peer_allreduce.cu) into ctypes .so files, the
+                graph (csrc/graph_if.cu), the "model" axis's peer
+                all-reduce (csrc/peer_allreduce.cu) and the step's noise
+                kernel (csrc/step_noise.cu) into ctypes .so files, the
                 compiles started together (a cached library comes with its
                 saved ptxas report); prints the ptxas reports, checks that
                 no K2 kernel spills and, with cuobjdump -sass, that K2's
@@ -22,7 +23,12 @@ Phases, each timed and printed:
                 activation (as the ViT passes them) and on contiguous
                 tensors; K2 also over 1, 2 and 8 windows of 1024 boxes and
                 2 windows of 1 box in one launch; a graph's IF node (a body
-                with an f32 product and K1) against the host's branch.
+                with an f32 product and K1) against the host's branch; the
+                step noise kernel (csrc/step_noise.cu) against torch's
+                generator draws (filters/particle.py draw_step_noise and
+                draw_reseed_noise), bit for bit, at the benchmark cells'
+                banks (16 x 1024, 1 x 4096), a ROI chunk of 4 and with the
+                reseed normals.
   4. tracker  — tiny dense and crop configs on the card against the same
                 runs on the CPU (and two with global re-detection: dense with
                 the residual head and its automatic blend, crop through K2),
@@ -172,10 +178,13 @@ Phases, each timed and printed:
                 (a yardstick the port never calls) at the crop path's N 1024
                 and N 1 (tools/port_k2_times.py), at a rank's N 512 and 256
                 on a particle mesh of 2 and 4 cards, and over 8 windows of
-                1024 boxes. Device times are of one call inside a CUDA
-                graph. The kernels line lists the shapes only a mesh of
-                several cards gives with 0 launches and the path they
-                belong to.
+                1024 boxes; the step noise kernel at the benchmark cells'
+                banks, a ROI chunk, eval4's banks with the reseed and the
+                dense, robust and banked paths' shapes, against the host
+                draws it replaced (their device and host ms). Device times
+                are of one call inside a CUDA graph. The kernels line lists
+                the shapes only a mesh of several cards gives (or that no
+                path here runs) with 0 launches and the path they belong to.
 
 Prints a JSON line of kernel numbers, then as its last line
 {"ok": true, "device": {...}}. Any failed check raises and exits non-zero.
@@ -216,6 +225,7 @@ from vitparticlefiltertracker_tpu_torch.models.vit import VitSpec, vit_forward_t
 from vitparticlefiltertracker_tpu_torch.ops import _build, attention
 from vitparticlefiltertracker_tpu_torch.ops import peer_allreduce as par
 from vitparticlefiltertracker_tpu_torch.ops import patchify_window as pw
+from vitparticlefiltertracker_tpu_torch.ops import step_noise as sn
 from vitparticlefiltertracker_tpu_torch.ops.patchify import crop_sample_coords
 from vitparticlefiltertracker_tpu_torch import cli
 from vitparticlefiltertracker_tpu_torch.parallel import mesh as pmesh
@@ -873,7 +883,7 @@ def reset_counts() -> None:
     attention.flash_attention.shapes = Counter()
     pw.gather_patchify_window.launches = 0
     pw.gather_patchify_window.sizes = Counter()
-    for fn in (pmesh.all_gather, pmesh.all_reduce, par.peer_all_reduce):
+    for fn in (pmesh.all_gather, pmesh.all_reduce, par.peer_all_reduce, sn.step_noise):
         fn.launches = 0
         fn.shapes = Counter()
 
@@ -881,12 +891,14 @@ def reset_counts() -> None:
 def read_counts() -> dict:
     """The launch counts, with those of the graphs' branch bodies that ran
     (one wait, to read the graphs' counters); the collectives issued and the
-    peer all-reduce kernel's launches (by (group size, *shape))."""
+    peer all-reduce kernel's launches (by (group size, *shape)); the step
+    noise kernel's (by (C, K, N, reseed drawn))."""
     step_graph.settle_counts()
     return {"launches": attention.flash_attention.launches, "k1_shapes": dict(attention.flash_attention.shapes),
             "k2_launches": pw.gather_patchify_window.launches, "k2_sizes": dict(pw.gather_patchify_window.sizes),
             "all_gathers": pmesh.all_gather.launches, "all_reduces": pmesh.all_reduce.launches,
-            "peer_launches": par.peer_all_reduce.launches, "peer_shapes": dict(par.peer_all_reduce.shapes)}
+            "peer_launches": par.peer_all_reduce.launches, "peer_shapes": dict(par.peer_all_reduce.shapes),
+            "noise_launches": sn.step_noise.launches, "noise_shapes": dict(sn.step_noise.shapes)}
 
 
 # Graph against eager, same weights, same draws: the same kernels on the same
@@ -951,9 +963,16 @@ def run_turns(cfg: Config, prm: dict, src, n_after: int = 0) -> list[dict]:
 def check_turns(runs: list[dict], label: str) -> dict:
     """Every graph run's records against every eager run's: `lost` and
     `resampled` equal, positions within GRAPH_POS_TOL_PX; launch counts
-    equal; both step medians and their ratio -> summary."""
+    equal; the step noise kernel launched once a step in each graph run (one
+    shape) and never in an eager one (the host draws); both step medians and
+    their ratio -> summary."""
     eager = [r for r in runs if not r["graphs"]]
     graph = [r for r in runs if r["graphs"]]
+    for r in runs:
+        want = len(r["recs"]) if r["graphs"] else 0
+        check(r["noise_launches"] == want and len(r["noise_shapes"]) == (1 if want else 0),
+              f"{label}: step noise kernel launches {r['noise_launches']} {r['noise_shapes']} == {want} "
+              f"({'graph' if r['graphs'] else 'eager'} run)")
     worst, bitwise = 0.0, True
     for g in graph:
         for e in eager:
@@ -974,13 +993,14 @@ def check_turns(runs: list[dict], label: str) -> dict:
     g_med = statistics.median(med[i] for i, r in enumerate(runs) if r["graphs"])
     e_med = statistics.median(med[i] for i, r in enumerate(runs) if not r["graphs"])
     print(f"  {label}: graph records == eager records ({'bitwise' if bitwise else f'max position diff {worst:.2e} px'}"
-          f", lost and resampled equal); launches by shape equal", flush=True)
+          f", lost and resampled equal); launches by shape equal; step noise kernel "
+          f"{graph[0]['noise_launches']} launches {graph[0]['noise_shapes']} a graph run, 0 eager", flush=True)
     print(f"  {label} step ms, median after 5 warm-up, turns eager/graph/graph/eager: "
           f"{'/'.join(f'{med[i]:.3f}' for i in range(len(runs)))}; eager {e_med:.3f}, graph {g_med:.3f}, "
           f"eager/graph {e_med / g_med:.2f}x; graph {1e3 / g_med:.1f} frames/s, eager {1e3 / e_med:.1f} frames/s",
           flush=True)
     return {"step_ms_median": g_med, "eager_step_ms_median": e_med, "bitwise": bitwise, "max_pos_diff_px": worst,
-            "turn_medians_ms": [med[i] for i in range(len(runs))]}
+            "turn_medians_ms": [med[i] for i in range(len(runs))], "noise_shapes": graph[0]["noise_shapes"]}
 
 
 def check_waits(tracker: Tracker, frames, clip_waits_max: int, label: str) -> dict:
@@ -2144,6 +2164,107 @@ def check_if_node() -> dict:
     return {"taken": taken}
 
 
+# The step noise kernel's shapes (C, None for one step; K; N; reseed drawn):
+# the benchmark cells' banks (b16-serve16-480p: 16 feeds x 1024 particles;
+# l16-offline-1080p: one filter of 4096), a ROI chunk of 4 at 4096, and K 8
+# with the re-detection reseed normals (eval4's banks). Checked bitwise at
+# N 1000 too (a ragged last block).
+NOISE_SHAPES = ((None, 16, 1024, False), (None, 1, 4096, False), (4, 1, 4096, False), (None, 8, 1024, True))
+NOISE_EAGER_REPS = 20
+
+
+def noise_buffers(c, k, n, reseed, fill=0.0):
+    """A step graph's noise buffers ([C, K, ...] or [K, ...]) and reseed."""
+    per = (k,) if c is None else (c, k)
+    full = lambda shape: torch.full(shape, fill, device="cuda")  # noqa: E731
+    noise = pf.StepNoise(full((*per, n, 2)), full((*per, n, 2)), full((*per, n)), full(per))
+    return noise, (full((*per, n, 2)) if reseed else None)
+
+
+def noise_keys(c, k):
+    """[K, 2] keys (a negative seed among them, a frame index near 2**31)
+    and, a bank and step in the buffers' order, the seeds and frame indices
+    they stand for."""
+    seeds = [-(2**33) + 7919 * i for i in range(k)]
+    frames = [2**31 - 3 + i % 2 for i in range(k)]
+    keys = torch.tensor(list(zip(seeds, frames)), dtype=torch.int64, device="cuda")
+    steps = range(c or 1)
+    return keys, [s for _ in steps for s in seeds], [f + j for j in steps for f in frames]
+
+
+def noise_host_step(noise, reseed, seeds, idx, n) -> None:
+    """One step's noise as the host drew it before the kernel: a generator
+    and four draws a bank (and the reseed's), stacked, copied into the
+    graph's buffers."""
+    dev = torch.device("cuda")
+    for dst, src in zip(noise, pf.draw_step_noise(seeds, idx, n, dev)):
+        dst.copy_(src.reshape(dst.shape))
+    if reseed is not None:
+        reseed.copy_(pf.draw_reseed_noise(seeds, idx, n, dev).reshape(reseed.shape))
+
+
+def check_step_noise() -> dict:
+    """The step noise kernel (ops/step_noise.py) against its plain version,
+    torch's generator draws (draw_step_noise, draw_reseed_noise), at
+    NOISE_SHAPES and at N 1000, into NaN-filled buffers: every element
+    bitwise equal (-> shapes checked)."""
+    checked = []
+    for c, k, n, reseed in NOISE_SHAPES + ((None, 16, 1000, True),):
+        noise, rs = noise_buffers(c, k, n, reseed, float("nan"))
+        keys, seeds, idx = noise_keys(c, k)
+        sn.step_noise(keys, noise, rs)
+        want, want_rs = noise_buffers(c, k, n, reseed)
+        noise_host_step(want, want_rs, seeds, idx, n)
+        bits = lambda x: x.view(torch.int32)  # noqa: E731
+        same = all(torch.equal(bits(a), bits(b)) for a, b in zip(noise, want))
+        check(same and (rs is None or torch.equal(bits(rs), bits(want_rs))),
+              f"step noise kernel at C {c}, K {k}, N {n}, reseed {reseed}: bitwise torch's draws")
+        checked.append((c, k, n, reseed))
+    print(f"  step noise kernel (csrc/step_noise.cu) == torch's generator draws, bitwise, at (C, K, N, reseed) "
+          f"{checked}; {torch.cuda.get_device_properties(0).max_threads_per_multi_processor} threads a SM, "
+          f"{torch.cuda.get_device_properties(0).multi_processor_count} SMs", flush=True)
+    return {"shapes": checked}
+
+
+def time_step_noise(c, k, n, reseed) -> dict:
+    """The step noise kernel at (C or None, K, N, reseed): device ms of one
+    launch (time_graph), its bound (the bytes it writes at PEAK_BYTES_PER_S;
+    it reads 16 bytes a bank), an eager loop's ms a launch; and the host
+    draws it took off the graph path (noise_host_step): their host ms a step
+    between synchronizes, and torch.profiler's device ms and operation count
+    a step. -> {(C or 1, K, N, reseed): row}."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from vitparticlefiltertracker_tpu_torch.utils.profiling import device_kernels
+
+    noise, rs = noise_buffers(c, k, n, reseed)
+    keys, seeds, idx = noise_keys(c, k)
+    ms = time_graph(lambda: sn.step_noise(keys, noise, rs))
+    eager_ms = time_eager(lambda: sn.step_noise(keys, noise, rs))[0]
+    bound = 4 * (c or 1) * k * (5 * n + 1 + (2 * n if reseed else 0)) / PEAK_BYTES_PER_S * 1e3
+    for _ in range(3):
+        noise_host_step(noise, rs, seeds, idx, n)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(NOISE_EAGER_REPS):
+        noise_host_step(noise, rs, seeds, idx, n)
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) * 1e3 / NOISE_EAGER_REPS
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(NOISE_EAGER_REPS):
+            noise_host_step(noise, rs, seeds, idx, n)
+        torch.cuda.synchronize()
+    kernels = device_kernels(prof)
+    plain_ms = sum(v.ms for v in kernels.values()) / NOISE_EAGER_REPS
+    ops = sum(v.calls for v in kernels.values()) / NOISE_EAGER_REPS
+    print(f"  step noise at C {c}, K {k}, N {n}, reseed {reseed}: kernel {ms:.4f} ms on the card (bound "
+          f"{bound:.5f} ms, bytes), eager loop {eager_ms:.4f} ms; the host draws {host_ms:.3f} ms of host, "
+          f"{plain_ms:.4f} ms of device in {ops:.0f} operations a step", flush=True)
+    return {(c or 1, k, n, reseed): {"ms": ms, "plain_ms": plain_ms, "library_ms": None, "bound_ms": bound,
+                                     "bound_by": "bytes", "eager_ms": eager_ms, "plain_host_ms": host_ms,
+                                     "plain_device_ops": ops}}
+
+
 def time_kernels(shapes=TIME_SHAPES, dtype=torch.bfloat16) -> dict:
     """K1, its plain version and sdpa on the fused-qkv views the main path
     passes, in `dtype`. Each is timed on the card (CUDA graph replay, the numbers
@@ -2869,7 +2990,8 @@ def main() -> int:
     phase("device", t0)
 
     t0 = time.perf_counter()
-    built = _build.build_libraries(["flash_attn.cu", "window_patchify.cu", "graph_if.cu", "peer_allreduce.cu"])
+    built = _build.build_libraries(["flash_attn.cu", "window_patchify.cu", "graph_if.cu", "peer_allreduce.cu",
+                                    "step_noise.cu"])
     for source, (_, rec) in built.items():
         print(f"  nvcc build of {source}: {rec['seconds']:.2f} s (built={rec['built']}) -> {rec['so']}")
         for line in rec["ptxas"].splitlines():
@@ -2891,6 +3013,7 @@ def main() -> int:
     k2_errs = check_window_patchify()
     k2_window_errs = check_window_patchify_windows()
     check_if_node()
+    check_step_noise()
     phase("kernel", t0)
 
     t0 = time.perf_counter()
@@ -2951,6 +3074,9 @@ def main() -> int:
     k2_one_times = time_window_patchify(K2_ONE)
     k2_window_times = time_window_patchify_windows()
     k2_mesh_times = [(p, m, time_window_patchify(m)) for p, m in ((2, dict(K2_MAIN, n=512)), (4, dict(K2_MAIN, n=256)))]
+    noise_times = {}
+    for shape in NOISE_SHAPES:
+        noise_times.update(time_step_noise(*shape))
     phase("times", t0)
 
     # One entry per kernel, main path and shape: K1 at the dense path's
@@ -3066,7 +3192,24 @@ def main() -> int:
                                                "takes it at this shape)",
                            shape=list(PEER_SHAPES[2]), dtype="float32 -> bfloat16", launches=0,
                            **peer["kernel"][(PEER_SHAPES[2], str(torch.bfloat16), other)], **no_nccl))
-    check(all(r["launches"] > 0 for r in k1_rows + k2_rows + peer_rows),
+    # The step noise kernel: once a step in the graph runs of the dense,
+    # robust (with the reseed normals) and banked paths, at each one's
+    # (C, K, N, reseed); timed at NOISE_SHAPES, whose rows the paths here do
+    # not run (the benchmark cells' banks, a ROI chunk) are timed only.
+    noise_common = dict(name="step_noise", route="cuda", source="vitparticlefiltertracker_tpu_torch/csrc/step_noise.cu",
+                        replaces="vitparticlefiltertracker_tpu/filters/particle.py:60 (jax.random draws inside the "
+                                 "jitted step)", max_abs_err=0.0)
+    noise_rows = []
+    for path, run in (("dense", main_path), ("robust", robust_path), ("banked", banked_path)):
+        (shape, launches), = run["noise_shapes"].items()
+        if shape not in noise_times:
+            c, k, n, reseed = shape
+            noise_times.update(time_step_noise(None, k, n, reseed))
+        noise_rows.append(dict(**noise_common, path=path, shape=list(shape), launches=launches, **noise_times[shape]))
+    seen = {tuple(r["shape"]) for r in noise_rows}
+    multi_card += [dict(**noise_common, path="timed only: the benchmark cells' banks and a ROI chunk (no path here)",
+                        shape=list(shape), launches=0, **row) for shape, row in noise_times.items() if shape not in seen]
+    check(all(r["launches"] > 0 for r in k1_rows + k2_rows + peer_rows + noise_rows),
           "every kernel row was launched on its main path")
     path_keys = ("step_ms_median", "eager_step_ms_median", "turn_medians_ms", "bitwise", "max_pos_diff_px",
                  "rmse_px", "waits_per_step", "waits_in_clip")
@@ -3099,7 +3242,7 @@ def main() -> int:
                                               "max_abs_err": k2_window_errs[(8, 1024, torch.bfloat16)]}}))
     print(f"[phase] total: {time.perf_counter() - t_start:.2f} s", flush=True)
     print(f"card: {smi}")
-    print(json.dumps({"kernels": k1_rows + k2_rows + peer_rows + multi_card}))
+    print(json.dumps({"kernels": k1_rows + k2_rows + peer_rows + noise_rows + multi_card}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
     return 0

@@ -214,6 +214,14 @@ def test_threefry_init_on_card_equals_cpu(cuda_device):
         assert torch.equal(got[k].cpu(), v), k
 
 
+def _kernel_counts(counts: dict, steps: int, graphs: bool) -> dict:
+    """chip_smoke.read_counts() but the step noise kernel's, after checking
+    those: one launch a step through the graphs (which draw the noise on the
+    card), none in the eager step (whose noise the host draws)."""
+    assert counts["noise_launches"] == (steps if graphs else 0), (counts["noise_shapes"], steps, graphs)
+    return {k: v for k, v in counts.items() if not k.startswith("noise_")}
+
+
 def _graph_and_eager_runs(cfg_dict, sources):
     """The same tiny tracker through Tracker.run on the card twice, eagerly
     (graphs=False) and through its captured graphs, with the same weights:
@@ -232,7 +240,8 @@ def _graph_and_eager_runs(cfg_dict, sources):
         for src in sources[1:]:
             recs += [tr.step(f) for f in src.frames]
         torch.cuda.synchronize()
-        out[graphs] = ([{k: v for k, v in r.items() if k != "step_ms"} for r in recs], chip_smoke.read_counts(), tr)
+        out[graphs] = ([{k: v for k, v in r.items() if k != "step_ms"} for r in recs],
+                       _kernel_counts(chip_smoke.read_counts(), len(recs), graphs), tr)
     return out
 
 
@@ -400,7 +409,7 @@ def test_banked_graph_step_matches_eager_step(cuda_device, kind):
         chip_smoke.reset_counts()
         tr.init(first, boxes)
         rows = torch.stack([tr.step_packed(torch.from_numpy(f).cuda()) for f in steps]).cpu()
-        out[graphs] = (rows, chip_smoke.read_counts(), tr)
+        out[graphs] = (rows, _kernel_counts(chip_smoke.read_counts(), len(steps), graphs), tr)
     assert torch.equal(out[True][0], out[False][0])
     assert out[True][1] == out[False][1] and out[True][1]["k1_shapes"].get((3, 2, 16), 0) > 0
     assert out[True][2].graphs and not out[False][2].graphs

@@ -27,9 +27,11 @@ synthetic:multi-K, one MultiTracker of K banks, each on its own target);
 --streams K from its multi-stream path (config.yaml's values, a
 MultiStreamTracker over K moving-square clips seeded 0..K-1, step_packed and
 the row read back a step). For these and --robust it also prints the host
-time of a step's noise draws (K generators and 4 K draws, stacked and
-copied into the graph's buffers, between synchronizes; with re-detection
-configured, also the reseed draw every step makes) beside the step time. Imports only the port;
+time of a step's noise drawn on the host as the eager step draws it (K
+generators and 4 K draws, stacked and copied into the graph's buffers,
+between synchronizes; with re-detection configured, also the reseed draw
+every step makes) beside the step time; the graph draws its own on the card
+(ops/step_noise.py), so this is what that kernel saves the host. Imports only the port;
 needs a card.
 
 Usage: python3 tools/port_profile_step.py [--frames 20] [--warmup 10] [--top 15] [--eager]
@@ -188,8 +190,8 @@ def replay_ms(tr: Tracker, reps: int = 20) -> float:
 
 
 def noise_ms(tr, reps: int = 20, reseed: bool = False) -> float:
-    """Host clock of one step's noise draws, as the tracker makes them
-    before a replay: every bank's generator and 4 draws, stacked, and (with
+    """Host clock of one step's noise draws, as the eager step makes them
+    (the graphs draw on the card): every bank's generator and 4 draws, stacked, and (with
     graphs) copied into the graph's noise buffers; with `reseed`, also the
     reseed normals; between synchronizes."""
     sg = next(iter(tr._step_graphs.values())) if tr.graphs else None
@@ -203,7 +205,7 @@ def noise_ms(tr, reps: int = 20, reseed: bool = False) -> float:
                 dst.copy_(src)
         if reseed:
             normals = draw_reseed_noise(seeds, idx, tr._n, tr.device)
-            if sg is not None:
+            if sg is not None and sg.reseed is not None:
                 sg.reseed.copy_(normals)
     torch.cuda.synchronize()
     return (time.perf_counter() - t0) * 1e3 / reps

@@ -137,7 +137,8 @@ def main() -> int:
             "metrics": {k: v["value"] for k, v in out["metrics"].items()},
             "recorder_ns": cost, "spans_a_dispatch": per_dispatch, "spans_a_dispatch_total": spans_a_dispatch,
             "recorder_us_a_dispatch": cost_us, "recorder_share_of_submit": cost_us / 1e3 / submit_ms,
-            "counters": {k: run.stats.get(k) for k in ("staging_waits", "drain_blocked", "graph_captures")},
+            "counters": {k: run.stats.get(k) for k in ("staging_waits", "drain_blocked", "graph_captures",
+                                                     "noise_host_draws")},
             "launch_overlap": launch_overlap(run), "device": out["device"]}
     print(json.dumps(line), flush=True)
     if args.out:

@@ -8,6 +8,14 @@ so a trajectory is reproducible and a resumed run continues it exactly. A
 ``StepNoise`` (and the initial cloud) can also be injected, which is how the
 tests feed both packages the same draws.
 
+Where the draws are made: ``draw_step_noise`` and ``draw_reseed_noise`` run
+on the host's call on the CPU and in the eager step (runtime/tracker.py
+``_GraphStepper._host_draws``). On the card the step's CUDA graph draws them
+itself, every bank in one kernel (ops/step_noise.py, csrc/step_noise.cu),
+from the (seed, frame index) keys the host copies in before each replay:
+the same bits as these functions give on the card, since that kernel redoes
+torch's Philox launches for each draw.
+
 State layout: particles[..., 5] = [x, y, vx, vy, log_s]. Every function
 takes optional leading axes (K filter banks: particles [K, N, 5], weights
 [K, N]); each bank reduces over its own particles only.

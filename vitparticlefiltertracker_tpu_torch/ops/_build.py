@@ -188,3 +188,16 @@ def peer_allreduce_library() -> ctypes.CDLL:
                    lib.vpt_par_ipc_open, lib.vpt_par_ipc_close, lib.vpt_par_bus_id, lib.vpt_par_peer_access):
             fn.restype = i
     return lib
+
+
+def step_noise_library() -> ctypes.CDLL:
+    """The step noise kernel's library (ops/step_noise.py), with argtypes
+    set as for flash_attn_library."""
+    lib, _ = build_library("step_noise.cu")
+    fn = lib.vpt_step_noise
+    if fn.argtypes is None:
+        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        # keys, c, k, n, pos, vel, scale, u, reseed, grid2, grid1, off_vel, off_scale, off_u, blocks, stream
+        fn.argtypes = [p, i, i, ll, p, p, p, p, p, i, i, ll, ll, ll, i, p]
+        fn.restype = i
+    return lib

@@ -2,11 +2,18 @@
 counterpart of the JAX package's one jitted, state-donating step executable.
 
 ``StepGraphs`` holds, for one input shape and dtype, the static buffers a
-step reads (its inputs, given by the caller: the frame, or a chunk's stacked
-ROI views and the global view that several graphs share; the step noise and
-the re-detection reseed normals, with a leading K axis for K banks: frame
-[H, W, 3] shared or [K, H, W, 3], noise [K, N, ...], reseed [K, N, 2], and a
-leading C axis before it for a chunk of C steps) and one graph. The graph
+step reads (given by the caller: its inputs, the frame or a chunk's stacked
+ROI views and the global view that several graphs share; the noise keys,
+[K, 2] int64 (seed, frame index) a bank, K = 1 for one filter, one buffer
+that all of a tracker's graphs share) and one graph. The graph's first node
+draws the step's noise on the card from the keys (ops/step_noise.py,
+csrc/step_noise.cu: one kernel for every bank, the same bits as
+filters/particle.py draw_step_noise) into buffers of its own, with a
+leading K axis for K banks: frame [H, W, 3] shared or [K, H, W, 3], noise
+[K, N, ...], and where global re-detection is configured the reseed normals
+[K, N, 2]; a chunk of C steps adds a leading C axis and draws frame index +
+c for step c. The host draws nothing: it copies its keys in before each
+replay, as it fills the inputs (runtime/tracker.py ``_dispatch``). The graph
 reads the tracker state from static buffers and writes the new state back
 into them as its last operations, so replaying it advances the tracker in
 place.
@@ -23,14 +30,14 @@ are captured on a stream of their own, into a memory pool of their own.
 A replay does not call the kernel wrappers, so their launch counts would
 stand still: the graph records what its capture added to the counts outside
 the branches (the capture launches nothing) and adds it again on each
-replay. The mesh's collectives (parallel/mesh.py) and the "model" group's
-peer all-reduce kernel (ops/peer_allreduce.py) are counted the same way:
-they are captured on the capture stream (or a body's stream) like any
-kernel, after the warm-up has run each of them once eagerly (the peer
-kernel's buffers grow there, never inside a capture). Each branch body also adds one to a counter on the card when it
-runs; ``settle_counts`` reads those counters (one wait) and adds each
-body's launches once for every time it ran. Warm-up launches are not
-counted.
+replay. The noise kernel, the mesh's collectives (parallel/mesh.py) and
+the "model" group's peer all-reduce kernel (ops/peer_allreduce.py) are
+counted the same way: they are captured on the capture stream (or a
+body's stream) like any kernel, after the warm-up has run each of them once
+eagerly (the peer kernel's buffers grow there, never inside a capture).
+Each branch body also adds one to a counter on the card when it runs;
+``settle_counts`` reads those counters (one wait) and adds each body's
+launches once for every time it ran. Warm-up launches are not counted.
 """
 
 from __future__ import annotations
@@ -43,13 +50,14 @@ import torch
 
 from vitparticlefiltertracker_tpu_torch.filters.particle import PFState, StepNoise
 from vitparticlefiltertracker_tpu_torch.ops import attention
-from vitparticlefiltertracker_tpu_torch.ops import patchify_window, peer_allreduce
+from vitparticlefiltertracker_tpu_torch.ops import patchify_window, peer_allreduce, step_noise
 from vitparticlefiltertracker_tpu_torch.parallel import mesh
 
 # Each counted call (the kernel wrappers, then the mesh's collectives) with
 # the name of its by-shape Counter.
 _COUNTED = ((attention.flash_attention, "shapes"), (patchify_window.gather_patchify_window, "sizes"),
-            (mesh.all_gather, "shapes"), (mesh.all_reduce, "shapes"), (peer_allreduce.peer_all_reduce, "shapes"))
+            (mesh.all_gather, "shapes"), (mesh.all_reduce, "shapes"), (peer_allreduce.peer_all_reduce, "shapes"),
+            (step_noise.step_noise, "shapes"))
 
 
 def read_counts() -> list[tuple[int, Counter]]:
@@ -198,20 +206,24 @@ class StepGraphs:
     of C steps), and must be capturable: no host read and no copy from host
     memory. It runs its lost-only branches through the run_if it is given.
     inputs: the static input buffers, which the caller fills before each
-    replay. lead: the state's leading axes, () or (K,). steps: None for one
-    step, C for a chunk of C steps (the noise and reseed buffers then have a
-    leading C, and the graph up to two branches a step).
+    replay. keys: the [K, 2] int64 noise keys, which the caller also fills
+    before each replay. lead: the state's leading axes, () or (K,). steps:
+    None for one step, C for a chunk of C steps (the noise and reseed
+    buffers then have a leading C, and the graph up to two branches a step).
+    reseed: whether the graph draws the re-detection reseed normals (else
+    the body gets None).
     """
 
-    def __init__(self, body: StepBody, state, inputs: tuple[torch.Tensor, ...], n: int, pool,
-                 lead: tuple[int, ...] = (), steps: int | None = None):
+    def __init__(self, body: StepBody, state, inputs: tuple[torch.Tensor, ...], keys: torch.Tensor, n: int, pool,
+                 lead: tuple[int, ...] = (), steps: int | None = None, reseed: bool = False):
         dev = state.center.device
         self._dev = dev
         self.inputs = inputs
         per = lead if steps is None else (steps, *lead)
+        self.keys = keys
         self.noise = StepNoise(pos=torch.zeros((*per, n, 2), device=dev), vel=torch.zeros((*per, n, 2), device=dev),
                                scale=torch.zeros((*per, n), device=dev), resample_u=torch.zeros(per, device=dev))
-        self.reseed = torch.zeros((*per, n, 2), device=dev)
+        self.reseed = torch.zeros((*per, n, 2), device=dev) if reseed else None
         self._max_branches = _MAX_BRANCHES * (steps or 1)
         # Branch bodies: their stream and memory pool, how often each ran
         # (on the card), and the launches each capture added.
@@ -230,12 +242,14 @@ class StepGraphs:
         warm = clone_state(state)
         stream.wait_stream(torch.cuda.current_stream(dev))
         with torch.cuda.stream(stream):
+            step_noise.step_noise(keys, self.noise, self.reseed)
             body(warm, *inputs, self.noise, self.reseed, self._warm_if)
         torch.cuda.current_stream(dev).wait_stream(stream)
         del warm
         restore_counts(before)
         self.graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(self.graph, pool=pool, stream=stream):
+            step_noise.step_noise(keys, self.noise, self.reseed)
             new, self.row = body(state, *inputs, self.noise, self.reseed, self._capture_if)
             copy_state_(state, new)
         total = _delta(before, read_counts())

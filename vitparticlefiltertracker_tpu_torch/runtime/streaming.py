@@ -29,7 +29,7 @@ counted (``staging_waits``).
 
 Spans and counters (utils/profiling.py ``SPANS``) time each part where it
 runs: the submitting thread's ``stream.ingest``, ``stream.submit`` (a
-dispatch: staging, noise draws, launch, ROI shipping, a mesh's messages),
+dispatch: staging, the noise keys, launch, ROI shipping, a mesh's messages),
 ``stream.handover``, ``stream.flow`` and ``stream.drain``; the drainer's
 ``drain.window`` and ``frame.hold``; the pump's ``pump.read``; a mesh
 follower's ``mesh.wait``. ``stream_track`` returns its run's share.
@@ -617,7 +617,10 @@ def stream_track(
         for every step in flight: ``stream.drain``
       * staging_waits: waits for a pinned staging slot still in flight;
         graph_captures: step or chunk graphs captured during the run (each
-        a stall; init captures every shape the stream uses).
+        a stall; init captures every shape the stream uses);
+        noise_host_draws: banks whose step noise the host drew with a
+        torch.Generator (the CPU and the eager step; 0 through the graphs,
+        which draw it on the card).
     The seconds are rounded to the millisecond. wall_s (and fps) runs from
     the first frame's read, as in the JAX package; init_s is its share for
     the tracker's init (on the card with the graphs' captures and the
@@ -968,6 +971,7 @@ def stream_track(
         "staging_waits": counts.get("staging_waits", 0),
         "drain_blocked": counts.get("drain_blocked", 0),
         "graph_captures": counts.get("graph_captures", 0),
+        "noise_host_draws": counts.get("noise_host_draws", 0),
         "dispatches": dispatches,
         "spans": spans,
     }
@@ -983,15 +987,18 @@ def _reserve_staging(tracker, frame0: np.ndarray, shipper: RoiShipper | None, si
     drain queue two and the drainer one. ROI streaming: as many frames as the
     flow control lets run ahead of the newest steered (and so copied) frame
     (the whole-frame bound without it), in slots of each chunk size, of the
-    one-frame step and of the global view."""
+    one-frame step and of the global view; and the noise keys of as many
+    dispatches."""
     ahead = 4 * (readback_window + 1) + 1
     staging = tracker.staging
+    if steer_lag > 0 and shipper is not None:
+        ahead = steer_lag + 2 * max(sizes, default=1)
+    if tracker.graphs:
+        tracker.reserve_keys(ahead + 2)
     if shipper is None:
         staging.depth = max(staging.depth, ahead)
         staging.reserve(frame0)
         return
-    if steer_lag > 0:
-        ahead = steer_lag + 2 * max(sizes, default=1)
     ex = shipper.example(frame0.dtype)
     track, glob = ex.track.pixels.numpy(), ex.glob.pixels.numpy()
     for c in sizes:

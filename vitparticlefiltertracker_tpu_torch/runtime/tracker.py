@@ -139,6 +139,9 @@ def pack_track_output(out: TrackOutput) -> torch.Tensor:
 
 
 _FIELD_WIDTHS = (2, 2, 2, 1, 1, 1, 1)  # TrackOutput's fields, values a bank
+# Pinned staging slots for the noise keys of dispatches in flight, outside a
+# stream (which reserves as many as it lets run ahead).
+KEY_SLOTS = 16
 
 
 def unpack_track_output(packed: torch.Tensor, banks: int | None = None) -> TrackOutput:
@@ -941,11 +944,16 @@ class _GraphStepper:
     eagerly (the A/B of chip_smoke.py); a capture that fails raises. On the
     CPU the step runs eagerly.
 
-    The step's noise is drawn on the host's call, keyed on (seed, frame
-    index) of each bank, both kept on the host; with global re-detection
-    configured, the reseed normals too, on every step. Its two lost-only
-    branches are IF nodes of the graph, chosen on the card from the state
-    (runtime/step_graph.py), so step_device, step_packed and
+    The step's noise is keyed on (seed, frame index) of each bank, both
+    kept on the host (the one source of truth: init, resume and
+    reinit_bank set them); with global re-detection configured, the reseed
+    normals too, on every step. On the card with graphs the graph's first
+    kernel draws every bank's noise from the keys, which the host copies in
+    from a pinned staging slot at every dispatch (runtime/step_graph.py,
+    _dispatch); on the CPU and in the eager step the host draws them
+    (filters/particle.py draw_step_noise). Its two
+    lost-only branches are IF nodes of the graph, chosen on the card from
+    the state (runtime/step_graph.py), so step_device, step_packed and
     track_clip_device wait for nothing on any config. The eager step
     chooses them on the host (a wait a branch).
 
@@ -1001,6 +1009,13 @@ class _GraphStepper:
         # (arrays of shape `lead`): the seed and the frame index.
         self._seed = np.zeros(lead, np.int64)
         self._frame_idx = np.zeros(lead, np.int64)
+        # With graphs: the noise keys [K, 2] that every graph of this tracker
+        # reads (runtime/step_graph.py), copied in from a staging slot at
+        # every dispatch.
+        self._keys_dev = None
+        if self.graphs:
+            self._keys_dev = torch.zeros((self._k, 2), dtype=torch.int64, device=self.device)
+            self.reserve_keys(KEY_SLOTS)
 
     def load_weights(self, vit_params: dict) -> None:
         """Replace the weights by copying ``resolve_vit_params(cfg,
@@ -1099,40 +1114,82 @@ class _GraphStepper:
                 self._pool = torch.cuda.graph_pool_handle()
             buf = torch.zeros(frame.shape, dtype=frame.dtype, device=self.device)
             SPANS.count("graph_captures")
-            self._step_graphs[key] = StepGraphs(self._body, self._static, (buf,), self._n, self._pool, self._lead)
+            self._step_graphs[key] = StepGraphs(self._body, self._static, (buf,), self._keys_dev, self._n,
+                                                self._pool, self._lead, reseed=self._n_after > 0)
         return self._step_graphs[key]
+
+    def _noise_keys(self) -> np.ndarray:
+        """[K, 2] int64: each bank's (seed, frame index), that the next
+        step's noise is keyed on (K = 1 for one filter)."""
+        return np.stack([self._seed.reshape(-1), self._frame_idx.reshape(-1)], axis=1)
+
+    def reserve_keys(self, depth: int) -> None:
+        """Pinned staging slots for `depth` dispatches' noise keys in flight
+        (a stream reserves as many as it lets run ahead)."""
+        self.staging.reserve(self._noise_keys(), depth)
+
+    def _host_draws(self, keys: np.ndarray, steps: int | None) -> tuple[StepNoise, torch.Tensor | None]:
+        """The noise (and, with global re-detection, the reseed normals)
+        drawn on the host's call, a torch.Generator a bank: the CPU's and
+        the eager step's path, each bank counted in ``noise_host_draws``.
+        Shaped as a graph's buffers; step c of a chunk draws frame index + c."""
+        c = steps or 1
+        seeds = np.tile(keys[:, 0], c).tolist()
+        idx = (keys[None, :, 1] + np.arange(c)[:, None]).reshape(-1).tolist()
+        SPANS.count("noise_host_draws", len(seeds))
+        per = self._lead if steps is None else (steps, *self._lead)
+        noise = draw_step_noise(seeds, idx, self._n, self.device)
+        noise = StepNoise(*(x.reshape((*per, *x.shape[1:])) for x in noise))
+        if self._n_after <= 0:
+            return noise, None
+        return noise, draw_reseed_noise(seeds, idx, self._n, self.device).reshape((*per, self._n, 2))
+
+    def _dispatch(self, steps: int | None, graph: Callable[[], StepGraphs], fill: Callable[[StepGraphs], None],
+                  eager: Callable[[StepNoise, torch.Tensor | None], torch.Tensor]) -> torch.Tensor:
+        """One step (steps None) or a chunk of `steps` steps -> its rows on
+        the device, enqueued, not waited for. With graphs: the host's keys
+        staged in a pinned slot and copied into the graphs' key buffer
+        (timed as ``step.noise``: the graph draws the noise itself); `fill`
+        its inputs, one replay; the rows are the graph's buffer, valid until
+        its next replay. Else the host's draws and `eager(noise, reseed)`.
+        The frame indices then advance by the steps taken."""
+        if self._state is None:
+            raise RuntimeError("call init() or resume() first")
+        if self.graphs:
+            with SPANS.span("step.noise"):
+                slot = self.staging.stage(self._noise_keys())
+                self._keys_dev.copy_(slot, non_blocking=True)
+                self.staging.copied(slot)
+            with SPANS.span("step.launch"):
+                sg = graph()
+                fill(sg)
+                rows = sg.replay()
+                if not self._donate:
+                    self._state = clone_state(self._static)
+        else:
+            with SPANS.span("step.noise"):
+                noise, reseed = self._host_draws(self._noise_keys(), steps)
+            with SPANS.span("step.launch"):
+                rows = eager(noise, reseed)
+        self._frame_idx = self._frame_idx + (steps or 1)
+        return rows
 
     def _advance(self, frame: torch.Tensor) -> torch.Tensor:
         """One step on `frame` (a tensor on the device, or in pinned host
-        memory) -> its [10 K] row on the device, enqueued, not waited for. On
-        the card with graphs the row is the graph's buffer, valid until the
-        next step."""
-        if self._state is None:
-            raise RuntimeError("call init() or resume() first")
-        dev = self.device
-        seeds, idx = self._seed.tolist(), self._frame_idx.tolist()
-        with SPANS.span("step.noise"):
-            noise = draw_step_noise(seeds, idx, self._n, dev)
-            reseed = draw_reseed_noise(seeds, idx, self._n, dev) if self._n_after > 0 else None
+        memory) -> its [10 K] row on the device (_dispatch)."""
         mine = frame if self._frame_sl is None else frame[self._frame_sl]
-        with SPANS.span("step.launch"):
-            if self.graphs:
-                sg = self._graphs_for(mine)
-                sg.inputs[0].copy_(mine, non_blocking=True)
-                self.staging.copied(frame)
-                for dst, src in zip(sg.noise, noise):
-                    dst.copy_(src)
-                if reseed is not None:
-                    sg.reseed.copy_(reseed)
-                row = sg.replay()
-                if not self._donate:
-                    self._state = clone_state(self._static)
-            else:
-                frame_dev = mine.to(dev, non_blocking=True)
-                self.staging.copied(frame)
-                self._state, row = self._body(self._state, frame_dev, noise, reseed, None)
-        self._frame_idx = self._frame_idx + 1
-        return row
+
+        def fill(sg: StepGraphs) -> None:
+            sg.inputs[0].copy_(mine, non_blocking=True)
+            self.staging.copied(frame)
+
+        def eager(noise: StepNoise, reseed: torch.Tensor | None) -> torch.Tensor:
+            frame_dev = mine.to(self.device, non_blocking=True)
+            self.staging.copied(frame)
+            self._state, row = self._body(self._state, frame_dev, noise, reseed, None)
+            return row
+
+        return self._dispatch(None, lambda: self._graphs_for(mine), fill, eager)
 
     # -- the ROI streaming step: chunks of StreamFrames ----------------------------
     def _chunk_body(self, state, pixels, origin, glob, glob_origin, noise, reseed, run_if, *, stride, glob_stride):
@@ -1182,8 +1239,8 @@ class _GraphStepper:
                       glob.pixels, glob.origin)
             body = functools.partial(self._chunk_body, stride=float(stride), glob_stride=float(glob.stride))
             SPANS.count("graph_captures")
-            self._chunk_graphs[key] = StepGraphs(body, self._static, inputs, self._n, self._pool, self._lead,
-                                                 steps=track_shape[0])
+            self._chunk_graphs[key] = StepGraphs(body, self._static, inputs, self._keys_dev, self._n, self._pool,
+                                                 self._lead, steps=track_shape[0], reseed=self._n_after > 0)
         return self._chunk_graphs[key]
 
     def prepare_stream(self, example: StreamFrame, sizes) -> None:
@@ -1202,46 +1259,31 @@ class _GraphStepper:
     def _advance_chunk(self, chunk: StreamFrame) -> torch.Tensor:
         """C steps on a chunk (tracking pixels [C, h, w, 3] and origins
         [C, 2], on the device or staged; one global view) -> its [C, 10]
-        rows on the device, enqueued, not waited for. On the card with
-        graphs: one replay, the rows the graph's buffer, valid until its
-        next replay. Frame i draws the noise of frame index idx + i, as C
-        single steps would."""
-        if self._state is None:
-            raise RuntimeError("call init() or resume() first")
+        rows on the device (_dispatch; on the card with graphs one replay).
+        Frame i draws the noise of frame index idx + i, as C single steps
+        would."""
         if self._lead:
             raise ValueError("ROI streaming steps a single filter")
         tv = chunk.track
-        c, dev = tv.pixels.shape[0], self.device
-        seed, idx = int(self._seed), int(self._frame_idx)
-        with SPANS.span("step.noise"):
-            noises = [draw_step_noise(seed, idx + i, self._n, dev) for i in range(c)]
-            reseeds = ([draw_reseed_noise(seed, idx + i, self._n, dev) for i in range(c)]
-                       if self._n_after > 0 else None)
-        with SPANS.span("step.launch"):
+
+        def graph() -> StepGraphs:
+            return self._chunk_graphs_for(tv.pixels.shape, tv.pixels.dtype, tv.stride, self._glob_view(chunk.glob))
+
+        def fill(sg: StepGraphs) -> None:
+            for buf, src in zip(sg.inputs, (tv.pixels, tv.origin)):
+                buf.copy_(src, non_blocking=True)
+                self.staging.copied(src)
+
+        def eager(noise: StepNoise, reseed: torch.Tensor | None) -> torch.Tensor:
             glob = self._glob_view(chunk.glob)
-            if self.graphs:
-                sg = self._chunk_graphs_for(tv.pixels.shape, tv.pixels.dtype, tv.stride, glob)
-                for buf, src in zip(sg.inputs, (tv.pixels, tv.origin)):
-                    buf.copy_(src, non_blocking=True)
-                    self.staging.copied(src)
-                for i, noise in enumerate(noises):
-                    for dst, src in zip(sg.noise, noise):
-                        dst[i].copy_(src)
-                    if reseeds is not None:
-                        sg.reseed[i].copy_(reseeds[i])
-                rows = sg.replay()
-                if not self._donate:
-                    self._state = clone_state(self._static)
-            else:
-                pixels, origin = (x.to(dev, non_blocking=True) for x in (tv.pixels, tv.origin))
-                self.staging.copied(tv.pixels)
-                self.staging.copied(tv.origin)
-                noise = StepNoise(*(torch.stack(x) for x in zip(*noises)))
-                reseed = None if reseeds is None else torch.stack(reseeds)
-                self._state, rows = self._chunk_body(self._state, pixels, origin, glob.pixels, glob.origin, noise,
-                                                     reseed, None, stride=tv.stride, glob_stride=glob.stride)
-        self._frame_idx = self._frame_idx + c
-        return rows
+            pixels, origin = (x.to(self.device, non_blocking=True) for x in (tv.pixels, tv.origin))
+            self.staging.copied(tv.pixels)
+            self.staging.copied(tv.origin)
+            self._state, rows = self._chunk_body(self._state, pixels, origin, glob.pixels, glob.origin, noise,
+                                                 reseed, None, stride=tv.stride, glob_stride=glob.stride)
+            return rows
+
+        return self._dispatch(tv.pixels.shape[0], graph, fill, eager)
 
     def step_chunk_packed(self, chunk: StreamFrame) -> torch.Tensor:
         """Track C ROI frames in one dispatch (one graph replay on the card)

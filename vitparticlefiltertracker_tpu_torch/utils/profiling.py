@@ -11,7 +11,9 @@ threads that take them:
   ``stream.ingest`` (a wait on the frame pump or the native source),
   ``stream.submit`` (one a dispatch) with its children ``step.stage`` (a
   host array into a pinned staging slot, the slot's wait included),
-  ``step.noise`` (the step's noise draws), ``step.launch`` (the graph's
+  ``step.noise`` (the noise keys copied into the step's graph, which draws
+  the noise on the card; on the CPU and in the eager step the host's
+  draws), ``step.launch`` (the graph's
   input copies and its replay; on the CPU the eager step), ``roi.ship``
   (``RoiShipper.ship*``), and on a mesh's rank 0 ``mesh.control`` (the
   host's decisions sent) and ``mesh.broadcast`` (the staged input
@@ -27,7 +29,8 @@ threads that take them:
   0's next message) and ``mesh.broadcast``;
 - counters: ``staging_waits`` (a staging slot still in flight),
   ``drain_blocked`` (a hand-over that found the drain queue full),
-  ``graph_captures`` (a step or chunk graph captured).
+  ``graph_captures`` (a step or chunk graph captured), ``noise_host_draws``
+  (a bank's step noise drawn by a torch.Generator on the host's call).
 
 Two stores: aggregates by name (count, total and self time, self being the
 total less the time the span's children cover), kept per thread and merged
@@ -277,7 +280,7 @@ def profiled_step_device_ms(step: Callable[[int], Any], device: torch.device, st
     step(i) enqueues the i-th of `steps` steps of a burst. A CUDA event is
     recorded on the current stream before and after each, and the host waits
     once, after the burst. A span holds everything the step enqueues on that
-    stream: the copy of the frame into the graph's input, the noise copies
+    stream: the copy of the frame into the graph's input, the noise keys' copy
     and the graph replay (with an eager tracker, every kernel of the step),
     and any time the card waits inside the step for the host to enqueue the
     rest of it. A failure on the card raises.
