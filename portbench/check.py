@@ -234,8 +234,9 @@ def compare(run, params, rc: ref.RefConfig, tie_tol: float, device, stand_in=Non
                 if not anchors_done:
                     t0 = ref.init_template(params, torch.from_numpy(frames(0, b)).to(device),
                                            torch.as_tensor(run.bboxes[b], device=device), rc)
-                    anchor = s["anchor"].float() if stand_in is None else stand_in.init(params, rc, frames(0, b),
-                                                                                       run.bboxes[b])
+                    anchor = s["anchor"].float() if stand_in is None else stand_in.init(
+                        params, rc, torch.from_numpy(frames(0, b)).to(device),
+                        torch.as_tensor(run.bboxes[b], device=device))
                     cmp.counts["anchors"] += 1
                     cmp.add("anchor_rms", float((anchor - t0).square().mean().sqrt()), feed=b)
             anchors_done = True
@@ -249,17 +250,15 @@ def _record_of(rec: dict, b: int | None) -> dict:
 
 
 class Fp8StandIn:
-    """The control: the reference itself in the program's place, its ViT's
-    products in float8 e4m3 (the precision below the configuration's
-    bfloat16)."""
+    """The control: the reference itself in the program's place, its
+    forward's products in float8 e4m3 (the precision below the
+    configuration's bfloat16)."""
 
     def __call__(self, params, rc, st, frame, nz):
         return ref.step(params, rc, st, frame, nz, quant=fp8_quant)
 
     def init(self, params, rc, frame, bbox):
-        dev = params["ln_final"]["scale"].device
-        return ref.init_template(params, torch.from_numpy(frame).to(dev), torch.as_tensor(bbox, device=dev), rc,
-                                 quant=fp8_quant)
+        return ref.init_template(params, frame, bbox, rc, quant=fp8_quant)
 
 
 def verdict(cmp: Comparison, check_spec: dict, min_steps: int) -> tuple[bool, list[tuple[str, float, float]]]:

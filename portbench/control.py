@@ -4,7 +4,7 @@
 
 For each seed, in one process: one run of the cell (a short window at the
 cell's own load and sizes), the program's readings against the reference,
-and the control's: the reference itself, its ViT's products in float8
+and the control's: the reference itself, its family's forward's products in float8
 e4m3 (the precision below the configuration's bfloat16), in the program's
 place on the same snapshots. One JSON line a seed. The benchmark's own
 runs (run.py) never run the control. Needs the card, as run.py does.

@@ -1,12 +1,13 @@
 """The yardstick's arithmetic: operations and bytes from shapes, the card's
 peaks, and K1's launch grid.
 
-``flops_per_frame`` is a frozen copy of
+A family's ``flops_per_frame`` (``families/<family>.py``) counts its
+forward and adds ``scoring_flops``, the ROI cell scoring's share of
 ``vitparticlefiltertracker_tpu_torch/runtime/benchmark.py``
-``estimate_flops_per_frame`` (the JAX package's count term for term) for a
-dense-mode tracker of one filter a frame; ``k1_grid`` a frozen copy of the
-grid arithmetic of ``ops/attention.py`` ``launch_plan`` for bfloat16 at
-T > 16, by which a traced launch is matched to its shape.
+``estimate_flops_per_frame`` (a frozen copy, the JAX package's count term
+for term); ``k1_grid`` is a frozen copy of the grid arithmetic of
+``ops/attention.py`` ``launch_plan`` for bfloat16 at T > 16, by which a
+traced launch is matched to its shape.
 """
 
 from __future__ import annotations
@@ -18,22 +19,14 @@ PEAK_HBM_BYTES = 3.35e12
 H100_SMS = 132
 
 
-def flops_per_frame(dims: dict, tracker_config: dict) -> float:
-    """Matmul FLOPs of one dense tracking step of one filter: the ViT
-    forward of the search window (2 FLOPs a MAC: per token and block 8 d^2
-    for qkv and out, 4 T d for QK^T and PV, 4 d mlp; plus the patch
-    embedding) and the ROI cell scoring's hat-weight contractions."""
-    d, mlp, depth, p = dims["dim"], dims["mlp_dim"], dims["depth"], dims["patch_size"]
-    image = tracker_config["model"]["image_size"]
-    n = tracker_config["filter"]["num_particles"]
-    t = (image // p) ** 2
-    vit = depth * t * (8 * d * d + 4 * t * d + 4 * d * mlp) + t * 2 * (p * p * 3) * d
-    g, k = image // p, tracker_config["tracker"]["roi_grid"]
+def scoring_flops(grid: int, dim: int, tracker_config: dict) -> int:
+    """Matmul FLOPs of a dense step's ROI scoring of one filter's particles
+    on a grid x grid token map of width `dim`: the hat-weight contractions
+    of "cells" (roi_grid^2 cells a particle) or of "pooled"."""
+    n, k = tracker_config["filter"]["num_particles"], tracker_config["tracker"]["roi_grid"]
     if tracker_config["tracker"]["appearance"] == "cells":
-        roi = n * (2 * k * g * g * d + 2 * k * k * g * d)
-    else:
-        roi = n * (2 * g * g * d + 2 * g * d)
-    return float(vit + roi)
+        return n * (2 * k * grid * grid * dim + 2 * k * k * grid * dim)
+    return n * (2 * grid * grid * dim + 2 * grid * dim)
 
 
 def k1_flops(b: int, h: int, t: int, dh: int) -> float:

@@ -6,9 +6,11 @@ a file found by its name: ``workloads/<cell>.json`` (its configuration and
 traffic, chips, traced slice, audit and the check's limits),
 ``traffic/<mix>.json`` (feeds, frame size, scene, clips, loop, rate),
 ``configs/<config>.json`` (the tracker's configuration as it is run, with
-its published source), ``metrics/<metric>.py`` (a ``read(run)`` that
-returns a number or None). Which metrics a cell reports is read from
-``BENCHMARK.json``.
+its published source), ``families/<family>.py`` (the model family the
+configuration's ``family`` key names, ``vit`` without one: its weights, its
+plain forward, its FLOPs a frame and K1's shape), ``metrics/<metric>.py``
+(a ``read(run)`` that returns a number or None). Which metrics a cell
+reports is read from ``BENCHMARK.json``.
 
 The window drives ``runtime/streaming.py`` ``stream_track`` over a
 ``Tracker`` (one feed, as the ``stream`` command) or a
@@ -37,14 +39,15 @@ from typing import Any
 import numpy as np
 import torch
 
-from portbench import check, counts, scenes, trace
+from portbench import check, program_spans, scenes, trace
 from portbench.reference import step as ref
 from portbench.reference.noise import splitmix64
-from portbench.weights import vit_weights
 
 BENCH_DIR = Path(__file__).resolve().parent
 ROOT = BENCH_DIR.parent
 FORBIDDEN = ("jax", "jaxlib", "flax", "vitparticlefiltertracker_tpu")
+FAMILY_FUNCTIONS = ("weights", "tokens", "flops_per_frame", "attention")
+DEFAULT_FAMILY = "vit"  # the family of a configuration without a "family" key
 
 
 def load_json(path: Path) -> dict:
@@ -72,13 +75,34 @@ def cell_metrics(spec: dict, cell: str, traced: bool) -> list[dict]:
     return [m for m in entries if "workloads" not in m or cell in m["workloads"]]
 
 
-def load_reader(name: str, bench_dir: Path = BENCH_DIR):
-    """metrics/<name>.py's read(run) -> float or None."""
-    path = bench_dir / "metrics" / f"{name}.py"
-    mod_spec = importlib.util.spec_from_file_location(f"portbench_metric_{name.replace('.', '_')}", path)
+def _load_module(path: Path, name: str):
+    mod_spec = importlib.util.spec_from_file_location(name.replace(".", "_").replace("-", "_"), path)
     mod = importlib.util.module_from_spec(mod_spec)
     mod_spec.loader.exec_module(mod)
-    return mod.read
+    return mod
+
+
+def load_reader(name: str, bench_dir: Path = BENCH_DIR):
+    """metrics/<name>.py's read(run) -> float or None."""
+    return _load_module(bench_dir / "metrics" / f"{name}.py", f"portbench_metric_{name}").read
+
+
+def load_family(name: str, bench_dir: Path = BENCH_DIR):
+    """families/<name>.py, the model family a configuration names: its
+    ``weights(seed, dims, device)`` (the tree the program and the reference
+    load), ``tokens(params, images, rc, quant=None)`` (the plain float32
+    forward: grid tokens [B, g*g, D] after the final norm, any prefix token
+    dropped), ``flops_per_frame(dims, tracker_config)`` and
+    ``attention(dims, tracker_config)`` (K1's (heads, tokens, head dim) for
+    one window, prefix tokens counted)."""
+    path = bench_dir / "families" / f"{name}.py"
+    if not path.is_file():
+        raise FileNotFoundError(f"portbench: the configuration's model family {name!r} has no file {path}")
+    mod = _load_module(path, f"portbench_family_{name}")
+    missing = [f for f in FAMILY_FUNCTIONS if not callable(getattr(mod, f, None))]
+    if missing:
+        raise ValueError(f"portbench: the model family {path} lacks {missing}")
+    return mod
 
 
 def forbidden_modules(modules=None) -> list[str]:
@@ -148,6 +172,7 @@ class Run:
         self.banked = self.feeds > 1
         self.records: list[tuple[float, dict]] = []  # (arrival, record)
         self.due: dict[int, float] = {}  # open loop: frame -> when it was due
+        self.handed: dict[int, float] = {}  # open loop: frame -> when the generator handed it over
         self.first_record = threading.Event()
         self.first_record_t = math.inf
         self.window = (math.inf, math.inf)
@@ -161,6 +186,7 @@ class Run:
         self.records_by_frame: dict[int, dict] = {}
         self.bboxes: list[np.ndarray] = []
         self.frame_of = None
+        self.family = None  # the configuration's model family (load_family)
         self.flops_per_frame = 0.0
 
     def on_record(self, rec: dict) -> None:
@@ -236,6 +262,7 @@ class Source:
             now = time.perf_counter()
             spans.append(("source.camera", t0, time.perf_counter_ns()))
             run.due[seq] = due
+            run.handed[seq] = now
             if k >= warm:
                 run.lateness.append(now - due)
             yield batch
@@ -297,10 +324,11 @@ def run_cell(cell: str, seed: int, seconds: float, traced: bool, device: str = "
     tc["filter"]["seed"] = sub_seed(seed, 0xF117) & 0x7FFFFFFF
     cfg = Config.from_dict(tc)
     dims = cfgf["dims"]
-    run.flops_per_frame = counts.flops_per_frame(dims, tc)
+    run.family = family = load_family(cfgf.get("family", DEFAULT_FAMILY), bench_dir)
+    run.flops_per_frame = family.flops_per_frame(dims, tc)
     if cuda:
         torch.cuda.reset_peak_memory_stats(dev)
-    weights = vit_weights(sub_seed(seed, 0x3E16), dims, dev)
+    weights = family.weights(sub_seed(seed, 0x3E16), dims, dev)
     _log(t_process, "weights made")
     feeds = Feeds(wl, seed, dev)
     run.bboxes = [feeds.bbox(f) for f in range(feeds.k)]
@@ -337,8 +365,8 @@ def run_cell(cell: str, seed: int, seconds: float, traced: bool, device: str = "
     gc.collect()
     if cuda:
         torch.cuda.empty_cache()
-    rc = ref.RefConfig(tc, dims)
-    ref_weights = vit_weights(sub_seed(seed, 0x3E16), dims, dev)
+    rc = ref.RefConfig(tc, dims, family.tokens)
+    ref_weights = family.weights(sub_seed(seed, 0x3E16), dims, dev)
     tie = wl["check"]["tie_tol"]
     first_frame = run.first_window_frame()
     cmp = check.compare(run, ref_weights, rc, tie, dev, first_frame=first_frame)
@@ -400,7 +428,9 @@ def _device(dev, wl: dict, memory_peak: int, run: Run) -> dict:
 
 
 def _notes(run: Run, cmp: check.Comparison) -> dict:
-    notes = {"records": len(run.records), "window_records": len(run.in_window()),
+    notes = {"family": run.cfg.get("family", DEFAULT_FAMILY), "flops_per_frame": run.flops_per_frame,
+             "k1_shape": [run.feeds, *run.family.attention(run.cfg["dims"], run.cfg["tracker_config"])],
+             "records": len(run.records), "window_records": len(run.in_window()),
              "stream": {k: v for k, v in run.stats.items() if k != "dispatches"},
              "dispatches": sum(run.stats.get("dispatches", {}).values()),
              "snapshots": len(run.states), "compared": cmp.counts, "largest_at": cmp.where,
@@ -418,7 +448,31 @@ def _notes(run: Run, cmp: check.Comparison) -> dict:
         notes["latency_samples"] = len(lat)
         notes["generator_late_p99_ms"] = float(np.percentile(np.asarray(run.lateness) * 1e3, 99))
         notes["generator_late_max_ms"] = float(np.max(np.asarray(run.lateness) * 1e3))
+        notes["latency_parts_p50_ms"] = latency_parts(run)
+        interval = 1e3 / float(run.wl["rate_fps"])
+        levels = np.bincount((np.asarray(lat) // interval).astype(int))
+        notes["latency_frame_intervals"] = levels.tolist()
     return notes
+
+
+def latency_parts(run) -> dict[str, float]:
+    """Open loop: medians over the window's frames of the parts a latency
+    sums: the generator's lateness (due to handed over), the wait until the
+    program's ``stream.submit`` of the frame starts, the submission, and the
+    hold from its end to the record (the program's spans, by frame)."""
+    timeline = program_spans.timeline()
+    if not timeline:
+        return {}
+    submit = {e[5]: (e[1] / 1e9, e[2] / 1e9) for e in timeline if e[0] == "stream.submit"}
+    arrival = {r["frame"]: t for t, r in run.records}
+    parts: dict[str, list[float]] = {"late": [], "wait": [], "submit": [], "hold": []}
+    for f in run.window_frames:
+        if f in submit and f in arrival and f in run.handed:
+            s, e = submit[f]
+            for k, v in (("late", run.handed[f] - run.due[f]), ("wait", s - run.handed[f]), ("submit", e - s),
+                         ("hold", arrival[f] - e)):
+                parts[k].append(v * 1e3)
+    return {k: float(np.median(v)) for k, v in parts.items() if v}
 
 
 def latencies_ms(run: Run) -> list[float]:

@@ -2,8 +2,9 @@
 roofline: the least time of each traced launch (the larger of its FLOPs
 over the bf16 peak and its bytes over HBM's, portbench/counts.py) over the
 launches' traced device time, in %. A launch's shape is the cell's
-[feeds, heads, tokens, 64], matched by the grid the trace
-records; launches of another grid are left out of both sums."""
+[feeds, heads, tokens, head dim], the last three from the configuration's
+model family (``attention``), matched by the grid the trace records;
+launches of another grid are left out of both sums."""
 
 from portbench.counts import k1_grid, k1_least_s
 
@@ -14,12 +15,11 @@ def read(run):
     sl = run.slice
     if sl is None:
         return None
-    d = run.cfg["dims"]
-    b, h, t = run.feeds, d["heads"], (run.cfg["tracker_config"]["model"]["image_size"] // d["patch_size"]) ** 2
+    b, (h, t, dh) = run.feeds, run.family.attention(run.cfg["dims"], run.cfg["tracker_config"])
     grid = k1_grid(b, h, t)
     launches = [(s, e) for name, s, e, g in sl.kernels
                 if any(k in name for k in K1_KERNELS) and g and int(g[0]) == grid]
     if not launches:
         return None
     spent = sum(e - s for s, e in launches) * 1e-6
-    return 100.0 * len(launches) * k1_least_s(b, h, t, d["dim"] // h) / spent
+    return 100.0 * len(launches) * k1_least_s(b, h, t, dh) / spent

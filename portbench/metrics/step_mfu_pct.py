@@ -1,5 +1,5 @@
 """The whole step's share of the card's bf16 peak: the step's matmul FLOPs
-a frame (portbench/counts.py flops_per_frame) times the feed-frames the card
+a frame (the model family's flops_per_frame) times the feed-frames the card
 stepped in the slice's dispatches, over the slice's seconds and 989
 TFLOP/s, in %."""
 

@@ -15,6 +15,9 @@ of the benchmark's own spans. Two readings:
   continuation's source spans are the last ``SKIP + trace_dispatches +
   TAIL`` ``source.*`` entries of ``run.spans``).
 
+``timeline`` gives the recorder's own entries (name, start ns, end ns,
+thread, parent, key), which ``harness.latency_parts`` reads by frame.
+
 Each returns None where the program records no such span (a program without
 the recorder), so that a metric reading it is left out of the result line.
 """
@@ -36,7 +39,7 @@ def window_ms(run, name: str, per: str = "dispatch") -> float | None:
     return spans[name]["s"] / n * 1e3 if n else None
 
 
-def _timeline():
+def timeline():
     try:
         from vitparticlefiltertracker_tpu_torch.utils import profiling
     except ImportError:
@@ -58,12 +61,12 @@ def shift_us(run) -> float | None:
 def placed(run, name: str) -> list[tuple[float, float]] | None:
     """The program's `name` spans that overlap the traced slice, as (start,
     end) in the trace's us (sorted), or None."""
-    shift, timeline = shift_us(run), _timeline()
-    if shift is None or timeline is None:
+    shift, entries = shift_us(run), timeline()
+    if shift is None or entries is None:
         return None
     sl = run.slice
     out = []
-    for entry in timeline:
+    for entry in entries:
         if entry[0] == name:
             s, e = entry[1] / 1e3 + shift, entry[2] / 1e3 + shift
             if e > sl.t0 and s < sl.t1:

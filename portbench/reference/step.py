@@ -1,16 +1,17 @@
-"""Plain reference of one dense tracking step: the ViT appearance model, the
-cell scorer and likelihood, the particle filter's propagate, update,
-estimate and resample, the lost gate with its probe, the template EMA and
-the coasting output.
+"""Plain reference of one dense tracking step: the cell scorer and
+likelihood, the particle filter's propagate, update, estimate and resample,
+the lost gate with its probe, the template EMA and the coasting output,
+over the grid tokens of the configuration's model family (its ``tokens``,
+``families/<family>.py``, which ``RefConfig`` carries).
 
-Written from the published description of the method (a pre-LN ViT,
-Dosovitskiy et al., arXiv:2010.11929; a bootstrap particle filter with
-systematic resampling) and the tracker's configuration keys, in float32
-with TF32 off, by gathers and loops where the program uses fused matrix
-forms: windows and ROI cells are bilinear samples with clamp-to-edge, one
-window a filter, one ViT forward a window. Imports neither JAX nor the
-program. ``quant`` (the benchmark's control) rounds every operand of the
-ViT's products to a lower precision.
+Written from the published description of the method (a bootstrap particle
+filter with systematic resampling; the family's own paper for its forward)
+and the tracker's configuration keys, in float32 with TF32 off, by gathers
+and loops where the program uses fused matrix forms: windows and ROI cells
+are bilinear samples with clamp-to-edge, one window a filter, one forward a
+window. Imports neither JAX nor the program. ``quant`` (the benchmark's
+control) rounds every operand of the forward's products to a lower
+precision.
 
 State and record are plain dicts of one filter's tensors; the state's keys
 are the program's state leaves by name (``particles``, ``log_weights``,
@@ -27,18 +28,21 @@ from typing import Callable
 
 import torch
 
+from portbench.reference.layers import Quant
+
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
-Quant = Callable[[torch.Tensor], torch.Tensor] | None
 
 
 class RefConfig:
     """The values of a configuration file's ``tracker_config`` that a dense
-    step reads; refuses what this reference does not implement."""
+    step reads, its ``dims`` and its family's forward `tokens` (params,
+    images, rc, quant) -> grid tokens [B, g*g, D]; refuses what this
+    reference does not implement."""
 
-    def __init__(self, tc: dict, dims: dict):
+    def __init__(self, tc: dict, dims: dict, tokens: Callable):
         m, f, t = tc["model"], tc["filter"], tc["tracker"]
-        self.depth, self.dim, self.heads, self.mlp = dims["depth"], dims["dim"], dims["heads"], dims["mlp_dim"]
+        self.dims, self.tokens = dims, tokens
         self.patch, self.image = dims["patch_size"], m["image_size"]
         self.ln_eps = m["ln_eps"]
         self.n = f["num_particles"]
@@ -81,49 +85,6 @@ def full_f32():
         yield
     finally:
         torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
-
-
-# -- the ViT -------------------------------------------------------------------
-
-
-def _mm(a: torch.Tensor, b: torch.Tensor, quant: Quant) -> torch.Tensor:
-    if quant is not None:
-        a, b = quant(a), quant(b)
-    return a @ b
-
-
-def _layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, eps: float) -> torch.Tensor:
-    mu = x.mean(dim=-1, keepdim=True)
-    var = ((x - mu) ** 2).mean(dim=-1, keepdim=True)
-    return (x - mu) / torch.sqrt(var + eps) * scale + bias
-
-
-def vit_tokens(params: dict, images: torch.Tensor, rc: RefConfig, quant: Quant = None) -> torch.Tensor:
-    """Normalized images [B, S, S, 3] -> token features [B, T, D] after the
-    final LN: 16-px patches in (row, column, channel) order, no position
-    embedding and no class token (the tracker's dense features), pre-LN
-    blocks with exact GELU; the fused qkv columns are head-major
-    (head, q/k/v, head dim)."""
-    b, s, _, c = images.shape
-    p, g, d, h = rc.patch, s // rc.patch, rc.dim, rc.heads
-    hd = d // h
-    x = images.reshape(b, g, p, g, p, c).permute(0, 1, 3, 2, 4, 5).reshape(b, g * g, p * p * c)
-    x = _mm(x, params["patch_embed"]["kernel"].float(), quant) + params["patch_embed"]["bias"].float()
-    blocks = params["blocks"]
-    for i in range(rc.depth):
-        def w(group: str, name: str) -> torch.Tensor:
-            return blocks[group][name][i].float()
-
-        y = _layer_norm(x, w("ln1", "scale"), w("ln1", "bias"), rc.ln_eps)
-        qkv = (_mm(y, w("attn", "wqkv"), quant) + w("attn", "bqkv")).reshape(b, g * g, h, 3, hd)
-        q, k, v = (qkv[:, :, :, j].transpose(1, 2) for j in range(3))  # [B, H, T, hd]
-        att = torch.softmax(_mm(q, k.transpose(-1, -2), quant) / math.sqrt(hd), dim=-1)
-        o = _mm(att, v, quant).transpose(1, 2).reshape(b, g * g, d)
-        x = x + _mm(o, w("attn", "wo"), quant) + w("attn", "bo")
-        y = _layer_norm(x, w("ln2", "scale"), w("ln2", "bias"), rc.ln_eps)
-        y = torch.nn.functional.gelu(_mm(y, w("mlp", "w1"), quant) + w("mlp", "b1"))
-        x = x + _mm(y, w("mlp", "w2"), quant) + w("mlp", "b2")
-    return _layer_norm(x, params["ln_final"]["scale"].float(), params["ln_final"]["bias"].float(), rc.ln_eps)
 
 
 # -- sampling ------------------------------------------------------------------
@@ -171,12 +132,13 @@ def l2n(x: torch.Tensor) -> torch.Tensor:
 
 
 class Window:
-    """One search window's token grid [g, g, D] and its mean embedding."""
+    """One search window's token grid [g, g, D] (the family's forward) and
+    its mean embedding."""
 
     def __init__(self, params, frame, center, side, rc: RefConfig, quant: Quant):
         self.center, self.side, self.rc = center, side, rc
         img = search_window(frame, center, side, rc.image)
-        feat = vit_tokens(params, img[None], rc, quant)[0]
+        feat = rc.tokens(params, img[None], rc, quant)[0]
         self.feat = feat.reshape(rc.grid, rc.grid, -1)
         self.mean = feat.mean(dim=0)
 

@@ -1,9 +1,9 @@
-"""The yardstick's counts: FLOPs a frame of each configuration, K1's bytes,
-FLOPs and grid."""
+"""The yardstick's counts: FLOPs a frame of each configuration (its model
+family's count), K1's bytes, FLOPs and grid."""
 
 import json
 
-from portbench import counts
+from portbench import counts, harness
 from tiny import BENCH
 
 
@@ -13,8 +13,9 @@ def _config(name):
 
 def test_flops_per_frame_of_each_configuration():
     b, l16 = _config("vitb16-dense-1k"), _config("vitl16-dense-4k")
-    assert counts.flops_per_frame(b["dims"], b["tracker_config"]) == 37_033_672_704
-    assert counts.flops_per_frame(l16["dims"], l16["tracker_config"]) == 133_621_612_544
+    vit = harness.load_family("vit")
+    assert vit.flops_per_frame(b["dims"], b["tracker_config"]) == 37_033_672_704
+    assert vit.flops_per_frame(l16["dims"], l16["tracker_config"]) == 133_621_612_544
 
 
 def test_k1_bytes_flops_and_least_time():

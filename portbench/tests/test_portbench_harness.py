@@ -70,7 +70,8 @@ def test_the_run_loads_neither_jax_nor_the_jax_package(tmp_path):
 
 
 def test_the_reference_loads_neither_jax_nor_the_program():
-    names = _modules_after("import portbench.reference.step, portbench.reference.noise, portbench.weights")
+    names = _modules_after("import portbench.reference.step, portbench.reference.noise, portbench.weights\n"
+                           "from portbench import harness\nharness.load_family('vit')")
     assert not names & {*harness.FORBIDDEN, "vitparticlefiltertracker_tpu_torch"}
 
 

@@ -39,7 +39,8 @@ def _run():
     run.slice = trace.Slice(_events(), (100_000, 1_100_000), [("source.frames", 800_000, 900_000)],
                             (trace.ANCHOR_CUDA, 0))
     run.stats = {"submit_s": 0.5, "dispatches": {1: 250}}
-    run.flops_per_frame = counts.flops_per_frame(cfg["dims"], cfg["tracker_config"])
+    run.family = harness.load_family("vit")
+    run.flops_per_frame = run.family.flops_per_frame(cfg["dims"], cfg["tracker_config"])
     return run
 
 

@@ -65,7 +65,7 @@ def test_readers_without_the_programs_spans_return_nothing(tmp_path, monkeypatch
     result line leaves its metric out."""
     _, run = _traced(tmp_path, monkeypatch, "tiny-serve", feeds=2)
     run.stats = {k: v for k, v in run.stats.items() if k != "spans"}
-    monkeypatch.setattr(program_spans, "_timeline", lambda: None)
+    monkeypatch.setattr(program_spans, "timeline", lambda: None)
     for name in (*SUBMIT_PARTS, "hold_ms_per_frame.live", "idle_submit_pct"):
         assert harness.load_reader(name)(run) is None, name
 

@@ -9,10 +9,9 @@ import numpy as np
 import pytest
 import torch
 
-from portbench import scenes
+from portbench import harness, scenes
 from portbench.reference import noise as ref_noise
 from portbench.reference import step as ref
-from portbench.weights import vit_weights
 from tiny import BENCH, DIMS
 from vitparticlefiltertracker_tpu_torch.config import Config
 from vitparticlefiltertracker_tpu_torch.filters.particle import draw_step_noise, init_state, PFParams
@@ -52,7 +51,8 @@ def test_noise_is_the_programs_draw():
 @pytest.mark.parametrize("feeds", [1, 2])
 def test_reference_step_follows_the_program(feeds):
     tc = _config()
-    w = vit_weights(5, DIMS, "cpu")
+    vit = harness.load_family("vit")
+    w = vit.weights(5, DIMS, "cpu")
     frames, boxes = _clip(feeds)
     cfg = Config.from_dict(tc)
     if feeds == 1:
@@ -61,8 +61,8 @@ def test_reference_step_follows_the_program(feeds):
     else:
         tr = MultiStreamTracker(cfg, feeds, vit_params=w, device="cpu")
         tr.init(frames[0], boxes)
-    rc = ref.RefConfig(tc, DIMS)
-    w_ref = vit_weights(5, DIMS, "cpu")
+    rc = ref.RefConfig(tc, DIMS, vit.tokens)
+    w_ref = vit.weights(5, DIMS, "cpu")
     gaps = {"pos": 0.0, "conf": 0.0, "template": 0.0, "anchor": 0.0}
     lost_seen = False
     with ref.full_f32():

@@ -1,5 +1,5 @@
-"""A tiny copy of the benchmark for the CPU tests: the real metric readers,
-a two-block ViT at width 192 on 64-px windows, 256 particles, 120x160
+"""A tiny copy of the benchmark for the CPU tests: the real metric readers
+and model families, a two-block ViT at width 192 on 64-px windows, 256 particles, 120x160
 occlusion clips, in a directory laid out as the checkout is."""
 
 from __future__ import annotations
@@ -20,6 +20,7 @@ def make(tmp: Path, feeds: int = 2, loop: str = "closed", cell: str = "tiny-cell
     target often, and a lost step's position is not compared)."""
     bd = tmp / "portbench"
     shutil.copytree(BENCH / "metrics", bd / "metrics")
+    shutil.copytree(BENCH / "families", bd / "families")
     for d in ("configs", "workloads", "traffic"):
         (bd / d).mkdir(parents=True)
     cfg = json.loads((BENCH / "configs" / "vitb16-dense-1k.json").read_text())
