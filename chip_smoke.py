@@ -10,8 +10,9 @@ Phases, each timed and printed:
   2. build    — nvcc builds kernels K1 (csrc/flash_attn.cu) and K2
                 (csrc/window_patchify.cu), the IF-node helper of the step's
                 graph (csrc/graph_if.cu), the "model" axis's peer
-                all-reduce (csrc/peer_allreduce.cu) and the step's noise
-                kernel (csrc/step_noise.cu) into ctypes .so files, the
+                all-reduce (csrc/peer_allreduce.cu), the step's noise
+                kernel (csrc/step_noise.cu) and DINOv2's SwiGLU gate
+                (csrc/swiglu.cu) into ctypes .so files, the
                 compiles started together (a cached library comes with its
                 saved ptxas report); prints the ptxas reports, checks that
                 no K2 kernel spills and, with cuobjdump -sass, that K2's
@@ -28,7 +29,7 @@ Phases, each timed and printed:
                 generator draws (filters/particle.py draw_step_noise and
                 draw_reseed_noise), bit for bit, at the benchmark cells'
                 banks (16 x 1024, 1 x 4096), a ROI chunk of 4 and with the
-                reseed normals.
+                reseed normals; the SwiGLU gate against its plain version.
   4. tracker  — tiny dense and crop configs on the card against the same
                 runs on the CPU (and two with global re-detection: dense with
                 the residual head and its automatic blend, crop through K2),
@@ -67,7 +68,14 @@ Phases, each timed and printed:
                 records bitwise as they were; the fifth, "multistream":
                 MultiStreamTracker over 4 clips of 480x640 moving-square with
                 config.yaml's values (K1 launches, each stream's RMSE, the
-                aggregate frames/s beside the dense path's).
+                aggregate frames/s beside the dense path's); the sixth,
+                "dinov2": the dinov2-g14-reg preset's block (width 1536, 24
+                heads, SwiGLU 4096, patch 14, the class token and 4
+                registers) cut to 2 blocks, seeded LayerScale gammas in the
+                weights, on the dense path's clip in turns eagerly and
+                through the graphs (records equal, K1 at [1, 24, 261, 64]
+                and the SwiGLU kernel at (261, 4096) once a block a
+                forward).
   5. stream   — stream_track (runtime/streaming.py) over the dense and
                 robust paths' clips with a fresh graph Tracker: records
                 bitwise equal to Tracker.run's graph records, K1 launches
@@ -215,7 +223,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from vitparticlefiltertracker_tpu_torch.config import Config
+from vitparticlefiltertracker_tpu_torch.config import VIT_PRESETS, Config
 from vitparticlefiltertracker_tpu_torch.filters import particle as pf
 from vitparticlefiltertracker_tpu_torch.io.synthetic import teleport_times
 from vitparticlefiltertracker_tpu_torch.io.video import open_source
@@ -226,6 +234,7 @@ from vitparticlefiltertracker_tpu_torch.ops import _build, attention
 from vitparticlefiltertracker_tpu_torch.ops import peer_allreduce as par
 from vitparticlefiltertracker_tpu_torch.ops import patchify_window as pw
 from vitparticlefiltertracker_tpu_torch.ops import step_noise as sn
+from vitparticlefiltertracker_tpu_torch.ops import swiglu as sg
 from vitparticlefiltertracker_tpu_torch.ops.patchify import crop_sample_coords
 from vitparticlefiltertracker_tpu_torch import cli
 from vitparticlefiltertracker_tpu_torch.parallel import mesh as pmesh
@@ -509,8 +518,16 @@ DENSE_SHAPE, CROP_SHAPE, CROP_ONE_SHAPE, REDETECT_SHAPE = (1, 12, 196, 64), (102
 # K1 under "model" tensor parallelism over 2 cards: H / 2 heads a rank (ViT-B/16, ViT-L/16).
 TP_SHAPES = [(1, 6, 196, 64), (1, 8, 196, 64)]
 CHECK_SHAPES += TP_SHAPES
+# DINOv2 ViT-g/14 with 4 registers at a 224-px window (the benchmark's
+# g14reg-offline-1080p): 256 patches, the class token and the registers.
+DINOV2_SHAPE = (1, 24, 261, 64)
+CHECK_SHAPES += [DINOV2_SHAPE]
 TIME_SHAPES = [DENSE_SHAPE, CROP_SHAPE, CROP_ONE_SHAPE, REDETECT_SHAPE, BANKED_SHAPE, STREAMS_SHAPE, EVAL5_DENSE_SHAPE,
-               EVAL5_REDETECT_SHAPE, *TP_SHAPES]
+               EVAL5_REDETECT_SHAPE, *TP_SHAPES, DINOV2_SHAPE]
+# The SwiGLU gate kernel (csrc/swiglu.cu) at (M rows, h): DINOv2 ViT-g/14's
+# FFN at one 224-px window (M 261, h 4096) first, then ragged and small
+# cases and 16 windows.
+SWIGLU_SHAPES = [(261, 4096), (16 * 261, 4096), (3, 8), (1000, 1368)]
 
 # K2 checks: every combination, each once with a randn window and raw
 # weights and once with a 0..255 window and normalization-folded weights.
@@ -609,6 +626,59 @@ def check_kernel() -> dict:
     print(f"  K1: {len(errs)} checks ok (tolerance f32 {TOL[torch.float32]:g}, bf16 {TOL[torch.bfloat16]:g})",
           flush=True)
     return errs
+
+
+def swiglu_input(m, h, dtype, seed=0):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return (torch.randn((m, 2 * h), generator=g, device="cuda") * 3.0).to(dtype)
+
+
+def check_swiglu() -> dict:
+    """The SwiGLU gate kernel against its plain version (silu(gate) * up in
+    f32, rounded once) at SWIGLU_SHAPES, f32 and bf16: equal within one
+    rounding of the output (the same formula in the same order; torch's
+    exp and the kernel's may differ in the last bit). -> {(M, h, dtype):
+    (max abs error, share of elements not bitwise equal)}."""
+    errs = {}
+    for (m, h), dtype in itertools.product(SWIGLU_SHAPES, (torch.float32, torch.bfloat16)):
+        if h % (8 if dtype == torch.bfloat16 else 4):
+            continue
+        x = swiglu_input(m, h, dtype, seed=m + h)
+        before = sg.swiglu.launches
+        out = sg.swiglu(x)
+        torch.cuda.synchronize()
+        want = sg.swiglu_plain(x)
+        check(sg.swiglu.launches == before + 1, "swiglu counts its launch")
+        rtol = 2**-7 if dtype == torch.bfloat16 else 1e-6
+        ok = torch.allclose(out.float(), want.float(), rtol=rtol, atol=1e-6)
+        err = float((out.float() - want.float()).abs().max())
+        differ = float((out != want).float().mean())
+        check(ok, f"SwiGLU kernel agrees with its plain version at ({m}, {h}) {dtype} (max err {err})")
+        errs[(m, h, dtype)] = (err, differ)
+    print("  SwiGLU kernel (csrc/swiglu.cu) == plain: " + ", ".join(
+        f"({m}, {h}) {str(dt).removeprefix('torch.')} {e:.2e} ({d:.2%} not bitwise)"
+        for (m, h, dt), (e, d) in errs.items()), flush=True)
+    return errs
+
+
+def time_swiglu(m, h, dtype=torch.bfloat16) -> dict:
+    """The SwiGLU gate kernel at [M, 2 h]: device ms of one launch in a CUDA
+    graph, its plain version's and torch's silu(gate) * up on the halves in
+    the working dtype (two kernels and an [M, h] intermediate), an eager
+    loop's; the bound is its bytes ([M, 2 h] read, [M, h] written) at
+    PEAK_BYTES_PER_S."""
+    x = swiglu_input(m, h, dtype)
+    gate, up = x.chunk(2, dim=-1)
+    fns = {"kernel": lambda: sg.swiglu(x), "plain": lambda: sg.swiglu_plain(x),
+           "library": lambda: torch.nn.functional.silu(gate) * up}
+    dev = {name: time_graph(fn) for name, fn in fns.items()}
+    eager = time_eager(fns["kernel"])[0]
+    bound = 3 * m * h * x.element_size() / PEAK_BYTES_PER_S * 1e3
+    print(f"  SwiGLU ({m}, {h}) {str(dtype).removeprefix('torch.')}: kernel {dev['kernel']:.4f} ms on the card (bound "
+          f"{bound:.5f} ms, bytes), plain {dev['plain']:.4f} ms, torch silu * mul {dev['library']:.4f} ms; eager loop "
+          f"{eager:.4f} ms", flush=True)
+    return {"ms": dev["kernel"], "plain_ms": dev["plain"], "library_ms": dev["library"], "bound_ms": bound,
+            "bound_by": "bytes", "eager_ms": eager}
 
 
 def check_window_patchify() -> dict:
@@ -883,7 +953,7 @@ def reset_counts() -> None:
     attention.flash_attention.shapes = Counter()
     pw.gather_patchify_window.launches = 0
     pw.gather_patchify_window.sizes = Counter()
-    for fn in (pmesh.all_gather, pmesh.all_reduce, par.peer_all_reduce, sn.step_noise):
+    for fn in (pmesh.all_gather, pmesh.all_reduce, par.peer_all_reduce, sn.step_noise, sg.swiglu):
         fn.launches = 0
         fn.shapes = Counter()
 
@@ -892,13 +962,15 @@ def read_counts() -> dict:
     """The launch counts, with those of the graphs' branch bodies that ran
     (one wait, to read the graphs' counters); the collectives issued and the
     peer all-reduce kernel's launches (by (group size, *shape)); the step
-    noise kernel's (by (C, K, N, reseed drawn))."""
+    noise kernel's (by (C, K, N, reseed drawn)); the SwiGLU gate's (by (M,
+    h))."""
     step_graph.settle_counts()
     return {"launches": attention.flash_attention.launches, "k1_shapes": dict(attention.flash_attention.shapes),
             "k2_launches": pw.gather_patchify_window.launches, "k2_sizes": dict(pw.gather_patchify_window.sizes),
             "all_gathers": pmesh.all_gather.launches, "all_reduces": pmesh.all_reduce.launches,
             "peer_launches": par.peer_all_reduce.launches, "peer_shapes": dict(par.peer_all_reduce.shapes),
-            "noise_launches": sn.step_noise.launches, "noise_shapes": dict(sn.step_noise.shapes)}
+            "noise_launches": sn.step_noise.launches, "noise_shapes": dict(sn.step_noise.shapes),
+            "swiglu_launches": sg.swiglu.launches, "swiglu_shapes": dict(sg.swiglu.shapes)}
 
 
 # Graph against eager, same weights, same draws: the same kernels on the same
@@ -984,9 +1056,10 @@ def check_turns(runs: list[dict], label: str) -> dict:
                 d = float(np.abs(np.subtract(a["position"], b["position"])).max())
                 worst = max(worst, d)
                 bitwise &= all(a[k] == b[k] for k in a if k not in ("step_ms", "frame"))
-            check(g["k1_shapes"] == e["k1_shapes"] and g["k2_sizes"] == e["k2_sizes"],
-                  f"{label}: launches by shape, graph {g['k1_shapes']} {g['k2_sizes']} == eager "
-                  f"{e['k1_shapes']} {e['k2_sizes']}")
+            check(g["k1_shapes"] == e["k1_shapes"] and g["k2_sizes"] == e["k2_sizes"]
+                  and g["swiglu_shapes"] == e["swiglu_shapes"],
+                  f"{label}: launches by shape, graph {g['k1_shapes']} {g['k2_sizes']} {g['swiglu_shapes']} == "
+                  f"eager {e['k1_shapes']} {e['k2_sizes']} {e['swiglu_shapes']}")
     check(worst <= GRAPH_POS_TOL_PX, f"{label}: graph positions within {GRAPH_POS_TOL_PX} px of eager ({worst})")
     med = {r_id: statistics.median(r["recs"][i]["step_ms"] for i in range(5, len(r["recs"])))
            for r_id, r in enumerate(runs)}
@@ -1063,6 +1136,7 @@ def run_main_path(tracker_overrides: dict | None = None, rmse_bound: float = RMS
         check(run["k2_launches"] == (forwards if crop else 0), f"K2 launches {run['k2_launches']}")
         check(run["k1_shapes"] == k1_expected, f"K1 launches by shape {run['k1_shapes']} == {k1_expected}")
         check(run["k2_sizes"] == k2_sizes_expected, f"K2 launches by N {run['k2_sizes']} == {k2_sizes_expected}")
+        check(run["swiglu_launches"] == 0, f"no SwiGLU launch on the GELU ViT ({run['swiglu_launches']})")
         check(len(recs) == FRAMES - 1, f"{len(recs)} records for {FRAMES} frames")
         check(not any(r["lost"] for r in recs), "no record is lost")
         pos = np.array([r["position"] for r in recs])
@@ -1080,6 +1154,50 @@ def run_main_path(tracker_overrides: dict | None = None, rmse_bound: float = RMS
     return {"launches": g["launches"], "k1_shapes": g["k1_shapes"], "k2_launches": g["k2_launches"],
             "k2_sizes": g["k2_sizes"], "rmse_px": rmse, **summary, **waits, "cfg": cfg, "prm": prm, "src": src,
             "recs": g["recs"]}
+
+
+# The DINOv2 path: the dinov2-g14-reg preset's block and prefix at 2 of its
+# 40 blocks (a 224-px window: T 261, M 261 rows into the SwiGLU gate).
+DINOV2_DEPTH = 2
+
+
+def run_dinov2_path() -> dict:
+    """The preset's block cut to DINOV2_DEPTH blocks on the dense path's
+    values and clip (config.yaml's, 60 frames of 480x640 moving-square), on
+    the program's random init with LayerScale gammas drawn uniform on [0.1,
+    1] a channel (as a DINOv2 checkpoint brings them; folded when the tracker
+    casts the weights), in turns eagerly and through the graphs
+    (run_turns): K1 at [1, 24, 261, 64] and the SwiGLU gate at (261, 4096)
+    once a block a forward in every run, the records finite and equal
+    between graph and eager (check_turns). The random backbone does not
+    track the target, so no RMSE is held."""
+    cfg_dict = copy.deepcopy(SMOKE_CONFIG)
+    cfg_dict["model"] = dict(VIT_PRESETS["dinov2-g14-reg"], variant="custom", depth=DINOV2_DEPTH, image_size=224,
+                             dtype="bfloat16", checkpoint="")
+    cfg = Config.from_dict(cfg_dict)
+    spec = VitSpec.from_config(cfg.model)
+    prm = vit_params.init_vit_params(jax_random.key(24), spec, device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(24)
+    for name in ("ls1", "ls2"):
+        prm["blocks"][name] = {"gamma": 0.1 + 0.9 * torch.rand((DINOV2_DEPTH, spec.dim), generator=g, device="cuda")}
+    src = open_source(cfg.io.source, FRAMES, tuple(cfg.io.frame_size), seed=cfg.filter.seed)
+    runs = run_turns(cfg, prm, src)
+    t = 16 * 16 + spec.num_prefix
+    gated = cfg.filter.lost_conf_threshold > 0 or cfg.filter.lost_conf_ratio > 0
+    for run in runs:
+        # init + one a step + a probe a step taken while lost (as run_main_path)
+        forwards = 1 + len(run["recs"]) + (sum(r["lost"] for r in run["recs"][:-1]) if gated else 0)
+        want = {(1, spec.heads, t): DINOV2_DEPTH * forwards}
+        kind = "graph" if run["graphs"] else "eager"
+        print(f"  dinov2 path, {kind} run: K1 {run['k1_shapes']}, SwiGLU {run['swiglu_shapes']} (expected "
+              f"{DINOV2_DEPTH} x {forwards} forwards each)", flush=True)
+        check(run["k1_shapes"] == want, f"dinov2 path: K1 launches by shape {run['k1_shapes']} == {want}")
+        check(run["swiglu_shapes"] == {(t, spec.mlp_dim): DINOV2_DEPTH * forwards},
+              f"dinov2 path: SwiGLU launches by shape {run['swiglu_shapes']}")
+        check(bool(np.all(np.isfinite([r["position"] for r in run["recs"]]))), "dinov2 path: positions are finite")
+    summary = check_turns(runs, "dinov2 path")
+    g = runs[1]
+    return {"k1_shapes": g["k1_shapes"], "swiglu_shapes": g["swiglu_shapes"], **summary}
 
 
 def run_clip(path: dict) -> dict:
@@ -2991,7 +3109,7 @@ def main() -> int:
 
     t0 = time.perf_counter()
     built = _build.build_libraries(["flash_attn.cu", "window_patchify.cu", "graph_if.cu", "peer_allreduce.cu",
-                                    "step_noise.cu"])
+                                    "step_noise.cu", "swiglu.cu"])
     for source, (_, rec) in built.items():
         print(f"  nvcc build of {source}: {rec['seconds']:.2f} s (built={rec['built']}) -> {rec['so']}")
         for line in rec["ptxas"].splitlines():
@@ -3014,6 +3132,7 @@ def main() -> int:
     k2_window_errs = check_window_patchify_windows()
     check_if_node()
     check_step_noise()
+    swiglu_errs = check_swiglu()
     phase("kernel", t0)
 
     t0 = time.perf_counter()
@@ -3031,6 +3150,7 @@ def main() -> int:
     banked_path = run_banked_path()
     banked_path.update(check_reinit_bank(banked_path))
     streams_path = run_multistream_path(main_path)
+    dinov2_path = run_dinov2_path()
     phase("tracker", t0)
 
     t0 = time.perf_counter()
@@ -3077,6 +3197,7 @@ def main() -> int:
     noise_times = {}
     for shape in NOISE_SHAPES:
         noise_times.update(time_step_noise(*shape))
+    swiglu_times = {shape: time_swiglu(*shape) for shape in SWIGLU_SHAPES[:2]}
     phase("times", t0)
 
     # One entry per kernel, main path and shape: K1 at the dense path's
@@ -3209,7 +3330,23 @@ def main() -> int:
     seen = {tuple(r["shape"]) for r in noise_rows}
     multi_card += [dict(**noise_common, path="timed only: the benchmark cells' banks and a ROI chunk (no path here)",
                         shape=list(shape), launches=0, **row) for shape, row in noise_times.items() if shape not in seen]
-    check(all(r["launches"] > 0 for r in k1_rows + k2_rows + peer_rows + noise_rows),
+    # DINOv2 ViT-g/14's block (the dinov2 path, 2 blocks): K1 at its
+    # attention shape and the SwiGLU gate at its FFN's one window; the gate
+    # at 16 windows is timed only.
+    k1_rows.append(dict(**k1_common, path=f"dinov2 (dinov2-g14-reg cut to {DINOV2_DEPTH} blocks)",
+                        shape=list(DINOV2_SHAPE), launches=dinov2_path["k1_shapes"].get(DINOV2_SHAPE[:3], 0),
+                        max_abs_err=errs[(DINOV2_SHAPE, torch.bfloat16, "fused")], **times[DINOV2_SHAPE]))
+    swiglu_common = dict(name="swiglu", route="cuda", source="vitparticlefiltertracker_tpu_torch/csrc/swiglu.cu",
+                         replaces="none: the JAX package has no SwiGLU block")
+    swiglu_rows = [dict(**swiglu_common, path=f"dinov2 (dinov2-g14-reg cut to {DINOV2_DEPTH} blocks)",
+                        shape=list(SWIGLU_SHAPES[0]), launches=dinov2_path["swiglu_shapes"].get(SWIGLU_SHAPES[0], 0),
+                        max_abs_err=swiglu_errs[(*SWIGLU_SHAPES[0], torch.bfloat16)][0],
+                        **swiglu_times[SWIGLU_SHAPES[0]])]
+    multi_card.append(dict(**swiglu_common, path="the FFN at 16 windows: timed only (no path here)",
+                           shape=list(SWIGLU_SHAPES[1]), launches=0,
+                           max_abs_err=swiglu_errs[(*SWIGLU_SHAPES[1], torch.bfloat16)][0],
+                           **swiglu_times[SWIGLU_SHAPES[1]]))
+    check(all(r["launches"] > 0 for r in k1_rows + k2_rows + peer_rows + noise_rows + swiglu_rows),
           "every kernel row was launched on its main path")
     path_keys = ("step_ms_median", "eager_step_ms_median", "turn_medians_ms", "bitwise", "max_pos_diff_px",
                  "rmse_px", "waits_per_step", "waits_in_clip")
@@ -3224,6 +3361,8 @@ def main() -> int:
                       "multistream": {k: streams_path[k] for k in ("step_ms_median", "eager_step_ms_median",
                                                                    "aggregate_frames_per_s", "dense_frames_per_s",
                                                                    "rmse_px_by_stream")},
+                      "dinov2": {k: dinov2_path[k] for k in ("step_ms_median", "eager_step_ms_median",
+                                                             "turn_medians_ms", "bitwise", "max_pos_diff_px")},
                       "stream_dense": stream_dense, "stream_robust": stream_robust, "serve": serve,
                       "stream_roi": {label: {k: v for k, v in run.items() if k in ROI_KEYS}
                                      for label, run in (("eval5-roi-c4", eval5), ("eval5-roi-teleport-c4", teleport),
@@ -3242,7 +3381,7 @@ def main() -> int:
                                               "max_abs_err": k2_window_errs[(8, 1024, torch.bfloat16)]}}))
     print(f"[phase] total: {time.perf_counter() - t_start:.2f} s", flush=True)
     print(f"card: {smi}")
-    print(json.dumps({"kernels": k1_rows + k2_rows + peer_rows + noise_rows + multi_card}))
+    print(json.dumps({"kernels": k1_rows + k2_rows + peer_rows + noise_rows + swiglu_rows + multi_card}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
     return 0

@@ -352,6 +352,93 @@ def test_kernel_at_banked_shapes(cuda_device, dtype, shape, layout):
     torch.testing.assert_close(out.float(), ref.float(), rtol=TOL[dtype], atol=TOL[dtype])
 
 
+@pytest.mark.parametrize("layout", ["fused", "contiguous"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernel_at_dinov2_shape(cuda_device, dtype, layout):
+    """K1 at DINOv2 ViT-g/14 with 4 registers on a 224-px window: [1, 24,
+    261, 64] (256 patches, the class token and 4 registers; T off every
+    16-row and 64-key tile edge), against torch's scaled_dot_product_attention
+    in f32 and the plain version; bf16 on the tiled path's 2-warp grid of 216
+    (portbench/counts.py k1_grid, which the benchmark's k1_roofline_pct
+    matches launches by)."""
+    shape = (1, 24, 261, 64)
+    q, k, v = _qkv_views(shape, dtype, layout, seed=261, device=cuda_device)
+    out = attention.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    sdpa = torch.nn.functional.scaled_dot_product_attention(q.float(), k.float(), v.float())
+    torch.testing.assert_close(out.float(), sdpa, rtol=TOL[dtype], atol=TOL[dtype])
+    torch.testing.assert_close(out.float(), attention.reference_attention(q, k, v).float(), rtol=TOL[dtype],
+                               atol=TOL[dtype])
+    if dtype == torch.bfloat16:
+        plan = attention.launch_plan(q, k, v, out, torch.cuda.get_device_properties(0).multi_processor_count)
+        assert (plan.path, plan.warps, plan.grid) == ("tiled", 2, 216)
+
+
+@pytest.mark.parametrize("m,h", [(261, 4096), (16 * 261, 4096), (3, 8), (1000, 1368)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_swiglu_kernel_matches_plain_version(cuda_device, m, h, dtype):
+    """The SwiGLU gate kernel (csrc/swiglu.cu) at DINOv2 ViT-g/14's FFN for
+    one window (M 261, h 4096) and 16, and ragged small shapes, against its
+    plain version: the same formula in the same order, so equal within one
+    rounding of the output (torch's exp and the kernel's may differ in the
+    last bit of the f32 silu). One launch counted."""
+    from vitparticlefiltertracker_tpu_torch.ops import swiglu as sg
+
+    g = torch.Generator(device=cuda_device).manual_seed(m + h)
+    x = (torch.randn((m, 2 * h), generator=g, device=cuda_device) * 3.0).to(dtype)
+    before = sg.swiglu.launches
+    out = sg.swiglu(x)
+    torch.cuda.synchronize()
+    assert sg.swiglu.launches == before + 1 and out.shape == (m, h) and out.dtype == dtype
+    rtol = 2**-7 if dtype == torch.bfloat16 else 1e-6
+    torch.testing.assert_close(out.float(), sg.swiglu_plain(x).float(), rtol=rtol, atol=1e-6)
+
+
+def test_swiglu_kernel_refuses_what_it_does_not_take(cuda_device):
+    from vitparticlefiltertracker_tpu_torch.ops import swiglu as sg
+
+    x = torch.zeros((4, 32), device=cuda_device, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="contiguous"):
+        sg.swiglu(x[:, ::2])
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        sg.swiglu(x.half())
+    with pytest.raises(ValueError, match="multiple of 8"):
+        sg.swiglu(torch.zeros((4, 24), device=cuda_device, dtype=torch.bfloat16))
+
+
+def test_dinov2_tracker_launches_both_kernels(cuda_device):
+    """A tiny DINOv2 backbone (SwiGLU FFN, LayerScale gammas in the weights,
+    class token and 2 registers, patch 14; tests/plain_dinov2.py's seeded
+    tree) on the dense main path through the step graphs:
+    K1 and the SwiGLU kernel once a block a forward, at T 19 and M 19, and
+    finite records. (The features against the plain forward on the card:
+    tools/port_dinov2_features.py; the card's generator draws other noise
+    than the CPU's, so the records are not compared across devices.)"""
+    import plain_dinov2
+
+    from vitparticlefiltertracker_tpu_torch.io.video import open_source
+    from vitparticlefiltertracker_tpu_torch.ops import swiglu as sg
+    from vitparticlefiltertracker_tpu_torch.runtime.tracker import Tracker
+
+    from vitparticlefiltertracker_tpu_torch.runtime import step_graph
+
+    cfg = Config.from_dict({
+        "model": {"variant": "custom", "depth": 2, "dim": 128, "heads": 2, "mlp_dim": 256, "patch_size": 14,
+                  "image_size": 56, "dtype": "bfloat16", "checkpoint": "", "ffn": "swiglu", "registers": 2,
+                  "drop_cls_token": False},
+        "filter": {"num_particles": 256},
+    })
+    src = open_source("synthetic:moving-square", 6, (224, 224))
+    tr = Tracker(cfg, vit_params=plain_dinov2.draw_tree(7, 2, 128, 2, 256, 14, 2), device="cuda")
+    k1, gate = attention.flash_attention.launches, sg.swiglu.launches
+    recs = list(tr.run(src))
+    step_graph.settle_counts()
+    assert attention.flash_attention.launches - k1 == 2 * 6  # depth x (init + 5 steps)
+    assert sg.swiglu.launches - gate == 2 * 6
+    assert sg.swiglu.shapes[(19, 256)] >= 2 * 6
+    assert np.all(np.isfinite([r["position"] for r in recs])) and np.all(np.isfinite([r["conf"] for r in recs]))
+
+
 @pytest.mark.parametrize("windows,n", [(1, 1024), (2, 1024), (8, 1024), (2, 1), (3, 17)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_window_patchify_kernel_over_windows(cuda_device, windows, n, dtype):

@@ -309,6 +309,17 @@ def mesh_layout(rank: int, params_np: dict, spec_kw: dict, images: np.ndarray) -
     return out
 
 
+def dinov2_tp_forward(rank: int, tree_np: dict, spec_kw: dict, images: np.ndarray) -> np.ndarray:
+    """On two ranks: a DINOv2 forward (SwiGLU FFN, prefix tokens) over
+    (1, 1, 2), this rank's slices of the tree -> numpy."""
+    from vitparticlefiltertracker_tpu_torch.models.params import _map
+    from vitparticlefiltertracker_tpu_torch.models.vit import vit_forward_tokens
+
+    mesh = make_mesh(1, 1, 2, device="cpu")
+    params = vit_param_shard(mesh, _map(tree_np, torch.from_numpy))
+    return vit_forward_tokens(params, torch.from_numpy(images), VitSpec(**spec_kw)._replace(mesh=mesh)).numpy()
+
+
 def peer_sums(rank: int, m: int, shape: tuple, seed: int) -> dict:
     """On a (1, 1, m) mesh: row_parallel_sum of this rank's bf16 slice of
     a product (y [.., K], w [K, D], bias [D] made from `seed`; rank r holds

@@ -17,13 +17,23 @@ from dataclasses import dataclass, field
 from typing import Any
 
 # ViT presets. Every preset has head dim 64, the one width the attention
-# kernel (csrc/flash_attn.cu) takes.
-VIT_PRESETS: dict[str, dict[str, int]] = {
+# kernel (csrc/flash_attn.cu) takes. dinov2-g14-reg is DINOv2 ViT-g/14 with
+# registers (Oquab et al., arXiv:2304.07193; Darcet et al., arXiv:2309.16588):
+# a SwiGLU FFN of hidden width mlp_dim and the class token and 4 registers
+# ahead of the patches. Its LayerScale gammas are leaves of the weights
+# (models/vit.py), not a key.
+VIT_PRESETS: dict[str, dict[str, Any]] = {
     "vit-t16": dict(depth=4, dim=192, heads=3, mlp_dim=768, patch_size=16),
     "vit-s16": dict(depth=12, dim=384, heads=6, mlp_dim=1536, patch_size=16),
     "vit-b16": dict(depth=12, dim=768, heads=12, mlp_dim=3072, patch_size=16),
     "vit-l16": dict(depth=24, dim=1024, heads=16, mlp_dim=4096, patch_size=16),
+    "dinov2-g14-reg": dict(depth=40, dim=1536, heads=24, mlp_dim=4096, patch_size=14, ffn="swiglu", registers=4,
+                           drop_cls_token=False),
 }
+# The model keys of the port alone (the JAX package's schema has none of
+# them), at their defaults: a config file of the JAX package runs the plain
+# GELU ViT.
+PORT_MODEL_DEFAULTS: dict[str, Any] = {"ffn": "gelu", "registers": 0}
 
 
 @dataclass
@@ -57,6 +67,13 @@ class ModelConfig:
     head_blend_spread_lo: float = 0.25
     head_blend_spread_hi: float = 1.0
     head_blend_top_frac: float = 0.35
+    # The block and the prefix (the port's alone; PORT_MODEL_DEFAULTS):
+    # ffn "gelu" (w1, exact GELU, w2) or "swiglu" (w12 to 2 mlp_dim columns,
+    # silu(gate) * up, w3); registers: tokens after the class token and
+    # ahead of the patches, with no position embedding. The dense features
+    # are the patch tokens alone.
+    ffn: str = "gelu"
+    registers: int = 0
 
     def resolve(self) -> "ModelConfig":
         if self.variant != "custom":
@@ -76,6 +93,10 @@ class ModelConfig:
             raise ValueError("model.dim must be divisible by model.heads")
         if self.pooling not in ("mean", "cls"):
             raise ValueError("model.pooling must be 'mean' or 'cls'")
+        if self.ffn not in ("gelu", "swiglu"):
+            raise ValueError("model.ffn must be 'gelu' or 'swiglu'")
+        if self.registers < 0:
+            raise ValueError("model.registers must be >= 0")
         if self.head_depth < 0:
             raise ValueError("model.head_depth must be >= 0")
         if not 0.0 <= self.head_blend <= 1.0:
@@ -310,7 +331,14 @@ class Config:
         return self
 
     def to_dict(self) -> dict[str, Any]:
-        return dataclasses.asdict(self)
+        """The config as plain data. The port's own model keys are left out
+        where they hold their defaults (PORT_MODEL_DEFAULTS), so that a
+        config of the plain ViT reads the same in the JAX package's loader."""
+        d = dataclasses.asdict(self)
+        for k, v in PORT_MODEL_DEFAULTS.items():
+            if d["model"][k] == v:
+                del d["model"][k]
+        return d
 
     def to_yaml(self) -> str:
         import yaml

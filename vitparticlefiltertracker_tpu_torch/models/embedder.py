@@ -68,6 +68,13 @@ class DenseEmbedSpec(NamedTuple):
         )
 
 
+def grid_tokens(feat: torch.Tensor, spec: VitSpec) -> torch.Tensor:
+    """The encoder's output [B, T, D] -> the patch grid's tokens [B, g*g, D]:
+    the prefix tokens (class token, registers) dropped after the final LN,
+    the grid's row-major order kept."""
+    return feat[:, spec.num_prefix:] if spec.num_prefix else feat
+
+
 def normalize_window(window_raw: torch.Tensor) -> torch.Tensor:
     """Normalize an extracted uint8-valued float window (affine, so it
     commutes with the bilinear resample)."""
@@ -109,7 +116,7 @@ def make_dense_embedder(
                                                  preserve_rng_state=False)
     else:
         feat = vit_forward_tokens(prm, window, spec)
-    feat = feat.reshape(*lead, grid, grid, spec.out_dim)
+    feat = grid_tokens(feat, spec).reshape(*lead, grid, grid, spec.out_dim)
     mean_emb = feat.reshape(*lead, -1, spec.out_dim).mean(dim=-2)
     # Each window's center and side against its own boxes [..., M, 2].
     center, side = center[..., None, :], side[..., None, None]
@@ -235,7 +242,7 @@ def tiled_window_embed(
     lead = tile_ctrs.shape[:-1]
     windows = normalize_window(view_extract_window_mxu(_as_view(frame_f32), tile_ctrs, tile_side, es.s_img))
     feats = vit_forward_tokens(prm, windows.reshape(-1, *windows.shape[-3:]), spec)  # [K*G, T, out_dim]
-    feats = feats.reshape(*lead, grid, grid, spec.out_dim)
+    feats = grid_tokens(feats, spec).reshape(*lead, grid, grid, spec.out_dim)
     mean_embs = feats.mean(dim=(-3, -2))  # [..., G, out_dim]
     wh = cand_wh[..., None, None, :].expand(cand_xy.shape)
     side = tile_side.reshape(*tile_side.shape, 1, 1, 1)

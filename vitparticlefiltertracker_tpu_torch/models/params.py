@@ -133,9 +133,17 @@ def _ln(d: int, device) -> dict:
 
 def init_block_params(bkey: jax_random.Key, spec: VitSpec, device="cpu") -> dict:
     """One block of the JAX package's init_vit_params: split(bkey, 4) keys
-    wqkv, wo, w1 and w2; LN ones and zeros, biases zeros; f32."""
+    wqkv, wo, w1 and w2; LN ones and zeros, biases zeros; f32. A SwiGLU
+    block draws w12 [d, 2 mlp] and w3 on the keys of w1 and w2. No
+    LayerScale gammas: a tree without them runs each branch as it is."""
     d, mlp = spec.dim, spec.mlp_dim
     bk = jax_random.split(bkey, 4)
+    if spec.ffn == "swiglu":
+        ffn = {"w12": _tn(bk[2], (d, 2 * mlp), d**-0.5, device), "b12": torch.zeros(2 * mlp, device=device),
+               "w3": _tn(bk[3], (mlp, d), mlp**-0.5, device), "b3": torch.zeros(d, device=device)}
+    else:
+        ffn = {"w1": _tn(bk[2], (d, mlp), d**-0.5, device), "b1": torch.zeros(mlp, device=device),
+               "w2": _tn(bk[3], (mlp, d), mlp**-0.5, device), "b2": torch.zeros(d, device=device)}
     return {
         "ln1": _ln(d, device),
         "attn": {
@@ -145,12 +153,7 @@ def init_block_params(bkey: jax_random.Key, spec: VitSpec, device="cpu") -> dict
             "bo": torch.zeros(d, device=device),
         },
         "ln2": _ln(d, device),
-        "mlp": {
-            "w1": _tn(bk[2], (d, mlp), d**-0.5, device),
-            "b1": torch.zeros(mlp, device=device),
-            "w2": _tn(bk[3], (mlp, d), mlp**-0.5, device),
-            "b2": torch.zeros(d, device=device),
-        },
+        "mlp": ffn,
     }
 
 
@@ -163,7 +166,8 @@ def init_vit_params(key: jax_random.Key, spec: VitSpec, device="cpu") -> dict:
     """The JAX package's init_vit_params, number for number: split(key,
     4 + depth) keys patch_embed, pos_embed, cls_token and the blocks; the
     head's blocks are keyed on split(fold_in(key, 0x4EAD), head_depth), so a
-    head never changes the trunk. Built leaf by leaf on `device`."""
+    head never changes the trunk. Registers (the port's alone) are drawn as
+    the class token, on the spare key 3. Built leaf by leaf on `device`."""
     d = spec.dim
     patch_in = spec.patch_size * spec.patch_size * 3
     keys = jax_random.split(key, 4 + spec.depth)
@@ -175,6 +179,8 @@ def init_vit_params(key: jax_random.Key, spec: VitSpec, device="cpu") -> dict:
     }
     if spec.use_cls_token:
         params["cls_token"] = _tn(keys[2], (d,), 0.02, device)
+    if spec.registers:
+        params["reg_tokens"] = _tn(keys[3], (spec.registers, d), 0.02, device)
     params["blocks"] = _stack([init_block_params(keys[4 + i], spec, device) for i in range(spec.depth)])
     if spec.head_depth > 0:
         hkeys = jax_random.split(jax_random.fold_in(key, 0x4EAD), spec.head_depth)
@@ -219,12 +225,36 @@ def load_or_init(checkpoint: str, spec: VitSpec, seed: int = 0, device="cpu") ->
     return dict(trunk, head=prm["head"])
 
 
+def fold_layer_scale(blocks: dict) -> dict:
+    """Depth-stacked blocks with their LayerScale gammas folded into the
+    branches' last products, in f32: gamma * (y @ w + b) = y @ (w * gamma) +
+    b * gamma, gamma scaling w's output columns. Exact algebra, so only the
+    rounding of the weights to the compute dtype differs from applying
+    gamma after the branch; it holds under the row-parallel sum too, where
+    each rank's rows of w carry the same column scale and the bias is added
+    once. Blocks without gammas come back as they are."""
+    if "ls1" not in blocks:
+        return blocks
+    g1, g2 = blocks["ls1"]["gamma"].float(), blocks["ls2"]["gamma"].float()
+    w, b = ("w3", "b3") if "w3" in blocks["mlp"] else ("w2", "b2")
+    attn, mlp = blocks["attn"], blocks["mlp"]
+    out = {k: v for k, v in blocks.items() if k not in ("ls1", "ls2")}
+    out["attn"] = dict(attn, wo=attn["wo"].float() * g1[:, None, :], bo=attn["bo"].float() * g1)
+    out["mlp"] = dict(mlp, **{w: mlp[w].float() * g2[:, None, :], b: mlp[b].float() * g2})
+    return out
+
+
 def cast_for_inference(params: dict, spec: VitSpec) -> dict:
-    """Pre-cast the block matmul weights (trunk and head) and the cls/pos
+    """Fold LayerScale into the blocks (fold_layer_scale), then pre-cast the
+    block matmul weights (trunk and head) and the cls/register/pos
     embeddings to the compute dtype once; LN params and patch_embed keep
-    their stored dtype.
-    Values are bit-identical to casting at every use."""
+    their stored dtype. Without LayerScale the values are bit-identical to
+    casting at every use."""
     dt = spec.dtype
+    if "ls1" in params["blocks"]:
+        params = dict(params, blocks=fold_layer_scale(params["blocks"]))
+    if "head" in params and "ls1" in params["head"]["blocks"]:
+        params["head"] = dict(params["head"], blocks=fold_layer_scale(params["head"]["blocks"]))
     if dt == torch.float32:
         return params
 
@@ -234,7 +264,7 @@ def cast_for_inference(params: dict, spec: VitSpec) -> dict:
     out = dict(params, blocks=cast_blocks(params["blocks"]))
     if "head" in params:
         out["head"] = dict(params["head"], blocks=cast_blocks(params["head"]["blocks"]))
-    for k in ("cls_token", "pos_embed"):
+    for k in ("cls_token", "reg_tokens", "pos_embed"):
         if out.get(k) is not None:
             out[k] = out[k].to(dt)
     return out

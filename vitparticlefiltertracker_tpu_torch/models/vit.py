@@ -8,7 +8,17 @@ head-major (h, 3, hd); GELU is the exact (erf) form. Attention goes through
 ``ops.attention.multi_head_attention`` (kernel K1 on CUDA tensors, the plain
 version on CPU tensors; forward only), or, in a spec with
 ``use_flash_attention`` False (the trainer's), through the plain version on
-any device, which autograd differentiates. With ``VitSpec.mesh`` set, the
+any device, which autograd differentiates.
+
+``VitSpec.ffn`` "swiglu" and ``registers`` give the DINOv2 block and prefix
+(Oquab et al., arXiv:2304.07193; Darcet et al., arXiv:2309.16588): a fused
+SwiGLU FFN (``w12`` to the gate and up halves, ``ops.swiglu``, then ``w3``)
+and the sequence [class token, registers, patches], the position embedding
+on the class token and the patches alone. LayerScale, a per-channel gamma on
+each residual branch, is applied wherever the tree holds it (leaves
+``ls1``/``ls2``, as a DINOv2 checkpoint brings them; ``models/params.py``
+``cast_for_inference`` folds them into ``wo``/``bo`` and ``w3``/``b3``, so
+an inference tree has none). With ``VitSpec.mesh`` set, the
 blocks run tensor-parallel over the mesh's "model" axis on this rank's
 share of the weights (parallel/mesh.py ``vit_param_shard``).
 """
@@ -24,6 +34,7 @@ from vitparticlefiltertracker_tpu_torch.ops.attention import (
     reference_attention,
     split_fused_qkv,
 )
+from vitparticlefiltertracker_tpu_torch.ops.swiglu import swiglu, swiglu_plain
 from vitparticlefiltertracker_tpu_torch.parallel.mesh import row_parallel_sum
 
 
@@ -56,6 +67,11 @@ class VitSpec(NamedTuple):
     # row-parallel products over "model" before adding their biases. None:
     # the whole ViT here.
     mesh: object = None
+    # The FFN: "gelu" (w1, exact GELU, w2) or "swiglu" (w12 to [gate | up]
+    # of mlp_dim columns each, silu(gate) * up, w3).
+    ffn: str = "gelu"
+    # Register tokens after the class token, ahead of the patches.
+    registers: int = 0
 
     @property
     def grid(self) -> int:
@@ -67,7 +83,14 @@ class VitSpec(NamedTuple):
 
     @property
     def seq_len(self) -> int:
+        """Tokens the position embedding covers: the class token and the patches."""
         return self.num_patches + (1 if self.use_cls_token else 0)
+
+    @property
+    def num_prefix(self) -> int:
+        """Tokens ahead of the patches in the encoder's output: the class
+        token and the registers."""
+        return (1 if self.use_cls_token else 0) + self.registers
 
     @property
     def out_dim(self) -> int:
@@ -88,6 +111,8 @@ class VitSpec(NamedTuple):
             use_cls_token=(m.pooling == "cls") or not m.drop_cls_token,
             ln_eps=m.ln_eps,
             head_depth=m.head_depth,
+            ffn=m.ffn,
+            registers=m.registers,
         )
 
 
@@ -131,12 +156,25 @@ def _block(x: torch.Tensor, p: dict, spec: VitSpec) -> torch.Tensor:
     attend = multi_head_attention if spec.use_flash_attention else reference_attention
     o = attend(*split_fused_qkv(qkv, h))  # [B, H, T, hd]
     o = o.transpose(1, 2).reshape(b, t, -1)
-    x = x + _row_parallel(o, p["attn"]["wo"], p["attn"]["bo"], spec)
+    x = x + _scaled(_row_parallel(o, p["attn"]["wo"], p["attn"]["bo"], spec), p.get("ls1"))
 
     y = _layer_norm(x, p["ln2"], dtype, spec.ln_eps)
-    y = y @ p["mlp"]["w1"].to(dtype) + p["mlp"]["b1"].to(dtype)
+    mlp = p["mlp"]
+    if spec.ffn == "swiglu":
+        # [gate | up] of this rank's hidden columns (parallel/mesh.py cuts
+        # w12 as matching halves), silu(gate) * up in f32 (ops/swiglu.py;
+        # the plain, differentiable form where attention is plain too).
+        gate = swiglu if spec.use_flash_attention else swiglu_plain
+        y = gate(y @ mlp["w12"].to(dtype) + mlp["b12"].to(dtype))
+        return x + _scaled(_row_parallel(y, mlp["w3"], mlp["b3"], spec), p.get("ls2"))
+    y = y @ mlp["w1"].to(dtype) + mlp["b1"].to(dtype)
     y = torch.nn.functional.gelu(y, approximate="none")
-    return x + _row_parallel(y, p["mlp"]["w2"], p["mlp"]["b2"], spec)
+    return x + _scaled(_row_parallel(y, mlp["w2"], mlp["b2"], spec), p.get("ls2"))
+
+
+def _scaled(branch: torch.Tensor, ls: dict | None) -> torch.Tensor:
+    """A residual branch times its LayerScale gamma, where the tree holds it."""
+    return branch if ls is None else branch * ls["gamma"].to(branch.dtype)
 
 
 def _block_params(blocks: dict, i: int) -> dict:
@@ -157,7 +195,8 @@ def vit_forward_tokens(params: dict, images: torch.Tensor, spec: VitSpec) -> tor
 
 def encode_tokens(params: dict, x: torch.Tensor, spec: VitSpec) -> torch.Tensor:
     """Encoder over already patch-embedded tokens [B, T_patches, D] ->
-    [B, T, spec.out_dim]."""
+    [B, T, spec.out_dim], T = spec.num_prefix + T_patches (the prefix
+    tokens first)."""
     dtype = spec.dtype
     b = x.shape[0]
     if spec.use_cls_token:
@@ -165,6 +204,12 @@ def encode_tokens(params: dict, x: torch.Tensor, spec: VitSpec) -> torch.Tensor:
         x = torch.cat([cls, x], dim=1)
     if spec.use_pos_embed:
         x = x + params["pos_embed"].to(dtype)[None, : x.shape[1]]
+    if spec.registers:
+        # Registers take no position embedding: they go in after it, behind
+        # the class token (Darcet et al.'s DINOv2 order).
+        cls_part = 1 if spec.use_cls_token else 0
+        reg = params["reg_tokens"].to(dtype).expand(b, spec.registers, spec.dim)
+        x = torch.cat([x[:, :cls_part], reg, x[:, cls_part:]], dim=1)
     for i in range(spec.depth):
         x = _block(x, _block_params(params["blocks"], i), spec)
     trunk = _layer_norm(x, params["ln_final"], dtype, spec.ln_eps)
@@ -183,6 +228,5 @@ def pool_tokens(tokens: torch.Tensor, spec: VitSpec) -> torch.Tensor:
     """[B, T, D] -> [B, D] appearance embedding."""
     if spec.pooling == "cls":
         return tokens[:, 0]
-    start = 1 if spec.use_cls_token else 0
-    return tokens[:, start:].mean(dim=1)
+    return tokens[:, spec.num_prefix:].mean(dim=1)
 

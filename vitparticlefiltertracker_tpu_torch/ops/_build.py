@@ -201,3 +201,16 @@ def step_noise_library() -> ctypes.CDLL:
         fn.argtypes = [p, i, i, ll, p, p, p, p, p, i, i, ll, ll, ll, i, p]
         fn.restype = i
     return lib
+
+
+def swiglu_library() -> ctypes.CDLL:
+    """The SwiGLU gate kernel's library (ops/swiglu.py), with argtypes set
+    as for flash_attn_library."""
+    lib, _ = build_library("swiglu.cu")
+    fn = lib.vpt_swiglu
+    if fn.argtypes is None:
+        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        # x, out, m, h, dtype, blocks, stream
+        fn.argtypes = [p, p, ll, ll, i, i, p]
+        fn.restype = i
+    return lib

@@ -198,9 +198,9 @@ def _tp_axis(path: tuple[str, ...], leaf: str) -> int | None:
         return -1  # column-parallel: heads, head-major (h, 3, hd) columns
     if "attn" in path and leaf == "wo":
         return -2  # row-parallel
-    if "mlp" in path and leaf in ("w1", "b1"):
-        return -1
-    if "mlp" in path and leaf == "w2":
+    if "mlp" in path and leaf in ("w1", "b1", "w12", "b12"):
+        return -1  # w12, b12: [gate | up], each half cut alike (vit_param_shard)
+    if "mlp" in path and leaf in ("w2", "w3"):
         return -2
     return None
 
@@ -208,9 +208,12 @@ def _tp_axis(path: tuple[str, ...], leaf: str) -> int | None:
 def vit_param_shard(mesh: Mesh, params: dict) -> dict:
     """This rank's part of the ViT parameter tree under "model" tensor
     parallelism: wqkv, bqkv, mlp w1 and b1 cut along their last axis, wo and
-    mlp w2 along their contraction axis, contiguous slice m of M (for the
-    head-major fused QKV columns, heads [m H / M, (m + 1) H / M)); every other
-    leaf (layer norms, embeddings, the row-parallel biases) is the caller's
+    mlp w2 (w3) along their contraction axis, contiguous slice m of M (for the
+    head-major fused QKV columns, heads [m H / M, (m + 1) H / M)); a SwiGLU
+    FFN's w12 and b12 ([gate | up]) take slice m of the gate half and slice
+    m of the up half, so the rank's [gate_m | up_m] pairs the same hidden
+    columns that its rows of w3 read. Every other leaf (layer norms,
+    embeddings, LayerScale gammas, the row-parallel biases) is the caller's
     tensor. Applies to the depth-stacked blocks and the residual head's."""
     m, size = mesh.coords["model"], mesh.shape["model"]
 
@@ -223,6 +226,10 @@ def vit_param_shard(mesh: Mesh, params: dict) -> dict:
             ax = _tp_axis(path, k)
             if ax is None or size == 1:
                 out[k] = v
+            elif k in ("w12", "b12"):
+                part = v.shape[-1] // (2 * size)
+                gate, up = v.chunk(2, dim=-1)
+                out[k] = torch.cat([gate.narrow(-1, m * part, part), up.narrow(-1, m * part, part)], dim=-1)
             else:
                 part = v.shape[ax] // size
                 out[k] = v.narrow(ax, m * part, part).contiguous()
