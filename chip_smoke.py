@@ -11,8 +11,9 @@ Phases, each timed and printed:
                 (csrc/window_patchify.cu), the IF-node helper of the step's
                 graph (csrc/graph_if.cu), the "model" axis's peer
                 all-reduce (csrc/peer_allreduce.cu), the step's noise
-                kernel (csrc/step_noise.cu) and DINOv2's SwiGLU gate
-                (csrc/swiglu.cu) into ctypes .so files, the
+                kernel (csrc/step_noise.cu), DINOv2's SwiGLU gate
+                (csrc/swiglu.cu) and the ViT's pre-norm junction
+                (csrc/prenorm_junction.cu) into ctypes .so files, the
                 compiles started together (a cached library comes with its
                 saved ptxas report); prints the ptxas reports, checks that
                 no K2 kernel spills and, with cuobjdump -sass, that K2's
@@ -29,7 +30,11 @@ Phases, each timed and printed:
                 generator draws (filters/particle.py draw_step_noise and
                 draw_reseed_noise), bit for bit, at the benchmark cells'
                 banks (16 x 1024, 1 x 4096), a ROI chunk of 4 and with the
-                reseed normals; the SwiGLU gate against its plain version.
+                reseed normals; the SwiGLU gate against its plain version;
+                the pre-norm junction against its plain form at the
+                benchmark cells' forwards, the crop path's, f32 and a small
+                width, with and without the pending branch and its bias
+                (x_new bitwise, y within one ulp).
   4. tracker  — tiny dense and crop configs on the card against the same
                 runs on the CPU (and two with global re-detection: dense with
                 the residual head and its automatic blend, crop through K2),
@@ -75,7 +80,10 @@ Phases, each timed and printed:
                 weights, on the dense path's clip in turns eagerly and
                 through the graphs (records equal, K1 at [1, 24, 261, 64]
                 and the SwiGLU kernel at (261, 4096) once a block a
-                forward).
+                forward). The dense, crop, robust and dinov2 paths and
+                the bench phase also hold the pre-norm junction to 2 depth
+                + 1 launches a forward (2 head_depth + 1 more with the
+                robust path's head) by (M, D), graph equal to eager.
   5. stream   — stream_track (runtime/streaming.py) over the dense and
                 robust paths' clips with a fresh graph Tracker: records
                 bitwise equal to Tracker.run's graph records, K1 launches
@@ -233,6 +241,7 @@ from vitparticlefiltertracker_tpu_torch.models.vit import VitSpec, vit_forward_t
 from vitparticlefiltertracker_tpu_torch.ops import _build, attention
 from vitparticlefiltertracker_tpu_torch.ops import peer_allreduce as par
 from vitparticlefiltertracker_tpu_torch.ops import patchify_window as pw
+from vitparticlefiltertracker_tpu_torch.ops import prenorm_junction as pj
 from vitparticlefiltertracker_tpu_torch.ops import step_noise as sn
 from vitparticlefiltertracker_tpu_torch.ops import swiglu as sg
 from vitparticlefiltertracker_tpu_torch.ops.patchify import crop_sample_coords
@@ -528,6 +537,21 @@ TIME_SHAPES = [DENSE_SHAPE, CROP_SHAPE, CROP_ONE_SHAPE, REDETECT_SHAPE, BANKED_S
 # FFN at one 224-px window (M 261, h 4096) first, then ragged and small
 # cases and 16 windows.
 SWIGLU_SHAPES = [(261, 4096), (16 * 261, 4096), (3, 8), (1000, 1368)]
+# The pre-norm junction kernel (csrc/prenorm_junction.cu) at (M rows, D,
+# dtype): the benchmark cells' forwards first (b16-serve16's 16 windows of
+# ViT-B/16, l16's window of ViT-L/16, g14reg's window of DINOv2 ViT-g/14 with
+# its 5 prefix tokens, the live cell's one window of ViT-B/16), then the crop
+# path's 1024 particles of 4 tokens, eval1's f32 window and a small width.
+JUNCTION_SHAPES = [(16 * 196, 768, torch.bfloat16), (196, 1024, torch.bfloat16), (261, 1536, torch.bfloat16),
+                   (196, 768, torch.bfloat16), (1024 * 4, 768, torch.bfloat16), (196, 768, torch.float32),
+                   (37, 64, torch.bfloat16)]
+JUNCTION_CELLS = 4  # the first four: the cells' shapes, timed
+# y's difference from the plain form in ulps of the compute dtype (an ulp is
+# 2^(e - significand bits)), taken at |y| of at least the floor, and its
+# bound. The two sums' order moves the f32 statistics by about 1e-7 of the
+# row's unit scale: below |y| 2^-8 that outweighs a bf16 ulp, and in f32,
+# where no final rounding hides it, it is a fraction of an ulp of 1.
+JUNCTION_ULP = {torch.bfloat16: (8, 2.0**-8, 1.0), torch.float32: (24, 1.0, 8.0)}  # (bits, floor, bound)
 
 # K2 checks: every combination, each once with a randn window and raw
 # weights and once with a 0..255 window and normalization-folded weights.
@@ -679,6 +703,101 @@ def time_swiglu(m, h, dtype=torch.bfloat16) -> dict:
           f"{eager:.4f} ms", flush=True)
     return {"ms": dev["kernel"], "plain_ms": dev["plain"], "library_ms": dev["library"], "bound_ms": bound,
             "bound_by": "bytes", "eager_ms": eager}
+
+
+def junction_inputs(m, d, dtype, branch=True, bias=True, seed=0):
+    """(x, branch, bias, scale, shift) on the card: a residual stream of
+    scale 2, a branch of scale 1 and its bias, the LayerNorm's scale about 1
+    and shift about 0 in f32."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def draw(shape, k, c=0.0):
+        return c + k * torch.randn(shape, generator=g, device="cuda")
+
+    x = draw((m, d), 2.0).to(dtype)
+    br = draw((m, d), 1.0).to(dtype) if branch else None
+    bi = draw((d,), 0.5).to(dtype) if bias else None
+    return x, br, bi, draw((d,), 0.2, 1.0), draw((d,), 0.2)
+
+
+def junction_errors(inputs, dtype, eps=1e-6) -> dict:
+    """The junction kernel on `inputs` against its plain form, one launch
+    counted: whether x_new is bitwise equal; y's largest difference in ulps
+    of dtype (JUNCTION_ULP), the share of y's elements not bitwise equal and
+    the largest absolute difference."""
+    before = pj.prenorm_junction.launches
+    x_new, y = pj.prenorm_junction(*inputs, dtype, eps)
+    torch.cuda.synchronize()
+    want_x, want_y = pj.prenorm_junction_plain(*inputs, dtype, eps)
+    check(pj.prenorm_junction.launches == before + 1, "prenorm_junction counts its launch")
+    check(x_new.shape == y.shape == inputs[0].shape and y.dtype == dtype, f"junction outputs {y.shape} {y.dtype}")
+    diff = (y.float() - want_y.float()).abs()
+    bits, floor, _ = JUNCTION_ULP[dtype]
+    _, exp = torch.frexp(want_y.float().abs().clamp_min(floor))
+    ulp = torch.ldexp(torch.ones_like(diff), exp - bits)
+    return {"x_new_bitwise": bool(torch.equal(x_new, want_x)), "max_ulp": float((diff / ulp).max()),
+            "differ": float((y != want_y).float().mean()), "max_abs_err": float(diff.max())}
+
+
+def check_prenorm_junction() -> dict:
+    """The pre-norm junction kernel against its plain form (the residual
+    add, then models/vit.py's LayerNorm) at JUNCTION_SHAPES, each with the
+    branch and its bias, the branch alone and nothing pending: x_new
+    bitwise; y within JUNCTION_ULP's bound (the same formulas, the two sums
+    in another order: one bf16 ulp), under 0.1 % of it not bitwise in bf16.
+    -> {(M, D, dtype, branch, bias): junction_errors}."""
+    errs = {}
+    cases = [(*shape, br, bi) for shape in JUNCTION_SHAPES for br, bi in ((True, True), (True, False), (False, False))]
+    for m, d, dtype, br, bi in cases:
+        key = (m, d, dtype, br, bi)
+        e = errs[key] = junction_errors(junction_inputs(m, d, dtype, br, bi, seed=m + d), dtype)
+        check(e["x_new_bitwise"], f"junction x_new bitwise at {key}")
+        check(e["max_ulp"] <= JUNCTION_ULP[dtype][2], f"junction y within its ulp bound at {key} ({e['max_ulp']} ulp)")
+        check(dtype == torch.float32 or e["differ"] < 1e-3,
+              f"junction y under 0.1 % not bitwise at {key} ({e['differ']:.3%})")
+    worst = {}
+    for (m, d, dtype, *_), e in errs.items():
+        u, f = worst.get((m, d, dtype), (0.0, 0.0))
+        worst[(m, d, dtype)] = (max(u, e["max_ulp"]), max(f, e["differ"]))
+    print(f"  pre-norm junction (csrc/prenorm_junction.cu) == plain: x_new bitwise in all {len(errs)} cases; y "
+          + ", ".join(f"({m}, {d}) {str(dt).removeprefix('torch.')} {u:.2f} ulp ({f:.4%} not bitwise)"
+                      for (m, d, dt), (u, f) in worst.items()), flush=True)
+    return errs
+
+
+def time_prenorm_junction(m, d, dtype=torch.bfloat16) -> dict:
+    """The junction kernel at [M, D] with a branch and its bias: device ms of
+    one launch in a CUDA graph, its plain form's (the residual adds and the
+    f32 LayerNorm chain) and torch's x + (branch + bias) then
+    torch.nn.functional.layer_norm with the parameters in the working dtype
+    (a yardstick, timed only), an eager loop's; the bound is its bytes (x
+    and branch read, x_new and y written) at PEAK_BYTES_PER_S."""
+    x, br, bi, sc, sh = junction_inputs(m, d, dtype)
+    sc_t, sh_t = sc.to(dtype), sh.to(dtype)
+    fns = {"kernel": lambda: pj.prenorm_junction(x, br, bi, sc, sh, dtype, 1e-6),
+           "plain": lambda: pj.prenorm_junction_plain(x, br, bi, sc, sh, dtype, 1e-6),
+           "library": lambda: torch.nn.functional.layer_norm(x + (br + bi), (d,), sc_t, sh_t, 1e-6)}
+    dev = {name: time_graph(fn) for name, fn in fns.items()}
+    eager = time_eager(fns["kernel"])[0]
+    bound = 4 * m * d * x.element_size() / PEAK_BYTES_PER_S * 1e3
+    geo = pj.launch_geometry(m, d, dtype)
+    print(f"  pre-norm junction ({m}, {d}) {str(dtype).removeprefix('torch.')}: kernel {dev['kernel']:.4f} ms on the "
+          f"card (bound {bound:.5f} ms, bytes; {geo.vpl} vectors a lane, {geo.warps} rows a block, {geo.blocks} "
+          f"blocks), plain {dev['plain']:.4f} ms, torch adds + layer_norm {dev['library']:.4f} ms; eager loop "
+          f"{eager:.4f} ms", flush=True)
+    return {"ms": dev["kernel"], "plain_ms": dev["plain"], "library_ms": dev["library"], "bound_ms": bound,
+            "bound_by": "bytes", "eager_ms": eager}
+
+
+def junction_expected(k1_expected: dict, cfg: Config) -> dict:
+    """The pre-norm junction's launches by (M, D) from K1's by (B, H, T): a
+    forward of B windows of T tokens launches K1 once a block and the
+    junction 2 depth + 1 times (2 head_depth + 1 more with a head), at M =
+    B T rows of the model's width."""
+    m = cfg.model
+    blocks = m.depth + m.head_depth
+    per_forward = 2 * m.depth + 1 + (2 * m.head_depth + 1 if m.head_depth else 0)
+    return {(b * t, m.dim): n // blocks * per_forward for (b, _, t), n in k1_expected.items()}
 
 
 def check_window_patchify() -> dict:
@@ -953,7 +1072,8 @@ def reset_counts() -> None:
     attention.flash_attention.shapes = Counter()
     pw.gather_patchify_window.launches = 0
     pw.gather_patchify_window.sizes = Counter()
-    for fn in (pmesh.all_gather, pmesh.all_reduce, par.peer_all_reduce, sn.step_noise, sg.swiglu):
+    for fn in (pmesh.all_gather, pmesh.all_reduce, par.peer_all_reduce, sn.step_noise, sg.swiglu,
+               pj.prenorm_junction):
         fn.launches = 0
         fn.shapes = Counter()
 
@@ -963,14 +1083,15 @@ def read_counts() -> dict:
     (one wait, to read the graphs' counters); the collectives issued and the
     peer all-reduce kernel's launches (by (group size, *shape)); the step
     noise kernel's (by (C, K, N, reseed drawn)); the SwiGLU gate's (by (M,
-    h))."""
+    h)); the pre-norm junction's (by (M, D))."""
     step_graph.settle_counts()
     return {"launches": attention.flash_attention.launches, "k1_shapes": dict(attention.flash_attention.shapes),
             "k2_launches": pw.gather_patchify_window.launches, "k2_sizes": dict(pw.gather_patchify_window.sizes),
             "all_gathers": pmesh.all_gather.launches, "all_reduces": pmesh.all_reduce.launches,
             "peer_launches": par.peer_all_reduce.launches, "peer_shapes": dict(par.peer_all_reduce.shapes),
             "noise_launches": sn.step_noise.launches, "noise_shapes": dict(sn.step_noise.shapes),
-            "swiglu_launches": sg.swiglu.launches, "swiglu_shapes": dict(sg.swiglu.shapes)}
+            "swiglu_launches": sg.swiglu.launches, "swiglu_shapes": dict(sg.swiglu.shapes),
+            "junction_launches": pj.prenorm_junction.launches, "junction_shapes": dict(pj.prenorm_junction.shapes)}
 
 
 # Graph against eager, same weights, same draws: the same kernels on the same
@@ -1057,9 +1178,10 @@ def check_turns(runs: list[dict], label: str) -> dict:
                 worst = max(worst, d)
                 bitwise &= all(a[k] == b[k] for k in a if k not in ("step_ms", "frame"))
             check(g["k1_shapes"] == e["k1_shapes"] and g["k2_sizes"] == e["k2_sizes"]
-                  and g["swiglu_shapes"] == e["swiglu_shapes"],
-                  f"{label}: launches by shape, graph {g['k1_shapes']} {g['k2_sizes']} {g['swiglu_shapes']} == "
-                  f"eager {e['k1_shapes']} {e['k2_sizes']} {e['swiglu_shapes']}")
+                  and g["swiglu_shapes"] == e["swiglu_shapes"] and g["junction_shapes"] == e["junction_shapes"],
+                  f"{label}: launches by shape, graph {g['k1_shapes']} {g['k2_sizes']} {g['swiglu_shapes']} "
+                  f"{g['junction_shapes']} == eager {e['k1_shapes']} {e['k2_sizes']} {e['swiglu_shapes']} "
+                  f"{e['junction_shapes']}")
     check(worst <= GRAPH_POS_TOL_PX, f"{label}: graph positions within {GRAPH_POS_TOL_PX} px of eager ({worst})")
     med = {r_id: statistics.median(r["recs"][i]["step_ms"] for i in range(5, len(r["recs"])))
            for r_id, r in enumerate(runs)}
@@ -1137,6 +1259,10 @@ def run_main_path(tracker_overrides: dict | None = None, rmse_bound: float = RMS
         check(run["k1_shapes"] == k1_expected, f"K1 launches by shape {run['k1_shapes']} == {k1_expected}")
         check(run["k2_sizes"] == k2_sizes_expected, f"K2 launches by N {run['k2_sizes']} == {k2_sizes_expected}")
         check(run["swiglu_launches"] == 0, f"no SwiGLU launch on the GELU ViT ({run['swiglu_launches']})")
+        junctions = junction_expected(k1_expected, cfg)
+        check(run["junction_shapes"] == junctions,
+              f"pre-norm junction launches by (M, D) {run['junction_shapes']} == {junctions} (2 x {depth} + 1 a "
+              f"forward)")
         check(len(recs) == FRAMES - 1, f"{len(recs)} records for {FRAMES} frames")
         check(not any(r["lost"] for r in recs), "no record is lost")
         pos = np.array([r["position"] for r in recs])
@@ -1152,8 +1278,8 @@ def run_main_path(tracker_overrides: dict | None = None, rmse_bound: float = RMS
     waits = check_waits(runs[2]["tracker"], frames[1:], 0, f"{cfg.tracker.mode} path")
     g = runs[1]
     return {"launches": g["launches"], "k1_shapes": g["k1_shapes"], "k2_launches": g["k2_launches"],
-            "k2_sizes": g["k2_sizes"], "rmse_px": rmse, **summary, **waits, "cfg": cfg, "prm": prm, "src": src,
-            "recs": g["recs"]}
+            "k2_sizes": g["k2_sizes"], "junction_shapes": g["junction_shapes"], "rmse_px": rmse, **summary, **waits,
+            "cfg": cfg, "prm": prm, "src": src, "recs": g["recs"]}
 
 
 # The DINOv2 path: the dinov2-g14-reg preset's block and prefix at 2 of its
@@ -1190,14 +1316,18 @@ def run_dinov2_path() -> dict:
         want = {(1, spec.heads, t): DINOV2_DEPTH * forwards}
         kind = "graph" if run["graphs"] else "eager"
         print(f"  dinov2 path, {kind} run: K1 {run['k1_shapes']}, SwiGLU {run['swiglu_shapes']} (expected "
-              f"{DINOV2_DEPTH} x {forwards} forwards each)", flush=True)
+              f"{DINOV2_DEPTH} x {forwards} forwards each), pre-norm junction {run['junction_shapes']}", flush=True)
         check(run["k1_shapes"] == want, f"dinov2 path: K1 launches by shape {run['k1_shapes']} == {want}")
         check(run["swiglu_shapes"] == {(t, spec.mlp_dim): DINOV2_DEPTH * forwards},
               f"dinov2 path: SwiGLU launches by shape {run['swiglu_shapes']}")
+        check(run["junction_shapes"] == {(t, spec.dim): (2 * DINOV2_DEPTH + 1) * forwards},
+              f"dinov2 path: pre-norm junction launches by shape {run['junction_shapes']} (2 x {DINOV2_DEPTH} + 1 "
+              f"a forward)")
         check(bool(np.all(np.isfinite([r["position"] for r in run["recs"]]))), "dinov2 path: positions are finite")
     summary = check_turns(runs, "dinov2 path")
     g = runs[1]
-    return {"k1_shapes": g["k1_shapes"], "swiglu_shapes": g["swiglu_shapes"], **summary}
+    return {"k1_shapes": g["k1_shapes"], "swiglu_shapes": g["swiglu_shapes"], "junction_shapes": g["junction_shapes"],
+            **summary}
 
 
 def run_clip(path: dict) -> dict:
@@ -1307,6 +1437,10 @@ def run_robust_path() -> dict:
               f"{run['k2_launches']} (expected 0)", flush=True)
         check(scans >= 1 and accepts >= 1, f"at least one scan ({scans}) and one accepted match ({accepts})")
         check(run["k1_shapes"] == k1_expected, f"K1 launches by shape {run['k1_shapes']} == {k1_expected}")
+        junctions = junction_expected(k1_expected, cfg)
+        check(run["junction_shapes"] == junctions,
+              f"pre-norm junction launches by (M, D) {run['junction_shapes']} == {junctions} (2 x "
+              f"{cfg.model.depth} + 1 + 2 x {cfg.model.head_depth} + 1 a forward)")
         check(run["k2_launches"] == 0, "no K2 launch on the dense robust path")
         check(len(recs) == frames - 1, f"{len(recs)} records for {frames} frames")
         pos = np.array([r["position"] for r in recs])
@@ -1330,7 +1464,8 @@ def run_robust_path() -> dict:
     summary = check_turns(runs, "robust path")
     waits = check_waits(runs[2]["tracker"], list(src)[1:], 0, "robust path")
     return {"launches": g["launches"], "k1_shapes": g["k1_shapes"], "k2_launches": g["k2_launches"],
-            "k2_sizes": g["k2_sizes"], "rmse_px": g["rmse"], "lost": g["lost"], "scans": scans, "accepts": accepts,
+            "k2_sizes": g["k2_sizes"], "junction_shapes": g["junction_shapes"], "rmse_px": g["rmse"],
+            "lost": g["lost"], "scans": scans, "accepts": accepts,
             "probes": probes, "trunk_regen_s": regen_s, **summary, **waits, "cfg": cfg, "prm": tracker.vit_params,
             "src": src, "recs": g["recs"]}
 
@@ -1900,11 +2035,15 @@ def run_bench(i: int) -> dict:
           f"{name}: K1 launches by (B, H, T) {counts['k1_shapes']}: {depth} a forward at {shape}, "
           f"{least} to {most}")
     check(counts["k2_launches"] == 0, f"{name}: no K2 launch")
+    junctions = junction_expected({shape: launches}, cfg)
+    check(counts["junction_shapes"] == junctions,
+          f"{name}: pre-norm junction launches by (M, D) {counts['junction_shapes']} == {junctions}")
     probes = launches // depth - 1 - r["steps"]
     line = {k: r[k] for k in BENCH_KEYS}
     print(f"  {name}: " + json.dumps({**line, "k1_shapes": {str(k): v for k, v in counts["k1_shapes"].items()},
                                       "probes": probes}), flush=True)
-    return {**line, "config": r["config"], "k1_shapes": counts["k1_shapes"], "probes": probes}
+    return {**line, "config": r["config"], "k1_shapes": counts["k1_shapes"],
+            "junction_shapes": counts["junction_shapes"], "probes": probes}
 
 
 def run_eval3_track() -> dict:
@@ -3109,7 +3248,7 @@ def main() -> int:
 
     t0 = time.perf_counter()
     built = _build.build_libraries(["flash_attn.cu", "window_patchify.cu", "graph_if.cu", "peer_allreduce.cu",
-                                    "step_noise.cu", "swiglu.cu"])
+                                    "step_noise.cu", "swiglu.cu", "prenorm_junction.cu"])
     for source, (_, rec) in built.items():
         print(f"  nvcc build of {source}: {rec['seconds']:.2f} s (built={rec['built']}) -> {rec['so']}")
         for line in rec["ptxas"].splitlines():
@@ -3133,6 +3272,7 @@ def main() -> int:
     check_if_node()
     check_step_noise()
     swiglu_errs = check_swiglu()
+    junction_errs = check_prenorm_junction()
     phase("kernel", t0)
 
     t0 = time.perf_counter()
@@ -3198,6 +3338,7 @@ def main() -> int:
     for shape in NOISE_SHAPES:
         noise_times.update(time_step_noise(*shape))
     swiglu_times = {shape: time_swiglu(*shape) for shape in SWIGLU_SHAPES[:2]}
+    junction_times = {shape: time_prenorm_junction(*shape) for shape in JUNCTION_SHAPES[:JUNCTION_CELLS + 2]}
     phase("times", t0)
 
     # One entry per kernel, main path and shape: K1 at the dense path's
@@ -3346,7 +3487,28 @@ def main() -> int:
                            shape=list(SWIGLU_SHAPES[1]), launches=0,
                            max_abs_err=swiglu_errs[(*SWIGLU_SHAPES[1], torch.bfloat16)][0],
                            **swiglu_times[SWIGLU_SHAPES[1]]))
-    check(all(r["launches"] > 0 for r in k1_rows + k2_rows + peer_rows + noise_rows + swiglu_rows),
+    # The pre-norm junction: at the dense, crop and dinov2 paths' forwards
+    # (ViT-B/16's window, its 1024 particles of 4 tokens, DINOv2 ViT-g/14's
+    # window) and eval1's f32 window; the other cells' shapes timed only.
+    junction_common = dict(name="prenorm_junction", route="cuda",
+                           source="vitparticlefiltertracker_tpu_torch/csrc/prenorm_junction.cu",
+                           replaces="none: XLA fuses the JAX package's layer norm and residual adds itself")
+    junction_rows, run_shapes = [], {}
+    for path, shape, run in (("dense", JUNCTION_SHAPES[3], main_path), ("crop", JUNCTION_SHAPES[4], crop_path),
+                             (f"dinov2 (dinov2-g14-reg cut to {DINOV2_DEPTH} blocks)", JUNCTION_SHAPES[2], dinov2_path),
+                             ("bench eval1", JUNCTION_SHAPES[5], bench["eval1-cpu-synthetic"])):
+        m, d, dtype = shape
+        run_shapes[shape] = run
+        junction_rows.append(dict(**junction_common, path=path, shape=[m, d], dtype=str(dtype).removeprefix("torch."),
+                                  launches=run["junction_shapes"].get((m, d), 0),
+                                  max_abs_err=junction_errs[(m, d, dtype, True, True)]["max_abs_err"],
+                                  **junction_times[shape]))
+    multi_card += [dict(**junction_common, path="a benchmark cell's forward: timed only (no path here)", shape=[m, d],
+                        dtype=str(dtype).removeprefix("torch."), launches=0,
+                        max_abs_err=junction_errs[(m, d, dtype, True, True)]["max_abs_err"],
+                        **junction_times[(m, d, dtype)])
+                   for m, d, dtype in JUNCTION_SHAPES[:JUNCTION_CELLS] if (m, d, dtype) not in run_shapes]
+    check(all(r["launches"] > 0 for r in k1_rows + k2_rows + peer_rows + noise_rows + swiglu_rows + junction_rows),
           "every kernel row was launched on its main path")
     path_keys = ("step_ms_median", "eager_step_ms_median", "turn_medians_ms", "bitwise", "max_pos_diff_px",
                  "rmse_px", "waits_per_step", "waits_in_clip")
@@ -3368,7 +3530,8 @@ def main() -> int:
                                      for label, run in (("eval5-roi-c4", eval5), ("eval5-roi-teleport-c4", teleport),
                                                         ("adaptive", adaptive), ("crop-roi", crop_roi))},
                       "chunk_equals_steps": chunk_eq,
-                      "bench": {name: {k: v for k, v in b.items() if k != "k1_shapes"} for name, b in bench.items()},
+                      "bench": {name: {k: v for k, v in b.items() if not k.endswith("_shapes")}
+                                for name, b in bench.items()},
                       "eval3_track": {k: v for k, v in eval3.items() if k != "k1_shapes"},
                       "train": {"parity": train["parity"],
                                 **{name: {k: v for k, v in run.items() if "k1_shapes" not in k}
@@ -3381,7 +3544,8 @@ def main() -> int:
                                               "max_abs_err": k2_window_errs[(8, 1024, torch.bfloat16)]}}))
     print(f"[phase] total: {time.perf_counter() - t_start:.2f} s", flush=True)
     print(f"card: {smi}")
-    print(json.dumps({"kernels": k1_rows + k2_rows + peer_rows + noise_rows + swiglu_rows + multi_card}))
+    print(json.dumps({"kernels": k1_rows + k2_rows + peer_rows + noise_rows + swiglu_rows + junction_rows
+                                 + multi_card}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
     return 0

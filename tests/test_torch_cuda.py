@@ -15,7 +15,7 @@ import pytest
 import torch
 
 # K2's cases, inputs and tolerances (as tests/test_patchify_pallas.py)
-from chip_smoke import K2_DIMS, K2_NS, K2_SWINS, K2_TOL, k2_inputs
+from chip_smoke import JUNCTION_SHAPES, K2_DIMS, K2_NS, K2_SWINS, K2_TOL, k2_inputs
 from vitparticlefiltertracker_tpu_torch.config import Config
 from vitparticlefiltertracker_tpu_torch.ops import attention
 from vitparticlefiltertracker_tpu_torch.ops import patchify_window as pw
@@ -404,6 +404,130 @@ def test_swiglu_kernel_refuses_what_it_does_not_take(cuda_device):
         sg.swiglu(x.half())
     with pytest.raises(ValueError, match="multiple of 8"):
         sg.swiglu(torch.zeros((4, 24), device=cuda_device, dtype=torch.bfloat16))
+
+
+@pytest.mark.parametrize("with_bias", [True, False], ids=["bias", "no-bias"])
+@pytest.mark.parametrize("with_branch", [True, False], ids=["branch", "no-branch"])
+@pytest.mark.parametrize("m,d,dtype", JUNCTION_SHAPES, ids=[f"{m}x{d}-{str(t)[6:]}" for m, d, t in JUNCTION_SHAPES])
+def test_prenorm_junction_matches_plain_form(cuda_device, m, d, dtype, with_branch, with_bias):
+    """The pre-norm junction kernel (csrc/prenorm_junction.cu) at the
+    benchmark cells' forwards ([3136, 768], [196, 1024], [261, 1536], [196,
+    768]), the crop path's [4096, 768], f32 at [196, 768] and a width of 64,
+    with and without the branch and its bias, against its plain form: x_new
+    bitwise, y within one bf16 ulp (the same formulas, the two sums in
+    another order; f32 within 8 ulps of the row's unit scale:
+    chip_smoke.JUNCTION_ULP), under 0.1 % of y not bitwise in bf16; one
+    launch counted under (M, D). A bias without its branch is refused, and
+    nothing launched."""
+    from chip_smoke import JUNCTION_ULP, junction_errors, junction_inputs
+
+    from vitparticlefiltertracker_tpu_torch.ops import prenorm_junction as pj
+
+    before = pj.prenorm_junction.shapes[(m, d)]
+    if with_bias and not with_branch:
+        with pytest.raises(ValueError, match="bias comes with its branch"):
+            pj.prenorm_junction(*junction_inputs(m, d, dtype, False, True), dtype, 1e-6)
+        assert pj.prenorm_junction.shapes[(m, d)] == before
+        return
+    e = junction_errors(junction_inputs(m, d, dtype, with_branch, with_bias, seed=m + d), dtype)
+    assert pj.prenorm_junction.shapes[(m, d)] == before + 1
+    assert e["x_new_bitwise"]
+    assert e["max_ulp"] <= JUNCTION_ULP[dtype][2], e
+    assert dtype == torch.float32 or e["differ"] < 1e-3, e
+
+
+def test_prenorm_junction_reads_bf16_layer_norm_parameters(cuda_device, monkeypatch):
+    """The committed ViT-B/16 checkpoint stores its LayerNorms' scale and
+    shift in bf16. cast_for_inference widens them to f32, the one form the
+    kernel reads; the forward on the card is then within the bf16 tolerance
+    of the same forward with the plain LayerNorm chain on the checkpoint's
+    bf16 parameters, the junction launched 2 depth + 1 times."""
+    from vitparticlefiltertracker_tpu_torch.config import load_config
+    from vitparticlefiltertracker_tpu_torch.models import params as tparams
+    from vitparticlefiltertracker_tpu_torch.models import vit
+    from vitparticlefiltertracker_tpu_torch.ops import prenorm_junction as pj
+
+    spec = vit.VitSpec.from_config(load_config("configs/eval2-tpu-occlusion.yaml").model)._replace(head_depth=0)
+    stored = tparams.load_params("checkpoints/vit_b16_tracking.npz", cuda_device)
+    stored = {k: v for k, v in stored.items() if k != "head"}
+    assert stored["blocks"]["ln1"]["scale"].dtype == torch.bfloat16
+    prm = tparams.cast_for_inference(stored, spec)
+    assert prm["blocks"]["ln1"]["scale"].dtype == prm["ln_final"]["bias"].dtype == torch.float32
+    images = torch.rand(2, spec.image_size, spec.image_size, 3, generator=torch.Generator().manual_seed(5)).to(
+        cuda_device)
+    before = pj.prenorm_junction.launches
+    got = vit.vit_forward_tokens(prm, images, spec)
+    torch.cuda.synchronize()
+    assert pj.prenorm_junction.launches - before == 2 * spec.depth + 1
+    bf16_lns = dict(prm, ln_final=stored["ln_final"],
+                    blocks=dict(prm["blocks"], ln1=stored["blocks"]["ln1"], ln2=stored["blocks"]["ln2"]))
+    monkeypatch.setattr(vit, "prenorm_junction", pj.prenorm_junction_plain)
+    want = vit.vit_forward_tokens(bf16_lns, images, spec)
+    torch.testing.assert_close(got.float(), want.float(), rtol=TOL[torch.bfloat16], atol=TOL[torch.bfloat16])
+
+
+def test_prenorm_junction_refuses_what_it_does_not_take(cuda_device):
+    from chip_smoke import junction_inputs
+
+    from vitparticlefiltertracker_tpu_torch.ops import prenorm_junction as pj
+
+    x, br, bi, sc, sh = junction_inputs(8, 64, torch.bfloat16)
+    bf = torch.bfloat16
+    with pytest.raises(RuntimeError, match="no backward"):
+        pj.prenorm_junction(x.clone().requires_grad_(True), br, bi, sc, sh, bf, 1e-6)
+    with pytest.raises(RuntimeError, match="no backward"):
+        pj.prenorm_junction(x, br, bi, sc.clone().requires_grad_(True), sh, bf, 1e-6)
+    wide = torch.zeros((8, 128), device=cuda_device, dtype=bf)
+    with pytest.raises(ValueError, match="contiguous"):
+        pj.prenorm_junction(wide[:, ::2], br, bi, sc, sh, bf, 1e-6)
+    with pytest.raises(ValueError, match="contiguous"):
+        pj.prenorm_junction(x, wide[:, ::2], bi, sc, sh, bf, 1e-6)
+    with pytest.raises(ValueError, match="compute dtype"):
+        pj.prenorm_junction(x.float(), br, bi, sc, sh, bf, 1e-6)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        pj.prenorm_junction(torch.zeros((4, 60), device=cuda_device, dtype=bf), None, None,
+                            torch.ones(60, device=cuda_device), torch.zeros(60, device=cuda_device), bf, 1e-6)
+    with pytest.raises(ValueError, match="must be float32"):
+        pj.prenorm_junction(x, br, bi, sc.to(bf), sh.to(bf), bf, 1e-6)
+    with pytest.raises(ValueError, match="bias comes with its branch"):
+        pj.prenorm_junction(x, None, bi, sc, sh, bf, 1e-6)
+
+
+@pytest.mark.parametrize("family", ["vit-b16", "dinov2-g14"])
+def test_forward_with_junctions_matches_the_plain_layer_norm_forward(cuda_device, family, monkeypatch):
+    """vit_forward_tokens on the card at ViT-B/16's widths (with a residual
+    head) and DINOv2 ViT-g/14's (SwiGLU, a class token and 4 registers on a
+    224-px window), cut to 2 blocks: the junction kernel 2 depth + 1 times a
+    forward (2 head_depth + 1 more with the head), and the tokens within the
+    bf16 tolerance of the same forward with the plain LayerNorm chain."""
+    import plain_dinov2
+
+    from vitparticlefiltertracker_tpu_torch.models import params as tparams
+    from vitparticlefiltertracker_tpu_torch.models import vit
+    from vitparticlefiltertracker_tpu_torch.ops import prenorm_junction as pj
+
+    if family == "vit-b16":
+        spec = vit.VitSpec(depth=2, head_depth=1, use_pos_embed=False)
+        prm = tparams.init_vit_params(tparams.jax_random.key(3), spec, "cuda")
+        junctions = 2 * 2 + 1 + 2 * 1 + 1
+    else:
+        spec = vit.VitSpec(depth=2, dim=1536, heads=24, mlp_dim=4096, patch_size=14, use_cls_token=True,
+                           use_pos_embed=False, ffn="swiglu", registers=4)
+        tree = plain_dinov2.draw_tree(3, 2, 1536, 24, 4096, 14, 4)
+        prm = tparams._map(tree, lambda t: t.to(cuda_device))
+        junctions = 2 * 2 + 1
+    prm = tparams.cast_for_inference(prm, spec)
+    images = torch.randn(2, 224, 224, 3, generator=torch.Generator().manual_seed(3)).to(cuda_device)
+    before = pj.prenorm_junction.launches
+    got = vit.vit_forward_tokens(prm, images, spec)
+    torch.cuda.synchronize()
+    assert pj.prenorm_junction.launches - before == junctions
+    t = spec.num_prefix + spec.num_patches
+    assert pj.prenorm_junction.shapes[(2 * t, spec.dim)] >= junctions
+    monkeypatch.setattr(vit, "prenorm_junction", pj.prenorm_junction_plain)
+    want = vit.vit_forward_tokens(prm, images, spec)
+    assert pj.prenorm_junction.launches - before == junctions
+    torch.testing.assert_close(got.float(), want.float(), rtol=TOL[torch.bfloat16], atol=TOL[torch.bfloat16])
 
 
 def test_dinov2_tracker_launches_both_kernels(cuda_device):

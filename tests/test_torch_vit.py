@@ -20,6 +20,7 @@ from vitparticlefiltertracker_tpu.models import vit as jvit
 from vitparticlefiltertracker_tpu_torch import bridge
 from vitparticlefiltertracker_tpu_torch.models import params as tparams
 from vitparticlefiltertracker_tpu_torch.models import vit as tvit
+from vitparticlefiltertracker_tpu_torch.ops.prenorm_junction import layer_norm_plain
 
 CKPT = "checkpoints/vit_b16_tracking.npz"
 
@@ -85,7 +86,7 @@ def test_pool_tokens_and_layer_norm_match_jax():
     p = {"scale": rng.standard_normal(32).astype(np.float32),
          "bias": rng.standard_normal(32).astype(np.float32)}
     want = np.asarray(jvit._layer_norm(jnp.asarray(x), jax.tree.map(jnp.asarray, p), jnp.float32, 1e-6))
-    got = tvit._layer_norm(torch.from_numpy(x), {k: torch.from_numpy(v) for k, v in p.items()},
+    got = layer_norm_plain(torch.from_numpy(x), torch.from_numpy(p["scale"]), torch.from_numpy(p["bias"]),
                            torch.float32, 1e-6).numpy()
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
     spec = tvit.VitSpec(dim=32)

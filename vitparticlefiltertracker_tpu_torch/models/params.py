@@ -245,16 +245,19 @@ def fold_layer_scale(blocks: dict) -> dict:
 
 
 def cast_for_inference(params: dict, spec: VitSpec) -> dict:
-    """Fold LayerScale into the blocks (fold_layer_scale), then pre-cast the
-    block matmul weights (trunk and head) and the cls/register/pos
-    embeddings to the compute dtype once; LN params and patch_embed keep
-    their stored dtype. Without LayerScale the values are bit-identical to
+    """Fold LayerScale into the blocks (fold_layer_scale), widen the LN
+    params to f32 (the one form the pre-norm junction kernel reads; exact,
+    and the LN's f32 statistics promote them to f32 at use anyway), then
+    pre-cast the block matmul weights (trunk and head) and the
+    cls/register/pos embeddings to the compute dtype once; patch_embed keeps
+    its stored dtype. Without LayerScale the values are bit-identical to
     casting at every use."""
     dt = spec.dtype
     if "ls1" in params["blocks"]:
         params = dict(params, blocks=fold_layer_scale(params["blocks"]))
     if "head" in params and "ls1" in params["head"]["blocks"]:
         params["head"] = dict(params["head"], blocks=fold_layer_scale(params["head"]["blocks"]))
+    params = _widen_layer_norms(params)
     if dt == torch.float32:
         return params
 
@@ -267,6 +270,28 @@ def cast_for_inference(params: dict, spec: VitSpec) -> dict:
     for k in ("cls_token", "reg_tokens", "pos_embed"):
         if out.get(k) is not None:
             out[k] = out[k].to(dt)
+    return out
+
+
+def _widen_layer_norms(params: dict) -> dict:
+    """The tree with every LayerNorm's scale and bias (the blocks' ln1 and
+    ln2, ln_final, the head's blocks and ln) in f32; the tree itself where
+    they all are."""
+    lns = [params["blocks"]["ln1"], params["blocks"]["ln2"], params["ln_final"]]
+    if "head" in params:
+        lns += [params["head"]["blocks"]["ln1"], params["head"]["blocks"]["ln2"], params["head"]["ln"]]
+    if all(v.dtype == torch.float32 for ln in lns for v in ln.values()):
+        return params
+
+    def widen(ln: dict) -> dict:
+        return {k: v.float() for k, v in ln.items()}
+
+    def blocks(b: dict) -> dict:
+        return dict(b, ln1=widen(b["ln1"]), ln2=widen(b["ln2"]))
+
+    out = dict(params, blocks=blocks(params["blocks"]), ln_final=widen(params["ln_final"]))
+    if "head" in params:
+        out["head"] = dict(params["head"], blocks=blocks(params["head"]["blocks"]), ln=widen(params["head"]["ln"]))
     return out
 
 

@@ -4,7 +4,11 @@
 Parameters are the same nested dict as in the JAX package (blocks stacked on
 a leading depth axis), holding torch tensors. Layer norm takes its statistics
 in f32 whatever the compute dtype; the fused ``wqkv`` columns are laid out
-head-major (h, 3, hd); GELU is the exact (erf) form. Attention goes through
+head-major (h, 3, hd); GELU is the exact (erf) form. Each LayerNorm is a
+pre-norm junction (``ops.prenorm_junction``): it adds the residual branch
+still pending from before it (the previous product and its bias) and
+normalises the sum, one kernel on CUDA tensors, today's torch chain on CPU
+tensors and in a spec with ``use_flash_attention`` False. Attention goes through
 ``ops.attention.multi_head_attention`` (kernel K1 on CUDA tensors, the plain
 version on CPU tensors; forward only), or, in a spec with
 ``use_flash_attention`` False (the trainer's), through the plain version on
@@ -34,6 +38,7 @@ from vitparticlefiltertracker_tpu_torch.ops.attention import (
     reference_attention,
     split_fused_qkv,
 )
+from vitparticlefiltertracker_tpu_torch.ops.prenorm_junction import prenorm_junction, prenorm_junction_plain
 from vitparticlefiltertracker_tpu_torch.ops.swiglu import swiglu, swiglu_plain
 from vitparticlefiltertracker_tpu_torch.parallel.mesh import row_parallel_sum
 
@@ -116,15 +121,6 @@ class VitSpec(NamedTuple):
         )
 
 
-def _layer_norm(x: torch.Tensor, p: dict, dtype: torch.dtype, eps: float = 1e-6) -> torch.Tensor:
-    """LN with f32 statistics regardless of compute dtype (population var)."""
-    xf = x.float()
-    mu = xf.mean(dim=-1, keepdim=True)
-    var = (xf - mu).square().mean(dim=-1, keepdim=True)
-    y = (xf - mu) * torch.rsqrt(var + eps)
-    return (y * p["scale"] + p["bias"]).to(dtype)
-
-
 def patchify(images: torch.Tensor, patch_size: int) -> torch.Tensor:
     """[B, H, W, C] -> [B, T, p*p*C] token pixels, (py, px, c) order."""
     b, hh, ww, c = images.shape
@@ -134,21 +130,44 @@ def patchify(images: torch.Tensor, patch_size: int) -> torch.Tensor:
     return x.reshape(b, gh * gw, p * p * c)
 
 
-def _row_parallel(y: torch.Tensor, w: torch.Tensor, bias: torch.Tensor, spec: VitSpec) -> torch.Tensor:
-    """y @ w + bias; under a mesh, y @ w is this rank's partial sum, so the
-    sum over "model" comes first (parallel/mesh.py row_parallel_sum: in f32,
-    in rank order) and the (replicated) bias is added once."""
-    if spec.mesh is None:
-        return y @ w.to(spec.dtype) + bias.to(spec.dtype)
-    return row_parallel_sum(y, w.to(spec.dtype), bias.to(spec.dtype), spec.mesh)
+def _residual(y: torch.Tensor, w: torch.Tensor, bias: torch.Tensor, ls: dict | None,
+              spec: VitSpec) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """A branch's residual y @ w + bias as (branch, bias) for the next
+    junction, which adds the bias where the plain chain did. Under a mesh
+    y @ w is this rank's partial sum, so the sum over "model" comes first
+    (parallel/mesh.py row_parallel_sum: in f32, in rank order) and adds the
+    (replicated) bias once; a LayerScale gamma, where the tree holds one,
+    scales the branch with its bias. In both cases the branch carries the
+    bias and the bias returned is None."""
+    if spec.mesh is not None:
+        branch, bias = row_parallel_sum(y, w.to(spec.dtype), bias.to(spec.dtype), spec.mesh), None
+    else:
+        branch, bias = y @ w.to(spec.dtype), bias.to(spec.dtype)
+    if ls is None:
+        return branch, bias
+    branch = branch if bias is None else branch + bias
+    return branch * ls["gamma"].to(branch.dtype), None
 
 
-def _block(x: torch.Tensor, p: dict, spec: VitSpec) -> torch.Tensor:
+def _junction(x: torch.Tensor, branch: torch.Tensor | None, bias: torch.Tensor | None, ln: dict,
+              spec: VitSpec) -> tuple[torch.Tensor, torch.Tensor]:
+    """(x + (branch + bias), its LN ln) in one pass (ops/prenorm_junction.py:
+    the kernel on the card, the plain chain on the CPU; the plain,
+    differentiable chain where attention is plain too)."""
+    op = prenorm_junction if spec.use_flash_attention else prenorm_junction_plain
+    return op(x, branch, bias, ln["scale"], ln["bias"], spec.dtype, spec.ln_eps)
+
+
+def _block(x: torch.Tensor, pending: tuple, p: dict, spec: VitSpec) -> tuple[torch.Tensor, tuple]:
+    """One block on the stream x, whose last residual `pending` (branch,
+    bias; None, None for none) the block's first junction adds -> (the
+    stream with the attention residual added, the FFN's residual, left
+    pending for the next junction)."""
     b, t, d = x.shape
     h = spec.heads if spec.mesh is None else spec.heads // spec.mesh.shape["model"]
     dtype = spec.dtype
 
-    y = _layer_norm(x, p["ln1"], dtype, spec.ln_eps)
+    x, y = _junction(x, *pending, p["ln1"], spec)
     qkv = y @ p["attn"]["wqkv"].to(dtype) + p["attn"]["bqkv"].to(dtype)
     # Fused qkv columns are head-major (h, 3, hd), as in the JAX package; q,
     # k and v are [B, H, T, hd] views of it. On the card K1 reads them in
@@ -156,9 +175,8 @@ def _block(x: torch.Tensor, p: dict, spec: VitSpec) -> torch.Tensor:
     attend = multi_head_attention if spec.use_flash_attention else reference_attention
     o = attend(*split_fused_qkv(qkv, h))  # [B, H, T, hd]
     o = o.transpose(1, 2).reshape(b, t, -1)
-    x = x + _scaled(_row_parallel(o, p["attn"]["wo"], p["attn"]["bo"], spec), p.get("ls1"))
 
-    y = _layer_norm(x, p["ln2"], dtype, spec.ln_eps)
+    x, y = _junction(x, *_residual(o, p["attn"]["wo"], p["attn"]["bo"], p.get("ls1"), spec), p["ln2"], spec)
     mlp = p["mlp"]
     if spec.ffn == "swiglu":
         # [gate | up] of this rank's hidden columns (parallel/mesh.py cuts
@@ -166,15 +184,10 @@ def _block(x: torch.Tensor, p: dict, spec: VitSpec) -> torch.Tensor:
         # the plain, differentiable form where attention is plain too).
         gate = swiglu if spec.use_flash_attention else swiglu_plain
         y = gate(y @ mlp["w12"].to(dtype) + mlp["b12"].to(dtype))
-        return x + _scaled(_row_parallel(y, mlp["w3"], mlp["b3"], spec), p.get("ls2"))
+        return x, _residual(y, mlp["w3"], mlp["b3"], p.get("ls2"), spec)
     y = y @ mlp["w1"].to(dtype) + mlp["b1"].to(dtype)
     y = torch.nn.functional.gelu(y, approximate="none")
-    return x + _scaled(_row_parallel(y, mlp["w2"], mlp["b2"], spec), p.get("ls2"))
-
-
-def _scaled(branch: torch.Tensor, ls: dict | None) -> torch.Tensor:
-    """A residual branch times its LayerScale gamma, where the tree holds it."""
-    return branch if ls is None else branch * ls["gamma"].to(branch.dtype)
+    return x, _residual(y, mlp["w2"], mlp["b2"], p.get("ls2"), spec)
 
 
 def _block_params(blocks: dict, i: int) -> dict:
@@ -210,17 +223,21 @@ def encode_tokens(params: dict, x: torch.Tensor, spec: VitSpec) -> torch.Tensor:
         cls_part = 1 if spec.use_cls_token else 0
         reg = params["reg_tokens"].to(dtype).expand(b, spec.registers, spec.dim)
         x = torch.cat([x[:, :cls_part], reg, x[:, cls_part:]], dim=1)
+    # Each block leaves its FFN residual pending: the next block's first
+    # junction, or the final LN's, adds it.
+    pending = (None, None)
     for i in range(spec.depth):
-        x = _block(x, _block_params(params["blocks"], i), spec)
-    trunk = _layer_norm(x, params["ln_final"], dtype, spec.ln_eps)
+        x, pending = _block(x, pending, _block_params(params["blocks"], i), spec)
+    x, trunk = _junction(x, *pending, params["ln_final"], spec)
     if spec.head_depth <= 0:
         return trunk
     # The head continues the stream from before the final LN (a readout, not
     # part of the pre-LN stream) and ends in its own LN; the trunk half is
     # the headless forward's output.
+    pending = (None, None)
     for i in range(spec.head_depth):
-        x = _block(x, _block_params(params["head"]["blocks"], i), spec)
-    head = _layer_norm(x, params["head"]["ln"], dtype, spec.ln_eps)
+        x, pending = _block(x, pending, _block_params(params["head"]["blocks"], i), spec)
+    _, head = _junction(x, *pending, params["head"]["ln"], spec)
     return torch.cat([trunk, head], dim=-1)
 
 

@@ -214,3 +214,16 @@ def swiglu_library() -> ctypes.CDLL:
         fn.argtypes = [p, p, ll, ll, i, i, p]
         fn.restype = i
     return lib
+
+
+def prenorm_junction_library() -> ctypes.CDLL:
+    """The pre-norm junction kernel's library (ops/prenorm_junction.py), with
+    argtypes set as for flash_attn_library."""
+    lib, _ = build_library("prenorm_junction.cu")
+    fn = lib.vpt_prenorm_junction
+    if fn.argtypes is None:
+        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        # x, branch, bias, scale, shift, x_new, y, m, d, dtype, eps, vpl, warps, blocks, stream
+        fn.argtypes = [p, p, p, p, p, p, p, ll, i, i, ctypes.c_float, i, i, i, p]
+        fn.restype = i
+    return lib

@@ -50,14 +50,15 @@ import torch
 
 from vitparticlefiltertracker_tpu_torch.filters.particle import PFState, StepNoise
 from vitparticlefiltertracker_tpu_torch.ops import attention
-from vitparticlefiltertracker_tpu_torch.ops import patchify_window, peer_allreduce, step_noise, swiglu
+from vitparticlefiltertracker_tpu_torch.ops import patchify_window, peer_allreduce, prenorm_junction, step_noise, swiglu
 from vitparticlefiltertracker_tpu_torch.parallel import mesh
 
 # Each counted call (the kernel wrappers, then the mesh's collectives) with
 # the name of its by-shape Counter.
 _COUNTED = ((attention.flash_attention, "shapes"), (patchify_window.gather_patchify_window, "sizes"),
             (mesh.all_gather, "shapes"), (mesh.all_reduce, "shapes"), (peer_allreduce.peer_all_reduce, "shapes"),
-            (step_noise.step_noise, "shapes"), (swiglu.swiglu, "shapes"))
+            (step_noise.step_noise, "shapes"), (swiglu.swiglu, "shapes"),
+            (prenorm_junction.prenorm_junction, "shapes"))
 
 
 def read_counts() -> list[tuple[int, Counter]]:

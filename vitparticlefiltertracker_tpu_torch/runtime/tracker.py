@@ -901,7 +901,8 @@ class StagingRing:
             slots.append((torch.empty(key[0], dtype=key[1]).pin_memory(), torch.cuda.Event()))
 
     def stage(self, frame: np.ndarray) -> torch.Tensor:
-        src = torch.from_numpy(np.ascontiguousarray(frame))
+        arr = np.ascontiguousarray(frame)
+        src = torch.from_numpy(arr)
         key = (tuple(src.shape), src.dtype)
         slots = self._slots.setdefault(key, [])
         turn = self._turn.get(key, 0)
@@ -914,7 +915,10 @@ class StagingRing:
             if not slot[1].query():
                 SPANS.count("staging_waits")
                 slot[1].synchronize()
-        slot[0].copy_(src)
+        # numpy's copy, on this thread alone: torch's CPU copy_ hands a frame
+        # to the intra-op pool, whose threads then spin on the host's cores
+        # and hold the stream pipeline's other threads off for milliseconds.
+        np.copyto(slot[0].numpy(), arr)
         self._pending.append(slot)
         return slot[0]
 
